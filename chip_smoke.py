@@ -1,0 +1,613 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of SA-Solver on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each against its plain PyTorch version, then samples a full-width
+DiT-XL/2 (28 layers, d_model 1152, latent [8, 256, 16]) with SA-Solver
+through the port's public entry points and the kernels, and an SA solve of
+the GMM oracle. Each phase prints one JSON line; any failed check raises,
+and the script then exits non-zero without the success line. The last two
+lines are the ``kernels`` summary and
+``{"ok": true, "device": {"platform": "gpu", ...}}``; the card's name and
+power limit (as nvidia-smi reports them) come just before them.
+
+Imports nothing of JAX or of the JAX package. Needs one CUDA card, nvcc
+and the repository's ``src/`` next to this script.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+REPLACES = {
+    "sa_update": "src/repro/kernels/sa_update.py:88",
+    "sa_fused": "src/repro/kernels/sa_fused.py:43",
+    "flash_attention": "src/repro/kernels/flash_attention.py:40",
+}
+SOURCES = {
+    "sa_update": "src/repro_torch/kernels/csrc/sa_combine.cu",
+    "sa_fused": "src/repro_torch/kernels/csrc/sa_combine.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+}
+TOL = {
+    "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
+    "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
+    "bf16": "|kernel - plain| <= 1 bf16 ulp of max(|plain|, max|plain|/256)",
+}
+# DiT-XL/2 main path
+SHAPE = (8, 256, 16)
+NFE = 20
+GAP_LIMIT = 1e-4
+SW2_LIMIT = 0.05
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+
+
+# ------------------------------------------------------------ measurement
+def time_ms(fn, inner: int = 20, samples: int = 50) -> float:
+    """Median device time of one ``fn()`` in ms: ``inner`` calls captured
+    in a CUDA graph (so host launch overhead is not timed), the graph
+    replayed ``samples`` times between CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp of each value; values below 1/256 of the tensor's
+    largest magnitude (results of cancellation, where float32 round-off
+    alone exceeds their own ulp) get the ulp at that floor."""
+    import torch
+    a = ref.float().abs()
+    a = a.clamp_min(max(float(a.max()) * 2.0 ** -8, 2.0 ** -126))
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def compare(out, ref, kind: str) -> tuple[float, bool]:
+    """(max abs error, within tolerance) of kernel output vs plain."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        ok = bool((err <= bf16_ulp(ref)).all())
+    elif kind == "combine":
+        ok = bool((err <= 1e-6 + 1e-6 * ref.float().abs()).all())
+    else:
+        ok = float(err.max()) <= 2e-5 * max(1.0, float(ref.float().abs().max()))
+    return float(err.max()), ok
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def rel_gap(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+# ---------------------------------------------------------------- phases
+def phase_device() -> dict:
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return {"phase": "device", "ok": True,
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "nvidia_smi": smi.stdout.strip().splitlines()[0],
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                           "cudnn": torch.backends.cudnn.allow_tf32}}
+
+
+def _ptxas_summary(lines) -> list[str]:
+    """One line per kernel instance: name, type, template int, registers,
+    spills."""
+    out, name, spill = [], None, ""
+    pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|flash_kernel)"
+                     r"I(f|13__nv_bfloat16)Li(\d+)E")
+    for ln in lines:
+        m = pat.search(ln)
+        if "Compiling entry function" in ln and m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            name = f"{m.group(1)}<{dt},{m.group(3)}>"
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} regs; {spill}")
+            name, spill = None, ""
+    return out
+
+
+def phase_build() -> dict:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    log = _build.build()
+    wall = time.perf_counter() - t0
+    return {"phase": "build", "ok": True, "wall_s": wall,
+            "sources": {n: {"seconds": r["seconds"], "reused": r["reused"],
+                            "path": os.path.relpath(r["path"], ROOT),
+                            "ptxas": _ptxas_summary(r["ptxas"])}
+                        for n, r in log.items()}}
+
+
+def _combine_inputs(shape, P, dtype, seed):
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    x, buf, xi = rnd(shape), rnd((P,) + tuple(shape)), rnd(shape)
+    c1 = [0.9, 0.1] + [0.3 / (j + 1) for j in range(P)]
+    c2 = [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]
+    coeffs = torch.tensor([c1, c2], dtype=torch.float32, device="cuda")
+    return x, buf, xi, coeffs
+
+
+def _attn_inputs(B, H, K, S, T, hd, dtype, seed):
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    return rnd((B, H, S, hd)), rnd((B, K, T, hd)), rnd((B, K, T, hd))
+
+
+def phase_kernels(timings: dict) -> dict:
+    import torch
+    from repro_torch.kernels import ops
+    cases = []
+    for shape in (SHAPE, (1000003,), (4, 100, 7)):
+        for P in (1, 3, 5):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, buf, xi, c = _combine_inputs(shape, P, dtype, seed=P)
+                e1, ok1 = compare(ops.sa_update(x, buf, xi, c[0]),
+                                  ops.sa_update(x, buf, xi, c[0], mode="plain"),
+                                  "combine")
+                kp, kc = ops.sa_fused_update(x, buf, xi, c)
+                pp, pc = ops.sa_fused_update(x, buf, xi, c, mode="plain")
+                e2, ok2 = compare(kp, pp, "combine")
+                e3, ok3 = compare(kc, pc, "combine")
+                torch.cuda.synchronize()
+                cases.append({"kernel": "sa_update+sa_fused",
+                              "shape": list(shape), "P": P,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "sa_update_err": e1,
+                              "sa_fused_err": max(e2, e3),
+                              "ok": ok1 and ok2 and ok3})
+    attn = [  # (B, H, K, S, T, hd, causal)
+        (8, 16, 16, 256, 256, 72, False),   # DiT-XL/2
+        (8, 16, 16, 256, 256, 72, True),
+        (2, 16, 4, 256, 256, 72, True),     # GQA 4:1
+        (2, 4, 4, 257, 257, 72, False),     # ragged
+        (2, 4, 4, 257, 257, 72, True),
+        (2, 4, 2, 200, 200, 64, True),
+        (2, 4, 2, 130, 130, 128, False),
+    ]
+    for (B, H, K, S, T, hd, causal) in attn:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _attn_inputs(B, H, K, S, T, hd, dtype, seed=hd + S)
+            e, ok = compare(ops.flash_attention(q, k, v, causal=causal),
+                            ops.flash_attention(q, k, v, causal=causal,
+                                                mode="plain"), "attention")
+            torch.cuda.synchronize()
+            cases.append({"kernel": "flash_attention",
+                          "shape": [B, H, K, S, T, hd], "causal": causal,
+                          "dtype": str(dtype).replace("torch.", ""),
+                          "err": e, "ok": ok})
+    bad = [c for c in cases if not c["ok"]]
+    emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
+          "cases": cases})
+    require(not bad, f"kernels disagree with their plain versions: {bad}")
+
+    # times at the main path's shapes (f32): sa_update as the kernel
+    # combine's predictor call (P=3), sa_fused with P=3, attention at
+    # DiT-XL/2's (8, 16, 256, 72)
+    n = math.prod(SHAPE)
+    x, buf, xi, c = _combine_inputs(SHAPE, 3, torch.float32, seed=11)
+    c0 = c[0].contiguous()
+    timings["sa_update"] = {
+        "ms": time_ms(lambda: ops.sa_update(x, buf, xi, c0)),
+        "plain_ms": time_ms(lambda: ops.sa_update(x, buf, xi, c0, mode="plain")),
+        "library_ms": None,
+        "bound": bound((3 + 2 + 1) * n * 4 + 5 * 4, (2 * 3 + 3) * n),
+        "shape": [3, *SHAPE]}
+    timings["sa_fused"] = {
+        "ms": time_ms(lambda: ops.sa_fused_update(x, buf, xi, c)),
+        "plain_ms": time_ms(lambda: ops.sa_fused_update(x, buf, xi, c,
+                                                        mode="plain")),
+        "library_ms": None,
+        "bound": bound((3 + 2 + 2) * n * 4 + 10 * 4, 2 * (2 * 3 + 3) * n),
+        "shape": [3, *SHAPE]}
+    B, H, S, hd = 8, 16, 256, 72
+    q, k, v = _attn_inputs(B, H, H, S, S, hd, torch.float32, seed=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timings["flash_attention"] = {
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=False)),
+        "plain_ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=False,
+                                                        mode="plain")),
+        "library_ms": time_ms(lambda: sdpa(q, k, v)),
+        "bound": bound(4 * B * H * S * hd * 4, 4 * B * H * S * S * hd),
+        "shape": [B, H, S, hd]}
+    return {"phase": "kernel_times", "ok": True, "card_peaks": {
+        "bytes_per_s": PEAK_BYTES_PER_S, "f32_flop_per_s": PEAK_F32_FLOP_PER_S},
+        "times": {name: {**t, "bound_ms": t["bound"][0],
+                         "bound_by": t["bound"][1]}
+                  for name, t in timings.items()}}
+
+
+@contextlib.contextmanager
+def held_against_plain(record: dict):
+    """While active, every kernel call through ``kernels.ops`` is followed
+    by the plain version on the same inputs; ``record[name]`` keeps the
+    call count, the max abs error and whether every call was in
+    tolerance. The plain calls launch no kernel and count nothing."""
+    from repro_torch.kernels import ops
+    originals = {n: getattr(ops, n) for n in
+                 ("sa_update", "sa_fused_update", "flash_attention")}
+    names = {"sa_update": "sa_update", "sa_fused_update": "sa_fused",
+             "flash_attention": "flash_attention"}
+
+    def wrap(fn_name, fn):
+        kind = "attention" if fn_name == "flash_attention" else "combine"
+
+        def held(*args, **kw):
+            out = fn(*args, **kw)
+            ref = fn(*args, **dict(kw, mode="plain"))
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            rec = record.setdefault(names[fn_name], {
+                "calls": 0, "max_abs_err": 0.0, "ok": True})
+            rec["calls"] += 1
+            for o, r in zip(outs, refs):
+                e, ok = compare(o, r, kind)
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+                rec["ok"] = rec["ok"] and ok
+            return out
+        return held
+
+    for n, f in originals.items():
+        setattr(ops, n, wrap(n, f))
+    try:
+        yield record
+    finally:
+        for n, f in originals.items():
+            setattr(ops, n, f)
+
+
+def phase_main_path(state: dict) -> dict:
+    import torch
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.kernels import ops
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.models.common import ParamDef
+    from repro_torch.models.tame import (ensure_contractive, tame_dit,
+                                         tame_networks)
+    dev = torch.device("cuda")
+    schedule = get_schedule("vp_linear")
+    t0 = time.perf_counter()
+    model, params, mu = tame_dit("dit-xl-2", smoke=False, seed=0,
+                                 use_flash=True, device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    cfg = model.cfg
+    plain_model = TransformerLM(dataclasses.replace(cfg, use_flash=False))
+
+    def sampler(combine, precision):
+        return make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                            corrector_order=3, mode="PEC", combine=combine,
+                            precision=precision, schedule=schedule,
+                            prediction="x0")
+
+    probe = sampler("einsum", "f32")
+    g = torch.Generator(dev).manual_seed(1)
+    xT = probe.init_noise(g, SHAPE)
+    contract = ensure_contractive(model, params, mu, xT, g)
+    if contract["halvings"]:
+        print(f"tame: adaLN weights damped by {contract['adaln_factor']} to "
+              f"reach Jacobian gain < 1 at full width", flush=True)
+    xis = [torch.randn(SHAPE, generator=g, device=dev)
+           for _ in range(probe.spec.n_steps)]
+    noise = lambda i: xis[i]
+    den_flash = Denoiser(tame_networks(model, params, mu), schedule,
+                         prediction="x0")
+    den_plain = Denoiser(tame_networks(plain_model, params, mu), schedule,
+                         prediction="x0")
+
+    def solve(combine, precision, den=den_flash, x=xT):
+        s = sampler(combine, precision)
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, x, noise=noise)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        return out, secs, {k: after[k] - before[k] for k in after}, s
+
+    ops.reset_launch_counts()  # the main-path window starts here
+    runs, outs = {}, {}
+    for combine in ("fused", "kernel", "einsum"):
+        for precision in ("f32", "bf16"):
+            name = f"{combine}_{precision}"
+            torch.cuda.reset_peak_memory_stats()
+            out, cold, launches, s = solve(combine, precision)
+            out2, steady, launches2, _ = solve(combine, precision)
+            want = {"flash_attention": 28 * NFE,
+                    "sa_fused": 19 if combine == "fused" else 0,
+                    "sa_update": 38 if combine == "kernel" else 0}
+            require(launches == want and launches2 == want,
+                    f"{name}: launches {launches}, expected {want}")
+            require(bool(torch.isfinite(out).all()) and
+                    tuple(out.shape) == SHAPE, f"{name}: bad output")
+            outs[name] = out.float()
+            runs[name] = {"cold_s": cold, "steady_s": steady,
+                          "repeat_bitwise": bool(torch.equal(out, out2)),
+                          "nfe": s.nfe, "steps": s.spec.n_steps,
+                          "launches": launches,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+    ref = outs["einsum_f32"]
+    out_plain_attn, _, la, _ = solve("einsum", "f32", den=den_plain)
+    require(la["flash_attention"] == 0, "plain-attention run launched flash")
+    v = torch.randn(SHAPE, generator=g, device=dev)
+    x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
+    out_pert, _, _, _ = solve("einsum", "f32", x=x_pert)
+    gaps = {"kernel_vs_einsum_f32": rel_gap(outs["kernel_f32"], ref),
+            "fused_vs_einsum_f32": rel_gap(outs["fused_f32"], ref),
+            "flash_vs_plain_attention_f32": rel_gap(ref, out_plain_attn),
+            "perturbation_yardstick_f32": rel_gap(out_pert, ref),
+            "kernel_vs_einsum_bf16": rel_gap(outs["kernel_bf16"],
+                                             outs["einsum_bf16"]),
+            "fused_vs_einsum_bf16": rel_gap(outs["fused_bf16"],
+                                            outs["einsum_bf16"]),
+            "bf16_vs_f32_einsum": rel_gap(outs["einsum_bf16"], ref)}
+    held: dict = {}
+    with held_against_plain(held):
+        solve("fused", "f32")
+        solve("kernel", "f32")
+    state["main_path_launches"] = ops.launch_counts()  # window ends
+    state["held"] = held
+
+    # information only: the same gaps on random weights (adaLN and
+    # out_proj drawn like the other projections), beside their own
+    # perturbation yardstick
+    rp = init_params(torch.Generator(dev).manual_seed(10),
+                     model.param_defs(), torch.float32, dev)
+    gr = torch.Generator(dev).manual_seed(11)
+    for path in (("blocks", "adaln"), ("denoiser", "out_proj")):
+        shape = rp[path[0]][path[1]].shape
+        rp[path[0]][path[1]] = ParamDef(shape, (None,) * len(shape),
+                                        "scaled").materialize(gr, torch.float32, dev)
+    den_rand = Denoiser(lambda x, t, c: model.denoise(rp, x, t), schedule,
+                        prediction="x0")
+    r_e, _, _, _ = solve("einsum", "f32", den=den_rand)
+    r_k, _, _, _ = solve("kernel", "f32", den=den_rand)
+    r_p, _, _, _ = solve("einsum", "f32", den=den_rand, x=x_pert)
+    random_gaps = {"kernel_vs_einsum_f32": rel_gap(r_k, r_e),
+                   "perturbation_yardstick_f32": rel_gap(r_p, r_e)}
+    del rp, den_rand
+
+    result = {"phase": "main_path", "ok": True, "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": cfg.n_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+              "params": sum(t.numel() for t in _leaves(params)),
+              "latent": list(SHAPE),
+              "use_flash": cfg.use_flash, "weights": "tame",
+              "weights_s": weights_s, "contractive": contract,
+              "sampler": {"name": "sa", "nfe": NFE, "tau": 1.0,
+                          "predictor_order": 3, "corrector_order": 3,
+                          "mode": "PEC"},
+              "runs": runs, "rel_gap_final": gaps, "gap_limit_f32": GAP_LIMIT,
+              "random_weights_rel_gap_final (information)": random_gaps,
+              "held_against_plain": held}
+    f32_gaps = {k: v for k, v in gaps.items() if k.endswith("_f32")}
+    bad = {k: v for k, v in f32_gaps.items() if not v <= GAP_LIMIT}
+    held_bad = {k: v for k, v in held.items() if not v["ok"]}
+    result["ok"] = not bad and not held_bad
+    emit(result)
+    require(not bad, f"f32 gaps above {GAP_LIMIT}: {bad}")
+    require(not held_bad, f"kernel calls out of tolerance: {held_bad}")
+    require(set(held) == set(REPLACES), f"held calls missing: {held}")
+    state["tame"] = (model, params, mu, schedule)
+    return result
+
+
+def phase_profile(state: dict) -> dict:
+    """Where one steady fused-f32 DiT-XL/2 solve spends device time, by
+    kernel category, from torch.profiler; plus one backbone evaluation
+    timed with CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = state["tame"]
+    s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
+                     schedule=schedule, prediction="x0")
+    net = tame_networks(model, params, mu)
+    den = Denoiser(net, schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(1)
+    xT = s.init_noise(g, SHAPE)
+    s.sample(den, xT, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        s.sample(den, xT, g)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    cats = {"flash_attention": 0.0, "sa_combine": 0.0, "gemm": 0.0,
+            "other": 0.0}
+    top = []
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue  # host-side events; kernels are the device's
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+        if not dev_us:
+            continue
+        k = ev.key.lower()
+        if "flash_kernel" in k:
+            cat = "flash_attention"
+        elif "sa_fused_kernel" in k or "sa_update_kernel" in k:
+            cat = "sa_combine"
+        elif "gemm" in k or "cutlass" in k or "xmma" in k or "cublas" in k:
+            cat = "gemm"
+        else:
+            cat = "other"
+        cats[cat] += dev_us / 1e3
+        top.append((dev_us / 1e3, ev.key[:90], ev.count))
+    busy = sum(cats.values())
+    top.sort(reverse=True)
+    tt = torch.tensor(0.5, device=dev)
+    eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=10)
+    return {"phase": "profile", "ok": True, "solve": "fused f32, steady",
+            "wall_ms": wall_ms,
+            "device_ms_by_category": cats if busy else "not measured",
+            "device_busy_ms": busy if busy else "not measured",
+            "idle_share": (1 - busy / wall_ms) if busy else "not measured",
+            "top_kernels": [{"ms": ms, "name": n, "calls": c}
+                            for ms, n, c in top[:8]],
+            "backbone_eval_ms": eval_ms}
+
+
+def phase_gmm() -> dict:
+    import torch
+    from repro_torch.core import GMM, get_schedule, make_sampler
+    from repro_torch.core.metrics import sliced_w2
+    from repro_torch.kernels import ops
+    schedule = get_schedule("vp_linear")
+    gmm = GMM.default_2d()
+    s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
+                     schedule=schedule)
+    n = 65536
+    g_cpu = torch.Generator().manual_seed(5)
+    xT = s.init_noise(g_cpu, (n, 2))
+    xis = [torch.randn((n, 2), generator=g_cpu)
+           for _ in range(s.spec.n_steps)]
+    xis_dev = [x.cuda() for x in xis]
+    model = gmm.model_fn(schedule)
+    before = ops.launch_counts()
+    out = s.sample(model, xT.cuda(), noise=lambda i: xis_dev[i])
+    launches = ops.launch_counts()["sa_fused"] - before["sa_fused"]
+    out_cpu = s.sample(model, xT, noise=lambda i: xis[i])
+    target = gmm.sample(torch.Generator("cuda").manual_seed(6), n)
+    sw2 = sliced_w2(out, target, torch.Generator("cuda").manual_seed(7))
+    sw2_xT = sliced_w2(xT.cuda(), target, torch.Generator("cuda").manual_seed(7))
+    gap = float((out.cpu() - out_cpu).abs().max())
+    res = {"phase": "gmm", "ok": sw2 <= SW2_LIMIT, "points": n,
+           "sampler": "sa nfe=20 tau=1.0 P3C3 PEC fused",
+           "sa_fused_launches": launches, "sliced_w2_x0": sw2,
+           "sliced_w2_xT": sw2_xT, "sliced_w2_limit": SW2_LIMIT,
+           "max_abs_gap_to_cpu_solve": gap}
+    emit(res)
+    require(launches == s.spec.n_steps, f"gmm: sa_fused launched {launches}x")
+    require(sw2 <= SW2_LIMIT, f"gmm sliced-W2 {sw2} above {SW2_LIMIT}")
+    return res
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: the port's package is missing ({src}/repro_torch)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+
+    dev = phase_device()
+    emit(dev)
+    emit(phase_build())
+    timings: dict = {}
+    emit(phase_kernels(timings))
+    state: dict = {}
+    phase_main_path(state)
+    emit(phase_profile(state))
+    phase_gmm()
+
+    launches = state["main_path_launches"]
+    missing = [k for k, n in launches.items() if n == 0]
+    require(not missing, f"kernels never launched on the main path: {missing}")
+    summary = []
+    for name in ("sa_update", "sa_fused", "flash_attention"):
+        t = timings[name]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": state["held"][name]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"]})
+    print(dev["nvidia_smi"])
+    emit({"kernels": summary})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,33 @@
+"""Denoiser architecture configs of the port (one module per arch).
+
+Each module exposes ``full()`` (the published config) and ``smoke()`` (a
+reduced same-family config for CPU tests). ``get_config(name)`` /
+``get_smoke(name)`` / ``ARCHS`` are the public API. This slice carries the
+paper's two denoiser archs; the LM zoo comes with a later slice.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["ARCHS", "get_config", "get_smoke"]
+
+ARCHS = ("dit-xl-2", "dit-s")
+
+_MODULES = {name: name.replace("-", "_") for name in ARCHS}
+
+
+def _mod(name: str):
+    if name not in _MODULES:
+        raise KeyError(
+            f"unknown arch {name!r}; the PyTorch port has {sorted(_MODULES)} "
+            "(the LM zoo comes with a later slice)")
+    return importlib.import_module(f".{_MODULES[name]}", __package__)
+
+
+def get_config(name: str):
+    return _mod(name).full()
+
+
+def get_smoke(name: str):
+    return _mod(name).smoke()

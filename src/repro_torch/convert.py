@@ -1,0 +1,75 @@
+"""Carry parameters from the JAX reference into the port.
+
+The port keeps the reference's parameter tree and layouts, so conversion
+is leaf by leaf: every leaf the port's model declares is taken from the
+reference tree (numpy arrays, e.g. from ``jax.device_get(params)``) with
+its shape checked, and any leaf the model does not declare is an error.
+Without a model, the DiT shape is read from the tree itself.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.common import ParamDef
+from .models.transformer import LMConfig, TransformerLM
+
+__all__ = ["params_from_jax"]
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _dit_from_tree(tree) -> TransformerLM:
+    """The DiT whose parameter schema has the tree's shapes."""
+    blocks = tree["blocks"]
+    L, d = np.shape(blocks["ln1"])
+    _, _, H, hd = np.shape(blocks["attn"]["wq"])
+    return TransformerLM(LMConfig(
+        n_layers=L, d_model=d, n_heads=H, head_dim=hd,
+        n_kv_heads=np.shape(blocks["attn"]["wk"])[2],
+        d_ff=np.shape(blocks["mlp"]["wi"])[2],
+        vocab_size=np.shape(tree["embed"])[0],
+        denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
+
+
+def params_from_jax(tree, model=None, *, device="cpu") -> dict:
+    """The port's parameter dict from the reference tree, for ``model``
+    (default: the DiT whose shapes the tree has).
+
+    Raises ``KeyError`` for a declared leaf missing from ``tree``, ``ValueError``
+    for a shape mismatch or for leaves of ``tree`` the model did not
+    consume.
+    """
+    leaves = _flatten(tree)
+    consumed = set()
+
+    def take(path, pd: ParamDef):
+        if path not in leaves:
+            raise KeyError(f"reference tree has no leaf {'/'.join(path)}")
+        arr = np.asarray(leaves[path])
+        if tuple(arr.shape) != tuple(pd.shape):
+            raise ValueError(f"leaf {'/'.join(path)}: reference shape "
+                             f"{arr.shape}, port expects {pd.shape}")
+        consumed.add(path)
+        return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
+
+    def walk(defs, path=()):
+        if isinstance(defs, ParamDef):
+            return take(path, defs)
+        return {k: walk(v, path + (k,)) for k, v in defs.items()}
+
+    if model is None:
+        model = _dit_from_tree(tree)
+    params = walk(model.param_defs())
+    extra = sorted("/".join(p) for p in leaves if p not in consumed)
+    if extra:
+        raise ValueError(f"reference leaves not consumed by the port: {extra}")
+    return params

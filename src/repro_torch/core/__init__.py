@@ -1,0 +1,27 @@
+"""repro_torch.core — SA-Solver on PyTorch: schedules, tau schedules, the
+float64 coefficient engine, the multistep sampler core, the denoiser
+adapter, and the analytic GMM oracle with its metric.
+
+Sampling entry point: ``make_sampler(name, nfe=..., ...)``.
+"""
+
+from .coefficients import SolverTables, build_tables, exp_monomial_integrals
+from .denoiser import Denoiser, canonical_prediction, convert_prediction
+from .oracle import GMM, gaussian_oracle
+from . import samplers
+from .samplers import (Sampler, SamplerPlan, SamplerSpec, list_samplers,
+                       make_sampler, register_sampler)
+from .schedules import (EDMSchedule, NoiseSchedule, VESchedule,
+                        VPCosineSchedule, VPLinearSchedule, get_schedule,
+                        timestep_grid)
+from .tau import BandedTau, ConstantTau, DDIMEtaTau, TauSchedule
+
+__all__ = [
+    "samplers", "Denoiser", "canonical_prediction", "convert_prediction",
+    "Sampler", "SamplerPlan", "SamplerSpec", "make_sampler",
+    "register_sampler", "list_samplers", "SolverTables", "build_tables",
+    "exp_monomial_integrals", "NoiseSchedule", "VPLinearSchedule",
+    "VPCosineSchedule", "VESchedule", "EDMSchedule", "get_schedule",
+    "timestep_grid", "TauSchedule", "ConstantTau", "BandedTau", "DDIMEtaTau",
+    "GMM", "gaussian_oracle",
+]

@@ -1,0 +1,39 @@
+"""repro_torch.core.samplers — plan/execute sampling API of the port.
+
+    from repro_torch.core import samplers
+
+    s = samplers.make_sampler("sa", nfe=20, tau=0.4)
+    g = torch.Generator("cuda").manual_seed(0)
+    x0 = s.sample(model_fn, s.init_noise(g, (4096, 2)), g)
+
+This slice registers the SA-Solver family on the multistep core; the
+other families and the baselines follow in later slices.
+"""
+
+from ..denoiser import (PREDICTION_TYPES, Denoiser, canonical_prediction,
+                        convert_prediction)
+from .base import (
+    Sampler,
+    SamplerFamily,
+    SamplerPlan,
+    SamplerSpec,
+    build_plan,
+    carry_dtype,
+    get_family,
+    list_samplers,
+    make_sampler,
+    register_sampler,
+    sample,
+)
+
+# importing the family module registers it
+from . import sa as _sa_family  # noqa: F401
+from .multistep import make_multistep_family, tables_to_arrays
+
+__all__ = [
+    "Denoiser", "PREDICTION_TYPES", "canonical_prediction",
+    "convert_prediction", "Sampler", "SamplerFamily", "SamplerPlan",
+    "SamplerSpec", "build_plan", "carry_dtype", "get_family",
+    "list_samplers", "make_sampler", "register_sampler", "sample",
+    "make_multistep_family", "tables_to_arrays",
+]

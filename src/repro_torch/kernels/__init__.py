@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels of the port, each with its plain version.
+
+    sa_update.py        fused SA-Solver state update   (memory-bound)
+    sa_fused.py         dual-output predictor+corrector combine (one pass)
+    flash_attention.py  blocked online-softmax attention (compute-bound)
+
+The CUDA C++ sources live in ``csrc/`` and are built by ``_build.py`` at
+first use; ``ops.py`` dispatches (plain PyTorch on a CPU tensor, the
+kernel on a CUDA tensor). Nothing is compiled when this package is
+imported.
+"""
+
+from . import ops
+
+__all__ = ["ops"]

@@ -1,0 +1,118 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into
+``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags,
+so an edited source never loads a stale library). Compilation happens at
+first use, or all at once through :func:`build` (one nvcc process per
+source, started together). The libraries expose a plain C interface: every
+pointer and the stream are ``c_void_p``, and each entry point returns
+``cudaGetLastError()`` after its launch, which :func:`check` turns into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("sa_combine", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+#: C signatures of each library's entry points
+SIGNATURES = {
+    "sa_combine": {
+        "sa_update_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
+        "sa_fused_launch": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _F, _I, _P),
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are compiled from "
+        "src/repro_torch/kernels/csrc at first use and need the CUDA "
+        "toolkit (nvcc on PATH or /usr/local/cuda/bin/nvcc)")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every named source whose library is missing, one nvcc per
+    source, all started together. Returns, per source: seconds, the
+    library path, whether an existing library was reused, and nvcc's
+    output lines (with -Xptxas -v: registers and spills per kernel)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log, jobs = {}, {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            log[name] = {"seconds": 0.0, "path": str(out), "reused": True,
+                         "ptxas": []}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp, out, time.perf_counter())
+    for name, (proc, tmp, out, t0) in jobs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                f"{stdout}\n{stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        ptxas = [ln.strip() for ln in (stdout + stderr).splitlines()
+                 if ln.strip()]
+        log[name] = {"seconds": seconds, "path": str(out), "reused": False,
+                     "ptxas": ptxas}
+    return log
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    path = lib_path(name)
+    if not path.exists():
+        build((name,))
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what}: kernel launch failed with CUDA error {rc} "
+            "(cudaGetLastError after the launch)")

@@ -1,0 +1,142 @@
+"""Contractive DiT weights: the yardstick for whole-solve comparisons.
+
+A freshly initialised DiT is useless for comparing two solves: with
+adaLN-zero init (``adaln`` and ``out_proj`` zero) it predicts exactly 0,
+and with random adaLN/out_proj weights its x0-prediction is *expansive*
+in ``x`` (random attention/MLP paths open through O(1) gates, and every
+``rms_norm`` Jacobian grows as the solve drives ``|x|`` toward zero), so a
+last-bit difference between two combines is amplified ~5-8x per solver
+step and says nothing about the combines. A trained denoiser is
+contractive: roughly the data mean plus a small x-dependent correction.
+:func:`tame_dit` builds that regime from a seed:
+
+- adaLN weights drawn at ``adaln_scale`` (small but real gates);
+- ``out_proj`` drawn at ``1/out_div`` (a small x-dependent correction);
+- the t-conditioning MLP damped by ``t_damp`` so ``tcond`` stays O(1);
+- a fixed unit-scale anchor ``mu`` ("data mean") added to the output by
+  :func:`tame_networks`, keeping ``|x|`` O(1) through the solve.
+
+Width: both random maps sum over ``d_model`` inputs, so their draws are
+scaled by ``sqrt(64 / d_model)``. At width 64 (the ``dit-s`` smoke config
+the reference's constants were tuned on) this is exactly the reference's
+construction; at full width it keeps the same per-output magnitudes.
+:func:`ensure_contractive` measures the Jacobian gain on the target
+device and damps the adaLN weights further until it is below 1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..configs import get_config, get_smoke
+from ..device import resolve_device
+from .common import init_params
+from .transformer import TransformerLM
+
+__all__ = ["tame_dit", "tame_params", "tame_networks", "jacobian_gain",
+           "ensure_contractive"]
+
+
+def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
+                adaln_scale: float = 0.003, out_div: float = 50.0,
+                t_damp: tuple[float, float] = (0.1, 0.3)) -> dict:
+    """Overwrite an ``init_params`` tree in place with the contractive
+    construction (draws from ``generator``); returns it."""
+    w = math.sqrt(64.0 / d_model)
+    blocks, dp = params["blocks"], params["denoiser"]
+    dev = blocks["adaln"].device
+    blocks["adaln"] = adaln_scale * w * torch.randn(
+        blocks["adaln"].shape, generator=generator, device=dev)
+    dp["out_proj"] = w / out_div * torch.randn(
+        dp["out_proj"].shape, generator=generator, device=dev)
+    dp["t_mlp1"] = dp["t_mlp1"] * t_damp[0]
+    dp["t_mlp2"] = dp["t_mlp2"] * t_damp[1]
+    return params
+
+
+def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
+             n_layers: int | None = None, seed: int = 0,
+             adaln_scale: float = 0.003, out_div: float = 50.0,
+             t_damp: tuple[float, float] = (0.1, 0.3),
+             use_flash: bool = False, device="cuda"):
+    """Build a DiT (smoke or full config) whose denoise map is contractive.
+
+    The residual stream is float32, as in the reference's construction.
+    Returns ``(model, params, mu)``; ``mu(seq) -> [seq, dz]`` is the fixed
+    unit-scale anchor (deterministic in ``seed``) that
+    :func:`tame_networks` adds to the model's x0 output. Runs on the card
+    unless ``device`` says otherwise.
+    """
+    device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
+        dtype=torch.float32, use_flash=use_flash)
+    model = TransformerLM(cfg)
+    params = init_params(torch.Generator(device).manual_seed(seed),
+                         model.param_defs(), torch.float32, device)
+    tame_params(params, cfg.d_model,
+                torch.Generator(device).manual_seed(seed + 1),
+                adaln_scale=adaln_scale, out_div=out_div, t_damp=t_damp)
+    anchors: dict[int, torch.Tensor] = {}
+
+    def mu(seq: int) -> torch.Tensor:
+        if seq not in anchors:
+            g = torch.Generator(device).manual_seed(seed + 2)
+            anchors[seq] = torch.randn((seq, cfg.denoiser_latent),
+                                       generator=g, device=device)
+        return anchors[seq]
+
+    return model, params, mu
+
+
+def tame_networks(model, params, mu):
+    """The Denoiser network ``(x, t, cond) -> x0`` over a tame triple, with
+    the mean anchor applied. ``cond`` (when not None) is an input-space
+    prompt added to the latent. (The reference also returns the
+    feature-cached twin, which comes with the feature-cache slice.)"""
+
+    def network(x, t, cond):
+        h = x if cond is None else x + cond
+        return model.denoise(params, h, t) + mu(x.shape[-2])
+
+    return network
+
+
+@torch.no_grad()
+def jacobian_gain(network, x: torch.Tensor, t: float, v: torch.Tensor,
+                  rel_step: float = 1e-3) -> float:
+    """``|J v| / |v|`` of ``network(., t)`` at ``x``, by a central finite
+    difference along ``v`` scaled to ``rel_step * |x|``."""
+    d = v * (rel_step * x.norm() / v.norm())
+    tt = torch.tensor(t, dtype=torch.float32, device=x.device)
+    jv = network(x + d, tt, None) - network(x - d, tt, None)
+    return float(jv.norm() / (2 * d.norm()))
+
+
+@torch.no_grad()
+def ensure_contractive(model, params, mu, x: torch.Tensor,
+                       generator: torch.Generator,
+                       ts=(0.95, 0.5, 0.1), max_halvings: int = 4) -> dict:
+    """Check that the tame network's Jacobian gain is below 1 at every
+    ``t`` in ``ts`` (at the state ``x``, along a random direction); halve
+    the adaLN weights in place until it is, at most ``max_halvings``
+    times. Returns ``{"adaln_factor", "gains", "halvings"}``; raises if the
+    gain stays at or above 1."""
+    network = tame_networks(model, params, mu)
+    v = torch.randn(x.shape, generator=generator, device=x.device)
+    factor = 1.0
+    for halvings in range(max_halvings + 1):
+        gains = {t: jacobian_gain(network, x, t, v) for t in ts}
+        if max(gains.values()) < 1.0:
+            return {"adaln_factor": factor, "gains": gains,
+                    "halvings": halvings}
+        if halvings < max_halvings:
+            params["blocks"]["adaln"] = params["blocks"]["adaln"] * 0.5
+            factor *= 0.5
+    raise RuntimeError(
+        f"tame weights stay expansive after {max_halvings} halvings of "
+        f"adaln_scale: Jacobian gains {gains}")

@@ -1,0 +1,166 @@
+"""Transformer backbone in denoiser mode (DiT): the part of the reference's
+``models/transformer.py`` that SA-Solver samples through.
+
+    param_defs()                 -> ParamDef tree (block params stacked [L, ...])
+    denoise(params, z, t)        -> x0 prediction [B, S, dz]
+
+``denoise`` embeds the continuous latent, runs the block stack with
+bidirectional attention and adaLN time conditioning (``_tcond``, float32
+end to end), and projects back. The layer loop walks the stacked [L, ...]
+block parameters; the reference scans over them. The LM entry points
+(forward, loss, prefill/decode), MoE/MLA blocks and ``denoise_cached``
+come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .attention import AttentionConfig, attn_defs, gqa_forward
+from .common import (ParamDef, mlp_apply, mlp_defs, promote_matmul,
+                     rms_norm, tree_defs_map)
+
+__all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    family: str = "dense"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int | None = None  # default d_model // n_heads
+    d_ff: int = 1024
+    #: size of the (unused in denoiser mode) token embedding and LM head,
+    #: kept so the parameter tree is the reference's
+    vocab_size: int = 1024
+    #: residual-stream dtype (the reference's compute dtype)
+    dtype: torch.dtype = torch.bfloat16
+    #: latent width of the denoiser's continuous input/output heads
+    denoiser_latent: int | None = None
+    #: run the blocks' attention through the flash kernel (the reference
+    #: carries this on AttentionConfig only)
+    use_flash: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def attn_config(self) -> AttentionConfig:
+        return AttentionConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+            use_flash=self.use_flash)
+
+
+def timestep_embedding(t, dim: int, max_period: float = 10000.0):
+    """Sinusoidal embedding of (possibly batched) scalar t, float32."""
+    t = torch.atleast_1d(torch.as_tensor(t, dtype=torch.float32))
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device)
+                      / half)
+    ang = t[..., None] * freqs
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def _layer(tree, l: int):
+    """Layer ``l`` of a stacked [L, ...] parameter tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree[l]
+    return {k: _layer(v, l) for k, v in tree.items()}
+
+
+class TransformerLM:
+    def __init__(self, cfg: LMConfig):
+        if cfg.denoiser_latent is None:
+            raise NotImplementedError(
+                "the PyTorch port runs the transformer in denoiser mode "
+                "only (denoiser_latent set); the LM zoo comes later")
+        self.cfg = cfg
+        self.acfg = cfg.attn_config()
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def _block_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": ParamDef((cfg.d_model,), (None,), "zeros"),
+            "ln2": ParamDef((cfg.d_model,), (None,), "zeros"),
+            "attn": attn_defs(self.acfg),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff),
+            "adaln": ParamDef((cfg.d_model, 6 * cfg.d_model),
+                              ("embed", None), "zeros"),
+        }
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        L = cfg.n_layers
+        out: dict = {
+            "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                              "normal", 0.02),
+            "ln_f": ParamDef((cfg.d_model,), (None,), "zeros"),
+            "blocks": tree_defs_map(
+                lambda pd: ParamDef((L,) + pd.shape, (None,) + pd.axes,
+                                    pd.init, pd.scale), self._block_defs()),
+            "lm_head": ParamDef((cfg.d_model, cfg.vocab_size),
+                                ("embed", "vocab"), "scaled"),
+        }
+        dz = cfg.denoiser_latent
+        out["denoiser"] = {
+            "in_proj": ParamDef((dz, cfg.d_model), (None, "embed"), "scaled"),
+            "out_proj": ParamDef((cfg.d_model, dz), ("embed", None), "zeros"),
+            "t_mlp1": ParamDef((256, cfg.d_model), (None, "embed"), "scaled"),
+            "t_mlp2": ParamDef((cfg.d_model, cfg.d_model), ("embed", None),
+                               "scaled"),
+        }
+        return out
+
+    # ------------------------------------------------------------------
+    # blocks
+    # ------------------------------------------------------------------
+    def _block(self, p, x, tcond):
+        """One adaLN block: shift/scale/gate from the f32 conditioning,
+        applied to the residual stream in its own dtype."""
+        mod = promote_matmul(tcond, p["adaln"]).float()
+        s1, g1, b1, s2, g2, b2 = torch.chunk(mod, 6, dim=-1)
+        dt = x.dtype
+        h = rms_norm(x, p["ln1"]) * (1 + s1[:, None, :]).to(dt) \
+            + b1[:, None, :].to(dt)
+        a = gqa_forward(p["attn"], self.acfg, h, causal=False)
+        x = x + g1[:, None, :].to(dt) * a.to(dt)
+        h = rms_norm(x, p["ln2"]) * (1 + s2[:, None, :]).to(dt) \
+            + b2[:, None, :].to(dt)
+        m = mlp_apply(p["mlp"], h)
+        return x + g2[:, None, :].to(dt) * m.to(dt)
+
+    def _tcond(self, dp, t, batch: int):
+        """adaLN conditioning signal, float32 end to end: the bf16 policy
+        narrows latents only; quantizing ``t`` to bf16 would collapse
+        adjacent solver timesteps."""
+        t = torch.as_tensor(t, dtype=torch.float32,
+                            device=dp["t_mlp1"].device).expand(batch)
+        temb = timestep_embedding(t, 256)
+        return F.silu(temb @ dp["t_mlp1"].float()) @ dp["t_mlp2"].float()
+
+    def denoise(self, params, z, t):
+        """z [B, S, dz], t scalar (or [B]) -> x0 prediction [B, S, dz]
+        (float32): bidirectional attention + adaLN time conditioning. (The
+        reference's class/text conditioning input ``denoiser_cond`` comes
+        with a later slice.)"""
+        cfg = self.cfg
+        dp = params["denoiser"]
+        x = z.to(cfg.dtype) @ dp["in_proj"].to(cfg.dtype)
+        tcond = self._tcond(dp, t, z.shape[0])
+        blocks = params["blocks"]
+        for l in range(cfg.n_layers):
+            x = self._block(_layer(blocks, l), x, tcond)
+        x = rms_norm(x, params["ln_f"])
+        return (x @ dp["out_proj"].to(cfg.dtype)).float()

@@ -1,0 +1,277 @@
+"""The port's kernels: plain versions against the JAX Pallas kernels (run
+in interpret mode, as tests/test_kernels.py runs them on the CPU) and
+against the reference oracles in ``repro.kernels.ref``; the dispatch
+rules; and, on a CUDA card, each Hopper kernel against its plain version.
+
+Tolerances: float32 1e-6 (absolute and relative) between the plain
+versions and the reference, and 2e-5 between a Hopper kernel and its plain
+version on the card (sums taken in another order); bfloat16 one unit in
+the last place of the reference output (both sides accumulate in float32
+and round once, so a last-bit difference in float32 may flip one bf16
+rounding). Outputs below 1/256 of the tensor's largest magnitude come out
+of cancellation, where float32 round-off alone exceeds their own ulp, so
+they are held to the ulp at that floor.
+
+The reference is imported when available: the card-only tests at the end
+need no JAX and run on a machine with a card and no JAX
+(``pytest -m gpu tests/test_torch_kernels.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:  # the JAX reference; absent on a card machine without JAX
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention as j_flash
+    from repro.kernels.ref import (flash_attention_ref, sa_fused_update_ref,
+                                   sa_update_ref)
+    from repro.kernels.sa_fused import sa_fused_update as j_sa_fused
+    from repro.kernels.sa_update import sa_update as j_sa_update
+except ImportError:  # pragma: no cover - exercised on the card machine
+    jax = None
+
+from repro_torch.kernels import flash_attention as t_flash_mod
+from repro_torch.kernels import ops
+from repro_torch.kernels import sa_fused as t_fused_mod
+from repro_torch.kernels import sa_update as t_update_mod
+
+
+@pytest.fixture
+def reference():
+    if jax is None:
+        pytest.skip("the JAX reference is not installed here")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _ulp_bf16(ref):
+    a = np.abs(np.asarray(ref, np.float32))
+    a = np.maximum(a, max(float(a.max()) * 2.0 ** -8, 2.0 ** -126))
+    return np.exp2(np.floor(np.log2(a)) - 7)
+
+
+def assert_close(got, ref, dtype_name, tol=1e-6):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    if dtype_name == "bfloat16":
+        assert (np.abs(got - ref) <= _ulp_bf16(ref)).all(), \
+            float(np.abs(got - ref).max())
+    else:
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=tol)
+
+
+def _pair(a, dtype_name):
+    """The same values as a jnp and a torch array of ``dtype_name``."""
+    j = jnp.asarray(a).astype(getattr(jnp, dtype_name))
+    t = torch.from_numpy(np.array(a)).to(getattr(torch, dtype_name))
+    return j, t
+
+
+def _to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ------------------------------------------------------------ sa_update
+@pytest.mark.parametrize("shape", [(64,), (4, 100, 7), (2, 33, 5, 3), (1,)])
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sa_update_plain_matches_pallas(reference, shape, P, dtype):
+    rng = np.random.default_rng(P * 100 + len(shape))
+    (xj, xt), (bj, bt), (ij, it) = (_pair(rng.standard_normal(s), dtype)
+                                    for s in (shape, (P,) + shape, shape))
+    c = np.asarray([0.9, 0.1] + [0.3 / (j + 1) for j in range(P)], np.float32)
+    got = t_update_mod.sa_update_plain(xt, bt, it, torch.from_numpy(c))
+    assert got.dtype == xt.dtype
+    pallas = j_sa_update(xj, bj, ij, jnp.asarray(c), tile=128)
+    assert_close(_to_np(got), _to_np(pallas), dtype)
+    assert_close(_to_np(got), _to_np(sa_update_ref(xj, bj, ij, jnp.asarray(c))),
+                 dtype)
+
+
+# ------------------------------------------------------------- sa_fused
+@pytest.mark.parametrize("shape", [(64,), (4, 100, 7), (1,)])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sa_fused_plain_matches_pallas(reference, shape, P, dtype):
+    rng = np.random.default_rng(7 + P)
+    (xj, xt), (bj, bt), (ij, it) = (_pair(rng.standard_normal(s), dtype)
+                                    for s in (shape, (P,) + shape, shape))
+    c = np.asarray([[0.9, 0.1] + [0.3 / (j + 1) for j in range(P)],
+                    [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]],
+                   np.float32)
+    got_p, got_c = t_fused_mod.sa_fused_update_plain(xt, bt, it,
+                                                     torch.from_numpy(c))
+    ref_p, ref_c = j_sa_fused(xj, bj, ij, jnp.asarray(c), tile=128)
+    orc_p, orc_c = sa_fused_update_ref(xj, bj, ij, jnp.asarray(c))
+    tol = 2e-6  # the reference's own fused-vs-oracle bar
+    for got, ref in ((got_p, ref_p), (got_c, ref_c), (got_p, orc_p),
+                     (got_c, orc_c)):
+        assert_close(_to_np(got), _to_np(ref), dtype, tol)
+
+
+def test_sa_fused_rows_match_single_combines(reference):
+    """Each fused output equals the single combine with the same packed
+    row: the dual kernel is two sa_updates in one pass."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
+    buf = torch.from_numpy(rng.standard_normal((3, 512)).astype(np.float32))
+    xi = torch.from_numpy(rng.standard_normal(512).astype(np.float32))
+    c = torch.tensor([[0.8, 0.2, 0.1, -0.2, 0.3],
+                      [0.8, 0.2, 0.4, 0.1, -0.1]])
+    pred, corr = t_fused_mod.sa_fused_update_plain(x, buf, xi, c)
+    for out, row in ((pred, c[0]), (corr, c[1])):
+        ref = sa_update_ref(jnp.asarray(x.numpy()), jnp.asarray(buf.numpy()),
+                            jnp.asarray(xi.numpy()), jnp.asarray(row.numpy()))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=2e-6, rtol=2e-6)
+        np.testing.assert_allclose(
+            out.numpy(), t_update_mod.sa_update_plain(x, buf, xi, row).numpy(),
+            atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("n", [1, 7, 130, 2800, 5003])
+def test_sa_update_unaligned_sizes(reference, n):
+    rng = np.random.default_rng(n)
+    x, buf, xi = (rng.standard_normal(s).astype(np.float32)
+                  for s in ((n,), (2, n), (n,)))
+    c = np.asarray([0.7, 0.1, 0.5, -0.3], np.float32)
+    ref = j_sa_update(jnp.asarray(x), jnp.asarray(buf), jnp.asarray(xi),
+                      jnp.asarray(c), tile=256)
+    got = t_update_mod.sa_update_plain(*(torch.from_numpy(a)
+                                         for a in (x, buf, xi, c)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=1e-6)
+
+
+# -------------------------------------------------------- flash attention
+def _attn(rng, B, H, K, S, T, hd, dtype):
+    return tuple(_pair(rng.standard_normal(s), dtype)
+                 for s in ((B, H, S, hd), (B, K, T, hd), (B, K, T, hd)))
+
+
+@pytest.mark.parametrize("B,H,K,S,hd,bq,bk", [
+    (2, 4, 4, 128, 64, 32, 32),    # MHA
+    (1, 8, 2, 256, 32, 64, 64),    # GQA 4:1
+    (2, 4, 1, 64, 16, 16, 16),     # MQA
+    (1, 2, 2, 128, 128, 64, 32),   # bq != bk
+    (1, 4, 2, 64, 72, 32, 32),     # DiT-XL/2's head dim
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas(reference, B, H, K, S, hd, bq,
+                                              bk, dtype):
+    rng = np.random.default_rng(S + hd)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, B, H, K, S, S, hd, dtype)
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=True)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = j_flash(qj, kj, vj, causal=True, bq=bq, bk=bk)
+    assert_close(_to_np(got), _to_np(pallas), dtype)
+    assert_close(_to_np(got), _to_np(flash_attention_ref(qj, kj, vj)), dtype)
+
+
+@pytest.mark.parametrize("S", [19, 24, 33])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ragged_lengths(reference, S, causal, dtype):
+    rng = np.random.default_rng(5 + S)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, 1, 2, 2, S, S, 16, dtype)
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=causal)
+    pallas = j_flash(qj, kj, vj, causal=causal, bq=16, bk=16)
+    assert_close(_to_np(got), _to_np(pallas), dtype)
+
+
+@pytest.mark.parametrize("hd", [32, 72])
+def test_flash_attention_noncausal(reference, hd):
+    rng = np.random.default_rng(2)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, 1, 2, 2, 64, 64, hd, "float32")
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=False)
+    pallas = j_flash(qj, kj, vj, causal=False, bq=32, bk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=1e-6,
+                               rtol=1e-6)
+
+
+# ------------------------------------------------------------ dispatch
+def test_ops_dispatch_cpu_takes_plain_and_counts_no_launch():
+    ops.reset_launch_counts()
+    x = torch.randn(4, 8)
+    buf = torch.randn(3, 4, 8)
+    c = torch.tensor([0.9, 0.1, 0.2, 0.3, 0.4])
+    torch.testing.assert_close(ops.sa_update(x, buf, x, c),
+                               t_update_mod.sa_update_plain(x, buf, x, c),
+                               rtol=0, atol=0)
+    p, q = ops.sa_fused_update(x, buf, x, torch.stack([c, c]))
+    torch.testing.assert_close(p, q, rtol=0, atol=0)
+    qkv = torch.randn(1, 2, 8, 16)
+    torch.testing.assert_close(
+        ops.flash_attention(qkv, qkv, qkv, causal=False),
+        t_flash_mod.flash_attention_plain(qkv, qkv, qkv, causal=False),
+        rtol=0, atol=0)
+    assert ops.launch_counts() == {"sa_update": 0, "sa_fused": 0,
+                                   "flash_attention": 0}
+    with pytest.raises(ValueError, match="mode"):
+        ops.sa_update(x, buf, x, c, mode="kernel")
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch on a CUDA tensor or raise: a CPU tensor never
+    silently takes the plain version through them."""
+    x = torch.randn(16)
+    buf = torch.randn(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_update_mod.sa_update(x, buf, x, torch.zeros(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fused_mod.sa_fused_update(x, buf, x, torch.zeros(2, 4))
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_flash_mod.flash_attention(q, q, q)
+    assert ops.launch_counts()["sa_update"] == 0
+
+
+# ----------------------------------------------------------- card only
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 256, 16), (1000003,), (4, 100, 7)])
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_match_plain_on_card(card, shape, P, dtype):
+    g = torch.Generator(card).manual_seed(P)
+    rnd = lambda s: torch.randn(s, generator=g, device=card).to(dtype)
+    x, buf, xi = rnd(shape), rnd((P,) + shape), rnd(shape)
+    c = torch.tensor([[0.9, 0.1] + [0.3 / (j + 1) for j in range(P)],
+                      [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]],
+                     device=card)
+    before = ops.launch_counts()
+    outs = [(ops.sa_update(x, buf, xi, c[0]),
+             ops.sa_update(x, buf, xi, c[0], mode="plain")),
+            *zip(ops.sa_fused_update(x, buf, xi, c),
+                 ops.sa_fused_update(x, buf, xi, c, mode="plain"))]
+    after = ops.launch_counts()
+    assert after["sa_update"] - before["sa_update"] == 1
+    assert after["sa_fused"] - before["sa_fused"] == 1
+    for got, ref in outs:
+        assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
+                     str(dtype).replace("torch.", ""))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,S,hd,causal", [
+    (8, 16, 16, 256, 72, False), (2, 16, 4, 256, 72, True),
+    (2, 4, 4, 257, 72, False), (2, 4, 2, 200, 64, True),
+    (2, 4, 2, 130, 128, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(card, B, H, K, S, hd, causal,
+                                            dtype):
+    g = torch.Generator(card).manual_seed(S)
+    rnd = lambda s: torch.randn(s, generator=g, device=card).to(dtype)
+    q, k, v = rnd((B, H, S, hd)), rnd((B, K, S, hd)), rnd((B, K, S, hd))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+    assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
+                 str(dtype).replace("torch.", ""), 2e-5)

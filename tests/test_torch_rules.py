@@ -1,0 +1,140 @@
+"""Rules the PyTorch port keeps, checked without a card.
+
+- ``src/repro_torch`` and ``chip_smoke.py`` import nothing of JAX and
+  nothing of the JAX package ``repro``;
+- entry points run on the card unless the caller asks for the CPU, and
+  without a card they stop with an error naming it;
+- ``chip_smoke.py`` fails (non-zero exit, no success line) without a card
+  and when run alone, away from the repository;
+- the kernel libraries are built from the repository's sources into a
+  git-ignored directory, named by a hash of source and flags.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.launch import sample as launch_sample
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_and_no_reference_imports(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def test_relative_imports_stay_inside_the_port():
+    for path in PORT.rglob("*.py"):
+        depth = len(path.relative_to(PORT).parts) - 1
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert node.level <= depth + 1, f"{path} escapes the package"
+
+
+def test_resolve_device_names_the_missing_card():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        resolve_device()
+
+
+def test_launch_sample_without_device_flag_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        launch_sample.main(["--arch", "dit-s", "--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_sample.build_denoiser("dit-s", smoke=True)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--weights", "tame", "--combine", "fused", "--flash"],
+    ["--weights", "init", "--combine", "kernel", "--mode", "PECE",
+     "--precision", "bf16"],
+])
+def test_launch_sample_on_cpu_prints_nfe_accounting(capsys, extra):
+    launch_sample.main(["--arch", "dit-s", "--smoke", "--batch", "2",
+                        "--seq", "16", "--nfe", "9", "--device", "cpu",
+                        *extra])
+    out = capsys.readouterr().out
+    steps = 8 if "PECE" not in extra else 4
+    assert f"NFE=9 (requested 9) steps={steps}" in out
+    assert "finite=True" in out
+
+
+def _run_chip_smoke(cwd: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    r = _run_chip_smoke(REPO)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _run_chip_smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_build_paths_are_hashed_and_ignored():
+    for name in _build.SOURCES:
+        path = _build.lib_path(name)
+        assert path.parent == PORT / "kernels" / "_build"
+        assert path.name.startswith(f"lib{name}-") and path.suffix == ".so"
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").exists()
+    assert "src/repro_torch/kernels/_build/" in (REPO / ".gitignore").read_text()
+
+
+def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
+    """Without the CUDA toolkit the build raises naming nvcc; nothing
+    falls back."""
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("the CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+@pytest.mark.gpu
+def test_launch_sample_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    launch_sample.main(["--arch", "dit-s", "--smoke", "--batch", "2",
+                        "--seq", "16", "--nfe", "9", "--combine", "fused",
+                        "--flash", "--weights", "tame"])
+    out = capsys.readouterr().out
+    assert "NFE=9 (requested 9) steps=8" in out and "finite=True" in out
+    assert "'sa_fused': 16" in out and "'flash_attention': 36" in out  # two runs

@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then samples a full-width
-DiT-XL/2 (28 layers, d_model 1152, latent [8, 256, 16]) with SA-Solver
-through the port's public entry points and the kernels, and an SA solve of
-the GMM oracle. Each phase prints one JSON line; any failed check raises,
-and the script then exits non-zero without the success line. The last two
-lines are the ``kernels`` summary and
-``{"ok": true, "device": {"platform": "gpu", ...}}``; the card's name and
-power limit (as nvidia-smi reports them) come just before them.
+holds each against its plain PyTorch version, then drives SA-Solver
+through the port's public entry points and the kernels over two
+full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
+denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
+latent [8, 256, 16]; and an SA solve of the GMM oracle. Each main path
+runs with the launch counts set to 0 just before it and read just after.
+Each phase prints one JSON line; any failed check raises, and the script
+then exits non-zero without the success line. The last two lines are the
+``kernels`` summary and ``{"ok": true, "device": {"platform": "gpu",
+...}}``; the card's name and power limit (as nvidia-smi reports them) come
+just before them.
 
 Imports nothing of JAX or of the JAX package. Needs one CUDA card, nvcc
 and the repository's ``src/`` next to this script.
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -39,22 +43,34 @@ REPLACES = {
     "sa_update": "src/repro/kernels/sa_update.py:88",
     "sa_fused": "src/repro/kernels/sa_fused.py:43",
     "flash_attention": "src/repro/kernels/flash_attention.py:40",
+    "rwkv6_wkv": "src/repro/kernels/rwkv6_scan.py:30",
 }
 SOURCES = {
     "sa_update": "src/repro_torch/kernels/csrc/sa_combine.cu",
     "sa_fused": "src/repro_torch/kernels/csrc/sa_combine.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "rwkv6_wkv": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
 }
+#: the kernels each main path must launch
+PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
+                "rwkv6": ("rwkv6_wkv", "sa_fused")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
+    "wkv": "|kernel - plain| <= 2e-5 max(1, max|plain|), for y and S_T "
+           "(float32 outputs of float32 or bfloat16 inputs)",
     "bf16": "|kernel - plain| <= 1 bf16 ulp of max(|plain|, max|plain|/256)",
 }
-# DiT-XL/2 main path
+# latent of both main paths (DiT-XL/2's 256 tokens of dim 16)
 SHAPE = (8, 256, 16)
 NFE = 20
 GAP_LIMIT = 1e-4
+#: whole-solve bar on the bfloat16 residual stream (the reference's bf16 bar)
+GAP_LIMIT_BF16 = 1e-2
 SW2_LIMIT = 0.05
+# the RWKV6-3B denoiser's WKV calls: [B, T, H, hd], chunk
+WKV_SHAPE = (8, 256, 40, 64)
+WKV_CHUNK = 64
 
 
 def emit(obj) -> None:
@@ -117,7 +133,8 @@ def bf16_ulp(ref):
 
 
 def compare(out, ref, kind: str) -> tuple[float, bool]:
-    """(max abs error, within tolerance) of kernel output vs plain."""
+    """(max abs error, within tolerance) of kernel output vs plain. ``kind``
+    is "combine", or "attention" / "wkv" (held at the output's scale)."""
     import torch
     err = (out.float() - ref.float()).abs()
     if ref.dtype == torch.bfloat16:
@@ -135,6 +152,24 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def wkv_bytes_ops(B, T, H, hd, C, in_bytes=4) -> tuple[int, int]:
+    """Bytes one WKV call must move (r/k/v/logw read, y written, u and S0
+    read, S_T written, once each) and the operations it does (an expf
+    counts as one): the scan, the strictly-lower pairwise scores, the
+    bonus term, the decays, y and the state update, per (b, h, chunk)."""
+    n = B * T * H * hd
+    n_bytes = 4 * n * in_bytes + 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
+    pairs = C * (C - 1) // 2
+    per_chunk = (2 * C * hd                       # L, Lprev
+                 + 5 * pairs * hd                 # A: sub, exp, 2 mul, add
+                 + 3 * C * hd                     # bonus
+                 + 5 * C * hd                     # r exp(Lprev), k exp(Ltot-L)
+                 + 2 * pairs * hd + 3 * C * hd    # A v, bonus v, sum
+                 + 2 * C * hd * hd                # (r exp(Lprev)) S
+                 + 2 * C * hd * hd + 3 * hd * hd)  # S update
+    return n_bytes, B * H * (T // C) * per_chunk
 
 
 def rel_gap(a, b) -> float:
@@ -163,12 +198,13 @@ def _ptxas_summary(lines) -> list[str]:
     """One line per kernel instance: name, type, template int, registers,
     spills."""
     out, name, spill = [], None, ""
-    pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|flash_kernel)"
-                     r"I(f|13__nv_bfloat16)Li(\d+)E")
+    pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|flash_kernel|"
+                     r"wkv_kernel)I((?:f|13__nv_bfloat16)+)Li(\d+)E")
     for ln in lines:
         m = pat.search(ln)
         if "Compiling entry function" in ln and m:
-            dt = "f32" if m.group(2) == "f" else "bf16"
+            dts = re.findall(r"f|13__nv_bfloat16", m.group(2))
+            dt = ",".join("f32" if d == "f" else "bf16" for d in dts)
             name = f"{m.group(1)}<{dt},{m.group(3)}>"
         elif "spill" in ln:
             spill = ln.strip()
@@ -207,6 +243,21 @@ def _attn_inputs(B, H, K, S, T, hd, dtype, seed):
     g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda s: torch.randn(s, generator=g, device="cuda").to(dtype)
     return rnd((B, H, S, hd)), rnd((B, K, T, hd)), rnd((B, K, T, hd))
+
+
+def _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed, decay_shift=0.0):
+    """r/k/v in ``dtype``, logw = clip(-exp(N(0,1) - decay_shift)) (clipped
+    like the model's) in ``logw_dtype``, u and a nonzero S0 in float32.
+    At shift 0 a chunk of 64 tokens forgets the state entering it; at
+    shift 4 (logw about -0.02) the state carries across chunks."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn(s, generator=g, device="cuda")
+    r, k, v = (rnd((B, T, H, hd)).to(dtype) for _ in range(3))
+    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), -8.0,
+                       -1e-5)
+    return (r, k, v, logw.to(logw_dtype), rnd((H, hd)),
+            rnd((B, H, hd, hd)))
 
 
 def phase_kernels(timings: dict) -> dict:
@@ -251,6 +302,26 @@ def phase_kernels(timings: dict) -> dict:
                           "shape": [B, H, K, S, T, hd], "causal": causal,
                           "dtype": str(dtype).replace("torch.", ""),
                           "err": e, "ok": ok})
+    f32, bf16 = torch.float32, torch.bfloat16
+    dtype_pairs = ((f32, f32), (bf16, f32), (bf16, bf16))  # r/k/v, logw
+    for (B, T, H, hd), (dtype, logw_dtype), shift in itertools.product(
+            (WKV_SHAPE, (8, 256, 4, 32)),  # RWKV6-3B, the smoke config's hd
+            dtype_pairs, (0.0, 4.0)):
+        args = _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed=hd,
+                           decay_shift=shift)
+        errs, ok = [], True
+        for o, p in zip(ops.wkv(*args, chunk=WKV_CHUNK),
+                        ops.wkv(*args, chunk=WKV_CHUNK, mode="plain")):
+            e, good = compare(o, p, "wkv")
+            errs.append(e)
+            ok = ok and good
+        torch.cuda.synchronize()
+        cases.append({"kernel": "rwkv6_wkv", "shape": [B, T, H, hd],
+                      "chunk": WKV_CHUNK,
+                      "dtype": str(dtype).replace("torch.", ""),
+                      "logw_dtype": str(logw_dtype).replace("torch.", ""),
+                      "decay_shift": shift,
+                      "y_err": errs[0], "S_err": errs[1], "ok": ok})
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
           "cases": cases})
@@ -285,6 +356,15 @@ def phase_kernels(timings: dict) -> dict:
         "library_ms": time_ms(lambda: sdpa(q, k, v)),
         "bound": bound(4 * B * H * S * hd * 4, 4 * B * H * S * S * hd),
         "shape": [B, H, S, hd]}
+    # the WKV call of the RWKV6-3B denoiser (f32 inputs, as the model's)
+    args = _wkv_inputs(*WKV_SHAPE, torch.float32, torch.float32, seed=5)
+    timings["rwkv6_wkv"] = {
+        "ms": time_ms(lambda: ops.wkv(*args, chunk=WKV_CHUNK)),
+        "plain_ms": time_ms(lambda: ops.wkv(*args, chunk=WKV_CHUNK,
+                                            mode="plain"), inner=5, samples=20),
+        "library_ms": None,
+        "bound": bound(*wkv_bytes_ops(*WKV_SHAPE, WKV_CHUNK)),
+        "shape": [*WKV_SHAPE, WKV_CHUNK]}
     return {"phase": "kernel_times", "ok": True, "card_peaks": {
         "bytes_per_s": PEAK_BYTES_PER_S, "f32_flop_per_s": PEAK_F32_FLOP_PER_S},
         "times": {name: {**t, "bound_ms": t["bound"][0],
@@ -299,13 +379,13 @@ def held_against_plain(record: dict):
     call count, the max abs error and whether every call was in
     tolerance. The plain calls launch no kernel and count nothing."""
     from repro_torch.kernels import ops
-    originals = {n: getattr(ops, n) for n in
-                 ("sa_update", "sa_fused_update", "flash_attention")}
     names = {"sa_update": "sa_update", "sa_fused_update": "sa_fused",
-             "flash_attention": "flash_attention"}
+             "flash_attention": "flash_attention", "wkv": "rwkv6_wkv"}
+    kinds = {"flash_attention": "attention", "wkv": "wkv"}
+    originals = {n: getattr(ops, n) for n in names}
 
     def wrap(fn_name, fn):
-        kind = "attention" if fn_name == "flash_attention" else "combine"
+        kind = kinds.get(fn_name, "combine")
 
         def held(*args, **kw):
             out = fn(*args, **kw)
@@ -360,7 +440,7 @@ def phase_main_path(state: dict) -> dict:
     xT = probe.init_noise(g, SHAPE)
     contract = ensure_contractive(model, params, mu, xT, g)
     if contract["halvings"]:
-        print(f"tame: adaLN weights damped by {contract['adaln_factor']} to "
+        print(f"tame: adaLN weights damped by {contract['factor']} to "
               f"reach Jacobian gain < 1 at full width", flush=True)
     xis = [torch.randn(SHAPE, generator=g, device=dev)
            for _ in range(probe.spec.n_steps)]
@@ -388,9 +468,10 @@ def phase_main_path(state: dict) -> dict:
             torch.cuda.reset_peak_memory_stats()
             out, cold, launches, s = solve(combine, precision)
             out2, steady, launches2, _ = solve(combine, precision)
-            want = {"flash_attention": 28 * NFE,
-                    "sa_fused": 19 if combine == "fused" else 0,
-                    "sa_update": 38 if combine == "kernel" else 0}
+            want = dict.fromkeys(ops.launch_counts(), 0) | {
+                "flash_attention": 28 * NFE,
+                "sa_fused": 19 if combine == "fused" else 0,
+                "sa_update": 38 if combine == "kernel" else 0}
             require(launches == want and launches2 == want,
                     f"{name}: launches {launches}, expected {want}")
             require(bool(torch.isfinite(out).all()) and
@@ -421,8 +502,8 @@ def phase_main_path(state: dict) -> dict:
     with held_against_plain(held):
         solve("fused", "f32")
         solve("kernel", "f32")
-    state["main_path_launches"] = ops.launch_counts()  # window ends
-    state["held"] = held
+    state["launches"]["dit"] = ops.launch_counts()  # window ends
+    state["held"]["dit"] = held
 
     # information only: the same gaps on random weights (adaLN and
     # out_proj drawn like the other projections), beside their own
@@ -463,36 +544,24 @@ def phase_main_path(state: dict) -> dict:
     emit(result)
     require(not bad, f"f32 gaps above {GAP_LIMIT}: {bad}")
     require(not held_bad, f"kernel calls out of tolerance: {held_bad}")
-    require(set(held) == set(REPLACES), f"held calls missing: {held}")
+    require(set(held) == set(PATH_KERNELS["dit"]),
+            f"held calls missing: {held}")
     state["tame"] = (model, params, mu, schedule)
     return result
 
 
-def phase_profile(state: dict) -> dict:
-    """Where one steady fused-f32 DiT-XL/2 solve spends device time, by
-    kernel category, from torch.profiler; plus one backbone evaluation
-    timed with CUDA events."""
+def _profile_solve(run) -> dict:
+    """Device time of one ``run()`` (a steady solve) by kernel category,
+    from torch.profiler, beside its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import Denoiser, make_sampler
-    from repro_torch.models.tame import tame_networks
-    dev = torch.device("cuda")
-    model, params, mu, schedule = state["tame"]
-    s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
-                     schedule=schedule, prediction="x0")
-    net = tame_networks(model, params, mu)
-    den = Denoiser(net, schedule, prediction="x0")
-    g = torch.Generator(dev).manual_seed(1)
-    xT = s.init_noise(g, SHAPE)
-    s.sample(den, xT, g)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        s.sample(den, xT, g)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    cats = {"flash_attention": 0.0, "sa_combine": 0.0, "gemm": 0.0,
-            "other": 0.0}
+    cats = {"flash_attention": 0.0, "rwkv6_wkv": 0.0, "sa_combine": 0.0,
+            "gemm": 0.0, "other": 0.0}
     top = []
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
@@ -504,6 +573,8 @@ def phase_profile(state: dict) -> dict:
         k = ev.key.lower()
         if "flash_kernel" in k:
             cat = "flash_attention"
+        elif "wkv_kernel" in k:
+            cat = "rwkv6_wkv"
         elif "sa_fused_kernel" in k or "sa_update_kernel" in k:
             cat = "sa_combine"
         elif "gemm" in k or "cutlass" in k or "xmma" in k or "cublas" in k:
@@ -514,16 +585,36 @@ def phase_profile(state: dict) -> dict:
         top.append((dev_us / 1e3, ev.key[:90], ev.count))
     busy = sum(cats.values())
     top.sort(reverse=True)
-    tt = torch.tensor(0.5, device=dev)
-    eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=10)
-    return {"phase": "profile", "ok": True, "solve": "fused f32, steady",
-            "wall_ms": wall_ms,
+    return {"wall_ms": wall_ms,
             "device_ms_by_category": cats if busy else "not measured",
             "device_busy_ms": busy if busy else "not measured",
             "idle_share": (1 - busy / wall_ms) if busy else "not measured",
             "top_kernels": [{"ms": ms, "name": n, "calls": c}
-                            for ms, n, c in top[:8]],
-            "backbone_eval_ms": eval_ms}
+                            for ms, n, c in top[:8]]}
+
+
+def phase_profile(state: dict) -> dict:
+    """Where one steady fused-f32 DiT-XL/2 solve spends device time, by
+    kernel category, from torch.profiler; plus one backbone evaluation
+    timed with CUDA events."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = state.pop("tame")
+    s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
+                     schedule=schedule, prediction="x0")
+    net = tame_networks(model, params, mu)
+    den = Denoiser(net, schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(1)
+    xT = s.init_noise(g, SHAPE)
+    s.sample(den, xT, g)
+    torch.cuda.synchronize()
+    split = _profile_solve(lambda: s.sample(den, xT, g))
+    tt = torch.tensor(0.5, device=dev)
+    eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=10)
+    return {"phase": "profile", "ok": True, "solve": "fused f32, steady",
+            **split, "backbone_eval_ms": eval_ms}
 
 
 def phase_gmm() -> dict:
@@ -561,6 +652,137 @@ def phase_gmm() -> dict:
     return res
 
 
+def phase_rwkv6_path(state: dict) -> dict:
+    """SA-Solver over the full-width RWKV6-3B denoiser with the WKV kernel.
+
+    The weights are the contractive (tame) construction, drawn on the card
+    from a seed; their Jacobian gain is checked on the float32 stream. The
+    published bfloat16 residual stream is the main path (cold and steady
+    solve, and one solve with every WKV call held against its plain
+    version); the whole-solve comparisons hold the kernel solve against the
+    plain-WKV solve at float32 (beside an x_T-nudged yardstick, both under
+    GAP_LIMIT) and at bfloat16 (under GAP_LIMIT_BF16)."""
+    import torch
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.kernels import ops
+    from repro_torch.models import RWKV6
+    from repro_torch.models.tame import (ensure_contractive, tame_networks,
+                                         tame_rwkv6)
+    dev = torch.device("cuda")
+    schedule = get_schedule("vp_linear")
+    t0 = time.perf_counter()
+    model, params, mu = tame_rwkv6("rwkv6-3b", smoke=False, seed=0,
+                                   use_kernel=True, latent=SHAPE[2],
+                                   device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    cfg = model.cfg
+    models = {(dt, kernel): RWKV6(dataclasses.replace(
+        cfg, dtype=getattr(torch, dt), use_kernel=kernel))
+        for dt in ("float32", "bfloat16") for kernel in (True, False)}
+    s = make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                     corrector_order=3, mode="PEC", combine="fused",
+                     precision="f32", schedule=schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(21)
+    xT = s.init_noise(g, SHAPE)
+    contract = ensure_contractive(models["float32", True], params, mu, xT, g)
+    xis = [torch.randn(SHAPE, generator=g, device=dev)
+           for _ in range(s.spec.n_steps)]
+
+    def solve(key, x=xT):
+        den = Denoiser(tame_networks(models[key], params, mu), schedule,
+                       prediction="x0")
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, x, noise=lambda i: xis[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        return out, secs, {k: after[k] - before[k] for k in after}
+
+    want = {"sa_update": 0, "sa_fused": s.spec.n_steps, "flash_attention": 0,
+            "rwkv6_wkv": 2 * cfg.n_layers * s.nfe}
+    ops.reset_launch_counts()  # the RWKV6 main-path window starts here
+    torch.cuda.reset_peak_memory_stats()
+    out_bf, cold, l_cold = solve(("bfloat16", True))
+    out_bf2, steady, l_steady = solve(("bfloat16", True))
+    require(l_cold == want and l_steady == want,
+            f"rwkv6: launches {l_cold} / {l_steady}, expected {want}")
+    require(bool(torch.isfinite(out_bf).all()) and
+            tuple(out_bf.shape) == SHAPE, "rwkv6: bad output")
+    held: dict = {}
+    with held_against_plain(held):
+        solve(("bfloat16", True))
+    state["launches"]["rwkv6"] = ops.launch_counts()  # window ends
+    state["held"]["rwkv6"] = held
+    peak = torch.cuda.max_memory_allocated()
+
+    out_k32, steady_f32, _ = solve(("float32", True))
+    out_p32, plain_f32_s, l_plain = solve(("float32", False))
+    require(l_plain["rwkv6_wkv"] == 0, "plain-WKV solve launched the kernel")
+    v = torch.randn(SHAPE, generator=g, device=dev)
+    x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
+    out_n32, _, _ = solve(("float32", True), x=x_pert)
+    out_pbf, _, _ = solve(("bfloat16", False))
+    gaps = {"kernel_vs_plain_wkv_f32": rel_gap(out_k32, out_p32),
+            "perturbation_yardstick_f32": rel_gap(out_n32, out_k32),
+            "kernel_vs_plain_wkv_bf16": rel_gap(out_bf, out_pbf)}
+    info = {"bf16_vs_f32_stream": rel_gap(out_bf, out_k32),
+            "x0_minus_anchor_std": float((out_k32 - mu(SHAPE[1])).std())}
+    state["rwkv6"] = (models["bfloat16", True], params, mu, schedule, xT)
+    result = {"phase": "rwkv6_path", "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "heads": cfg.n_heads, "head_dim": cfg.head_dim,
+              "d_ff": cfg.d_ff, "chunk": cfg.chunk_size,
+              "params": sum(t.numel() for t in _leaves(params)),
+              "latent": list(SHAPE), "weights": "tame", "weights_s": weights_s,
+              "contractive": contract,
+              "sampler": {"name": "sa", "nfe": s.nfe, "tau": 1.0,
+                          "predictor_order": 3, "corrector_order": 3,
+                          "mode": "PEC", "combine": "fused"},
+              "stream": "bfloat16 (published)", "cold_s": cold,
+              "steady_s": steady, "steady_f32_stream_s": steady_f32,
+              "plain_wkv_f32_stream_s": plain_f32_s,
+              "repeat_bitwise": bool(torch.equal(out_bf, out_bf2)),
+              "launches_per_solve": l_steady,
+              "max_memory_allocated": peak,
+              "rel_gap_final": gaps, "gap_limit_f32": GAP_LIMIT,
+              "gap_limit_bf16": GAP_LIMIT_BF16, "information": info,
+              "held_against_plain": held}
+    bad = {k: g_ for k, g_ in gaps.items()
+           if not g_ <= (GAP_LIMIT_BF16 if k.endswith("bf16") else GAP_LIMIT)}
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    result["ok"] = not bad and not held_bad
+    emit(result)
+    require(not bad, f"rwkv6 whole-solve gaps above their limits: {bad}")
+    require(not held_bad, f"kernel calls out of tolerance: {held_bad}")
+    require(held.get("rwkv6_wkv", {}).get("calls") == want["rwkv6_wkv"],
+            f"rwkv6: held WKV calls {held}")
+    return result
+
+
+def phase_rwkv6_profile(state: dict) -> dict:
+    """Where one steady RWKV6-3B solve (bf16 stream, WKV kernel, fused
+    combine) spends device time; plus one backbone evaluation timed with
+    CUDA events."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule, xT = state.pop("rwkv6")
+    s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
+                     schedule=schedule, prediction="x0")
+    net = tame_networks(model, params, mu)
+    den = Denoiser(net, schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(1)
+    split = _profile_solve(lambda: s.sample(den, xT, g))
+    tt = torch.tensor(0.5, device=dev)
+    eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=5)
+    return {"phase": "rwkv6_profile", "ok": True,
+            "solve": "fused f32 solver, bf16 stream, steady", **split,
+            "backbone_eval_ms": eval_ms}
+
+
 def main() -> int:
     try:
         import torch
@@ -583,21 +805,26 @@ def main() -> int:
     emit(phase_build())
     timings: dict = {}
     emit(phase_kernels(timings))
-    state: dict = {}
+    state: dict = {"launches": {}, "held": {}}
     phase_main_path(state)
     emit(phase_profile(state))
     phase_gmm()
+    phase_rwkv6_path(state)
+    emit(phase_rwkv6_profile(state))
 
-    launches = state["main_path_launches"]
-    missing = [k for k, n in launches.items() if n == 0]
-    require(not missing, f"kernels never launched on the main path: {missing}")
+    for path, names in PATH_KERNELS.items():
+        missing = [k for k in names if state["launches"][path][k] == 0]
+        require(not missing,
+                f"kernels never launched on the {path} main path: {missing}")
     summary = []
-    for name in ("sa_update", "sa_fused", "flash_attention"):
+    for name in REPLACES:
         t = timings[name]
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": state["held"][name]["max_abs_err"],
+            "replaces": REPLACES[name],
+            "launches": sum(n[name] for n in state["launches"].values()),
+            "max_abs_err": max(h[name]["max_abs_err"]
+                               for h in state["held"].values() if name in h),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"]})

@@ -2,8 +2,9 @@
 
 Each module exposes ``full()`` (the published config) and ``smoke()`` (a
 reduced same-family config for CPU tests). ``get_config(name)`` /
-``get_smoke(name)`` / ``ARCHS`` are the public API. This slice carries the
-paper's two denoiser archs; the LM zoo comes with a later slice.
+``get_smoke(name)`` / ``ARCHS`` are the public API. The port carries the
+paper's two denoiser archs and RWKV6-3B as a denoiser backbone; the rest
+of the LM zoo comes with a later slice.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "get_smoke"]
 
-ARCHS = ("dit-xl-2", "dit-s")
+ARCHS = ("dit-xl-2", "dit-s", "rwkv6-3b")
 
 _MODULES = {name: name.replace("-", "_") for name in ARCHS}
 

@@ -4,7 +4,9 @@ The port keeps the reference's parameter tree and layouts, so conversion
 is leaf by leaf: every leaf the port's model declares is taken from the
 reference tree (numpy arrays, e.g. from ``jax.device_get(params)``) with
 its shape checked, and any leaf the model does not declare is an error.
-Without a model, the DiT shape is read from the tree itself.
+Without a model, the backbone is recognised from the tree (an RWKV6 tree
+has ``blocks/tm``, a DiT tree ``blocks/attn``) and its shape read from
+it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from .models.common import ParamDef
+from .models.rwkv6 import RWKV6, RWKV6Config
 from .models.transformer import LMConfig, TransformerLM
 
 __all__ = ["params_from_jax"]
@@ -40,9 +43,22 @@ def _dit_from_tree(tree) -> TransformerLM:
         denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
 
 
+def _rwkv6_from_tree(tree) -> RWKV6:
+    """The RWKV6 denoiser whose parameter schema has the tree's shapes."""
+    tm = tree["blocks"]["tm"]
+    L, d = np.shape(tree["blocks"]["ln1"])
+    return RWKV6(RWKV6Config(
+        n_layers=L, d_model=d, head_dim=np.shape(tm["u"])[2],
+        d_ff=np.shape(tree["blocks"]["cm"]["wk"])[2],
+        vocab_size=np.shape(tree["embed"])[0],
+        decay_lora=np.shape(tm["wa"])[2],
+        tshift_lora=np.shape(tm["ts_w2"])[2],
+        denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
+
+
 def params_from_jax(tree, model=None, *, device="cpu") -> dict:
     """The port's parameter dict from the reference tree, for ``model``
-    (default: the DiT whose shapes the tree has).
+    (default: the DiT or RWKV6 denoiser whose shapes the tree has).
 
     Raises ``KeyError`` for a declared leaf missing from ``tree``, ``ValueError``
     for a shape mismatch or for leaves of ``tree`` the model did not
@@ -67,7 +83,8 @@ def params_from_jax(tree, model=None, *, device="cpu") -> dict:
         return {k: walk(v, path + (k,)) for k, v in defs.items()}
 
     if model is None:
-        model = _dit_from_tree(tree)
+        model = (_rwkv6_from_tree(tree) if "tm" in tree["blocks"]
+                 else _dit_from_tree(tree))
     params = walk(model.param_defs())
     extra = sorted("/".join(p) for p in leaves if p not in consumed)
     if extra:

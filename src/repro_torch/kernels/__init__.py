@@ -3,6 +3,7 @@
     sa_update.py        fused SA-Solver state update   (memory-bound)
     sa_fused.py         dual-output predictor+corrector combine (one pass)
     flash_attention.py  blocked online-softmax attention (compute-bound)
+    rwkv6_scan.py       chunked RWKV6 WKV recurrence (state kept on chip)
 
 The CUDA C++ sources live in ``csrc/`` and are built by ``_build.py`` at
 first use; ``ops.py`` dispatches (plain PyTorch on a CPU tensor, the

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("sa_combine", "flash_attention")
+SOURCES = ("sa_combine", "flash_attention", "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,10 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _I, _P),
+    },
+    "rwkv6_wkv": {
+        "rwkv6_wkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
     },
 }
 

@@ -169,14 +169,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int K, int S, int T_len, int causal, float scale,
            cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * smem_floats<HD>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  // The limit belongs to the current device, so it is set on every launch.
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, H, K, S, T_len,

@@ -10,15 +10,16 @@ any device (tests, and the card-side comparisons in ``chip_smoke.py``).
 from __future__ import annotations
 
 from . import flash_attention as _flash
+from . import rwkv6_scan as _wkv
 from . import sa_fused as _fused
 from . import sa_update as _update
 
-__all__ = ["sa_update", "sa_fused_update", "flash_attention", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["sa_update", "sa_fused_update", "flash_attention", "wkv",
+           "launch_counts", "reset_launch_counts"]
 
 _MODES = ("auto", "plain")
 _KERNELS = {"sa_update": _update, "sa_fused": _fused,
-            "flash_attention": _flash}
+            "flash_attention": _flash, "rwkv6_wkv": _wkv}
 
 
 def _plain(mode: str, t) -> bool:
@@ -46,6 +47,14 @@ def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
     if _plain(mode, q):
         return _flash.flash_attention_plain(q, k, v, causal=causal)
     return _flash.flash_attention(q, k, v, causal=causal)
+
+
+def wkv(r, k, v, logw, u, S0, *, chunk: int = 64, mode: str = "auto"):
+    """Chunked RWKV6 WKV -> ``(y, S_T)``, both float32; raises unless
+    ``chunk`` divides T."""
+    if _plain(mode, r):
+        return _wkv.rwkv6_wkv_plain(r, k, v, logw, u, S0, chunk=chunk)
+    return _wkv.rwkv6_wkv(r, k, v, logw, u, S0, chunk=chunk)
 
 
 def launch_counts() -> dict[str, int]:

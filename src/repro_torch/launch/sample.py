@@ -1,16 +1,21 @@
-"""Diffusion sampling entry point of the port: SA-Solver over a DiT backbone.
+"""Diffusion sampling entry point of the port: SA-Solver over a DiT or an
+RWKV6 backbone.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-xl-2 \
         --combine fused --flash --weights tame
+    PYTHONPATH=src python -m repro_torch.launch.sample --arch rwkv6-3b \
+        --combine fused --wkv-kernel --weights tame
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error naming the missing card. ``--nfe`` goes through
 ``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1).
-``--weights init`` samples the reference's adaLN-zero initialisation
-(which predicts exactly 0); ``--weights tame`` the contractive weights of
-``models/tame.py``. ``--flash`` runs the blocks' attention through the
-flash kernel, ``--combine kernel|fused`` the solver combine through the
-sa_update / sa_fused kernels.
+``--weights init`` samples the reference's initialisation (zero output
+heads, which predict exactly 0); ``--weights tame`` the contractive
+weights of ``models/tame.py`` (float32 residual stream). ``--flash`` runs
+the DiT blocks' attention through the flash kernel, ``--wkv-kernel`` the
+RWKV6 recurrence through the WKV kernel (the reference's ``use_pallas``),
+``--combine kernel|fused`` the solver combine through the sa_update /
+sa_fused kernels.
 """
 
 from __future__ import annotations
@@ -21,41 +26,62 @@ import time
 
 import torch
 
-from ..configs import get_config, get_smoke
+from ..configs import ARCHS, get_config, get_smoke
 from ..core import Denoiser, get_schedule
 from ..core.samplers import Sampler, SamplerSpec
 from ..device import resolve_device
 from ..kernels import ops
-from ..models import TransformerLM, init_params
-from ..models.tame import ensure_contractive, tame_dit, tame_networks
+from ..models import LMConfig, build_model, init_params
+from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
+                           tame_rwkv6)
 
 __all__ = ["build_denoiser", "main"]
 
 
+def _kernel_options(cfg, flash: bool, wkv_kernel: bool) -> dict:
+    """The config fields the kernel flags set, refusing a flag the arch
+    has no kernel for."""
+    if isinstance(cfg, LMConfig):
+        if wkv_kernel:
+            raise SystemExit("--wkv-kernel applies to rwkv6-3b only")
+        return {"use_flash": flash}
+    if flash:
+        raise SystemExit("--flash applies to the DiT archs only")
+    return {"use_kernel": wkv_kernel}
+
+
 def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
-                   flash: bool = False, seed: int = 0, device="cuda"):
+                   flash: bool = False, wkv_kernel: bool = False,
+                   latent: int = 16, seed: int = 0, device="cuda"):
     """``(cfg, network)`` for ``arch``: the x0-prediction network
     ``(x, t, cond) -> x0`` with weights from ``seed``, on the card unless
     ``device`` says otherwise. ``weights="tame"`` uses the contractive
-    construction and checks its Jacobian gain on the device."""
+    construction and checks its Jacobian gain on the device. ``latent``
+    is the latent width of an arch whose config leaves it unset."""
     device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    opts = _kernel_options(cfg, flash, wkv_kernel)
     if weights == "tame":
-        model, params, mu = tame_dit(arch, smoke=smoke, seed=seed,
-                                     use_flash=flash, device=device)
-        cfg = model.cfg
+        if isinstance(cfg, LMConfig):
+            model, params, mu = tame_dit(arch, smoke=smoke, seed=seed,
+                                         device=device, **opts)
+        else:
+            model, params, mu = tame_rwkv6(arch, smoke=smoke, seed=seed,
+                                           latent=latent, device=device,
+                                           **opts)
         g = torch.Generator(device).manual_seed(seed + 3)
-        x = torch.randn((1, 64, cfg.denoiser_latent), generator=g,
+        x = torch.randn((1, 64, model.cfg.denoiser_latent), generator=g,
                         device=device)
         report = ensure_contractive(model, params, mu, x, g)
         if report["halvings"]:
-            print(f"tame: adaLN weights damped by {report['adaln_factor']} "
+            print(f"tame: {report['damped']} damped by {report['factor']} "
                   f"to reach Jacobian gain < 1: {report['gains']}")
-        return cfg, tame_networks(model, params, mu)
+        return model.cfg, tame_networks(model, params, mu)
     if weights != "init":
         raise ValueError(f"weights={weights!r}; expected 'init' or 'tame'")
-    cfg = get_smoke(arch) if smoke else get_config(arch)
-    cfg = dataclasses.replace(cfg, use_flash=flash)
-    model = TransformerLM(cfg)
+    cfg = dataclasses.replace(
+        cfg, denoiser_latent=cfg.denoiser_latent or latent, **opts)
+    model = build_model(cfg)
     params = init_params(torch.Generator(device).manual_seed(seed),
                          model.param_defs(), torch.float32, device)
 
@@ -67,7 +93,7 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="dit-xl-2", choices=["dit-xl-2", "dit-s"])
+    ap.add_argument("--arch", default="dit-xl-2", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -82,7 +108,11 @@ def main(argv=None):
                     "the dual-output sa_fused kernel (ring history)")
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--flash", action="store_true",
-                    help="attention through the flash kernel")
+                    help="DiT attention through the flash kernel")
+    ap.add_argument("--wkv-kernel", action="store_true",
+                    help="RWKV6 recurrence through the WKV kernel")
+    ap.add_argument("--latent", type=int, default=16,
+                    help="latent width where the arch's config has none")
     ap.add_argument("--weights", default="init", choices=["init", "tame"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -94,7 +124,9 @@ def main(argv=None):
         raise SystemExit(str(e))
     cfg, network = build_denoiser(args.arch, smoke=args.smoke,
                                   weights=args.weights, flash=args.flash,
-                                  seed=args.seed, device=device)
+                                  wkv_kernel=args.wkv_kernel,
+                                  latent=args.latent, seed=args.seed,
+                                  device=device)
     schedule = get_schedule("vp_linear")
     spec = SamplerSpec.from_nfe(
         "sa", args.nfe, schedule=schedule, tau=args.tau,
@@ -123,7 +155,8 @@ def main(argv=None):
           f"NFE={sampler.nfe} (requested {args.nfe}) steps={spec.n_steps} "
           f"tau={args.tau} P{args.predictor}C{args.corrector} {args.mode} "
           f"combine={args.combine} precision={args.precision} "
-          f"flash={args.flash} weights={args.weights} device={device}")
+          f"flash={args.flash} wkv_kernel={args.wkv_kernel} "
+          f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())
     print(f"first run {t1 - t0:.2f}s, steady {t2 - t1:.2f}s; "
           f"out mean={float(x0.float().mean()):.4f} "

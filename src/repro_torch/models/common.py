@@ -1,5 +1,5 @@
-"""Shared model machinery used by the DiT denoiser: parameter schemas and
-initialisation, and the functional layers (RMSNorm, MLP).
+"""Shared model machinery of the denoiser backbones: parameter schemas and
+initialisation, and the functional layers (RMSNorm, LayerNorm, MLP).
 
 Parameters are declared once as ``ParamDef(shape, axes, init, scale)``
 and materialised by :func:`init_params` into a nested dict of tensors with
@@ -17,8 +17,8 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamDef", "init_params", "tree_defs_map", "rms_norm",
-           "mlp_defs", "mlp_apply", "promote_matmul", "promote_einsum"]
+__all__ = ["ParamDef", "init_params", "tree_defs_map", "layer_of", "rms_norm",
+           "layer_norm", "mlp_defs", "mlp_apply", "promote_matmul", "promote_einsum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +61,13 @@ def init_params(generator: torch.Generator, defs, dtype=torch.float32,
                          defs)
 
 
+def layer_of(tree, l: int):
+    """Layer ``l`` of a stacked [L, ...] parameter (or cache) tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree[l]
+    return {k: layer_of(v, l) for k, v in tree.items()}
+
+
 def promote_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the wider of the two dtypes, as the reference's mixed
     bfloat16 x float32 products promote (PyTorch refuses mixed dtypes)."""
@@ -78,6 +85,17 @@ def rms_norm(x, weight, eps: float = 1e-6):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + weight.float())).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm in float32, returned in ``x``'s dtype. The variance is the
+    population one (``correction=0``), as ``jnp.var`` computes it."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dt)
 
 
 def mlp_defs(d_model: int, d_ff: int) -> dict:

@@ -1,16 +1,21 @@
-"""Contractive DiT weights: the yardstick for whole-solve comparisons.
+"""Contractive denoiser weights: the yardstick for whole-solve comparisons.
 
-A freshly initialised DiT is useless for comparing two solves: with
-adaLN-zero init (``adaln`` and ``out_proj`` zero) it predicts exactly 0,
-and with random adaLN/out_proj weights its x0-prediction is *expansive*
-in ``x`` (random attention/MLP paths open through O(1) gates, and every
-``rms_norm`` Jacobian grows as the solve drives ``|x|`` toward zero), so a
-last-bit difference between two combines is amplified ~5-8x per solver
-step and says nothing about the combines. A trained denoiser is
-contractive: roughly the data mean plus a small x-dependent correction.
-:func:`tame_dit` builds that regime from a seed:
+A freshly initialised backbone is useless for comparing two solves: with
+zero-initialised output heads (the DiT's adaLN-zero ``adaln`` and
+``out_proj``, RWKV6's ``out_proj``) it predicts exactly 0, and with random
+output weights its x0-prediction is *expansive* in ``x`` (random
+attention/MLP/recurrence paths open through O(1) gates, and every norm's
+Jacobian grows as the solve drives ``|x|`` toward zero), so a last-bit
+difference between two combines is amplified ~5-8x per solver step and
+says nothing about the combines. A trained denoiser is contractive:
+roughly the data mean plus a small x-dependent correction.
+:func:`tame_dit` and :func:`tame_rwkv6` build that regime from a seed:
 
-- adaLN weights drawn at ``adaln_scale`` (small but real gates);
+- the DiT's adaLN weights drawn at ``adaln_scale`` (small but real gates);
+  RWKV6 has no gates, so the output projections of its residual branches
+  (``tm/wo``, ``cm/wv``) are scaled by ``BRANCH_SCALE`` instead: without
+  that, 32 random blocks amplify a 1e-7 nudge of x_T to ~1e-3 over a solve
+  while a random-direction Jacobian gain still reads below 1;
 - ``out_proj`` drawn at ``1/out_div`` (a small x-dependent correction);
 - the t-conditioning MLP damped by ``t_damp`` so ``tcond`` stays O(1);
 - a fixed unit-scale anchor ``mu`` ("data mean") added to the output by
@@ -19,9 +24,10 @@ contractive: roughly the data mean plus a small x-dependent correction.
 Width: both random maps sum over ``d_model`` inputs, so their draws are
 scaled by ``sqrt(64 / d_model)``. At width 64 (the ``dit-s`` smoke config
 the reference's constants were tuned on) this is exactly the reference's
-construction; at full width it keeps the same per-output magnitudes.
+DiT construction; at full width it keeps the same per-output magnitudes.
 :func:`ensure_contractive` measures the Jacobian gain on the target
-device and damps the adaLN weights further until it is below 1.
+device and damps the adaLN weights (the DiT) or ``out_proj`` (RWKV6)
+further until it is below 1.
 """
 
 from __future__ import annotations
@@ -34,27 +40,59 @@ import torch
 from ..configs import get_config, get_smoke
 from ..device import resolve_device
 from .common import init_params
+from .rwkv6 import RWKV6
 from .transformer import TransformerLM
 
-__all__ = ["tame_dit", "tame_params", "tame_networks", "jacobian_gain",
-           "ensure_contractive"]
+__all__ = ["tame_dit", "tame_rwkv6", "tame_params", "tame_networks",
+           "jacobian_gain", "ensure_contractive"]
+
+# RWKV6's counterpart of the DiT's small adaLN gates: the factor on the
+# output projections of its residual branches.
+BRANCH_SCALE = 0.05
 
 
 def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
                 adaln_scale: float = 0.003, out_div: float = 50.0,
                 t_damp: tuple[float, float] = (0.1, 0.3)) -> dict:
     """Overwrite an ``init_params`` tree in place with the contractive
-    construction (draws from ``generator``); returns it."""
+    construction (draws from ``generator``); returns it. ``adaln_scale``
+    applies to trees with adaLN weights (the DiT); trees with RWKV6 blocks
+    have their branch projections scaled by ``BRANCH_SCALE``."""
     w = math.sqrt(64.0 / d_model)
     blocks, dp = params["blocks"], params["denoiser"]
-    dev = blocks["adaln"].device
-    blocks["adaln"] = adaln_scale * w * torch.randn(
-        blocks["adaln"].shape, generator=generator, device=dev)
+    dev = dp["out_proj"].device
+    if "adaln" in blocks:
+        blocks["adaln"] = adaln_scale * w * torch.randn(
+            blocks["adaln"].shape, generator=generator, device=dev)
+    if "tm" in blocks:
+        blocks["tm"]["wo"] = blocks["tm"]["wo"] * BRANCH_SCALE
+        blocks["cm"]["wv"] = blocks["cm"]["wv"] * BRANCH_SCALE
     dp["out_proj"] = w / out_div * torch.randn(
         dp["out_proj"].shape, generator=generator, device=dev)
     dp["t_mlp1"] = dp["t_mlp1"] * t_damp[0]
     dp["t_mlp2"] = dp["t_mlp2"] * t_damp[1]
     return params
+
+
+def _tame(model, seed: int, device, **tame_kw):
+    """``(model, params, mu)`` for a built model: its parameters drawn from
+    ``seed`` and tamed, and the unit-scale anchor ``mu(seq) -> [seq, dz]``
+    (deterministic in ``seed``)."""
+    cfg = model.cfg
+    params = init_params(torch.Generator(device).manual_seed(seed),
+                         model.param_defs(), torch.float32, device)
+    tame_params(params, cfg.d_model,
+                torch.Generator(device).manual_seed(seed + 1), **tame_kw)
+    anchors: dict[int, torch.Tensor] = {}
+
+    def mu(seq: int) -> torch.Tensor:
+        if seq not in anchors:
+            g = torch.Generator(device).manual_seed(seed + 2)
+            anchors[seq] = torch.randn((seq, cfg.denoiser_latent),
+                                       generator=g, device=device)
+        return anchors[seq]
+
+    return model, params, mu
 
 
 def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
@@ -75,22 +113,30 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
     cfg = dataclasses.replace(
         cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
         dtype=torch.float32, use_flash=use_flash)
-    model = TransformerLM(cfg)
-    params = init_params(torch.Generator(device).manual_seed(seed),
-                         model.param_defs(), torch.float32, device)
-    tame_params(params, cfg.d_model,
-                torch.Generator(device).manual_seed(seed + 1),
-                adaln_scale=adaln_scale, out_div=out_div, t_damp=t_damp)
-    anchors: dict[int, torch.Tensor] = {}
+    return _tame(TransformerLM(cfg), seed, device, adaln_scale=adaln_scale,
+                 out_div=out_div, t_damp=t_damp)
 
-    def mu(seq: int) -> torch.Tensor:
-        if seq not in anchors:
-            g = torch.Generator(device).manual_seed(seed + 2)
-            anchors[seq] = torch.randn((seq, cfg.denoiser_latent),
-                                       generator=g, device=device)
-        return anchors[seq]
 
-    return model, params, mu
+def tame_rwkv6(arch: str = "rwkv6-3b", *, smoke: bool = True,
+               n_layers: int | None = None, seed: int = 0,
+               out_div: float = 50.0, use_kernel: bool = False,
+               latent: int = 16, device="cuda"):
+    """Build an RWKV6 denoiser (smoke or full config) whose denoise map is
+    contractive: the residual branches' output projections scaled by
+    ``BRANCH_SCALE``, ``out_proj`` drawn small instead of zero, the t-MLP
+    damped. The residual stream is float32 (the published config's is
+    bfloat16: swap it with ``dataclasses.replace`` on ``model.cfg``);
+    ``latent`` is the denoiser latent width, which the LM config leaves
+    unset. Returns
+    ``(model, params, mu)`` as :func:`tame_dit` does; runs on the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
+        dtype=torch.float32, use_kernel=use_kernel,
+        denoiser_latent=cfg.denoiser_latent or latent)
+    return _tame(RWKV6(cfg), seed, device, out_div=out_div)
 
 
 def tame_networks(model, params, mu):
@@ -123,20 +169,24 @@ def ensure_contractive(model, params, mu, x: torch.Tensor,
                        ts=(0.95, 0.5, 0.1), max_halvings: int = 4) -> dict:
     """Check that the tame network's Jacobian gain is below 1 at every
     ``t`` in ``ts`` (at the state ``x``, along a random direction); halve
-    the adaLN weights in place until it is, at most ``max_halvings``
-    times. Returns ``{"adaln_factor", "gains", "halvings"}``; raises if the
-    gain stays at or above 1."""
+    the damped leaf in place until it is, at most ``max_halvings`` times.
+    The damped leaf is the adaLN weights where the tree has them (the
+    DiT), else ``denoiser/out_proj`` (RWKV6). Returns ``{"damped",
+    "factor", "gains", "halvings"}``; raises if the gain stays at or
+    above 1."""
     network = tame_networks(model, params, mu)
     v = torch.randn(x.shape, generator=generator, device=x.device)
+    tree, leaf = ((params["blocks"], "adaln") if "adaln" in params["blocks"]
+                  else (params["denoiser"], "out_proj"))
     factor = 1.0
     for halvings in range(max_halvings + 1):
         gains = {t: jacobian_gain(network, x, t, v) for t in ts}
         if max(gains.values()) < 1.0:
-            return {"adaln_factor": factor, "gains": gains,
+            return {"damped": leaf, "factor": factor, "gains": gains,
                     "halvings": halvings}
         if halvings < max_halvings:
-            params["blocks"]["adaln"] = params["blocks"]["adaln"] * 0.5
+            tree[leaf] = tree[leaf] * 0.5
             factor *= 0.5
     raise RuntimeError(
         f"tame weights stay expansive after {max_halvings} halvings of "
-        f"adaln_scale: Jacobian gains {gains}")
+        f"{leaf}: Jacobian gains {gains}")

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from .attention import AttentionConfig, attn_defs, gqa_forward
-from .common import (ParamDef, mlp_apply, mlp_defs, promote_matmul,
-                     rms_norm, tree_defs_map)
+from .common import (ParamDef, layer_of, mlp_apply, mlp_defs,
+                     promote_matmul, rms_norm, tree_defs_map)
 
 __all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
 
@@ -68,13 +68,6 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0):
                       / half)
     ang = t[..., None] * freqs
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
-
-
-def _layer(tree, l: int):
-    """Layer ``l`` of a stacked [L, ...] parameter tree."""
-    if isinstance(tree, torch.Tensor):
-        return tree[l]
-    return {k: _layer(v, l) for k, v in tree.items()}
 
 
 class TransformerLM:
@@ -161,6 +154,6 @@ class TransformerLM:
         tcond = self._tcond(dp, t, z.shape[0])
         blocks = params["blocks"]
         for l in range(cfg.n_layers):
-            x = self._block(_layer(blocks, l), x, tcond)
+            x = self._block(layer_of(blocks, l), x, tcond)
         x = rms_norm(x, params["ln_f"])
         return (x @ dp["out_proj"].to(cfg.dtype)).float()

@@ -226,7 +226,8 @@ def test_ensure_contractive_damps_expansive_adaln():
     x = torch.randn(2, 16, 8, generator=g)
     report = ensure_contractive(model, params, mu, x, g, max_halvings=12)
     assert report["halvings"] > 0
-    assert report["adaln_factor"] == 0.5 ** report["halvings"]
+    assert report["damped"] == "adaln"
+    assert report["factor"] == 0.5 ** report["halvings"]
     assert max(report["gains"].values()) < 1.0
     model, params, mu = tame_dit("dit-s", n_layers=4, out_div=0.01,
                                  device="cpu")

@@ -5,7 +5,11 @@ rules; and, on a CUDA card, each Hopper kernel against its plain version.
 
 Tolerances: float32 1e-6 (absolute and relative) between the plain
 versions and the reference, and 2e-5 between a Hopper kernel and its plain
-version on the card (sums taken in another order); bfloat16 one unit in
+version on the card (sums taken in another order). The WKV recurrence is
+held at 1e-5 of its output's scale, max(1, max|ref|), against the
+reference and 2e-5 of it on the card: y sums products of magnitude up to
+max|y| over a chunk and the state, so float32 round-off sits at that scale
+and an entry near zero (cancellation) carries it too. bfloat16 one unit in
 the last place of the reference output (both sides accumulate in float32
 and round once, so a last-bit difference in float32 may flip one bf16
 rounding). Outputs below 1/256 of the tensor's largest magnitude come out
@@ -26,7 +30,8 @@ try:  # the JAX reference; absent on a card machine without JAX
     import jax.numpy as jnp
     from repro.kernels.flash_attention import flash_attention as j_flash
     from repro.kernels.ref import (flash_attention_ref, sa_fused_update_ref,
-                                   sa_update_ref)
+                                   sa_update_ref, wkv_ref)
+    from repro.kernels.rwkv6_scan import rwkv6_wkv as j_wkv
     from repro.kernels.sa_fused import sa_fused_update as j_sa_fused
     from repro.kernels.sa_update import sa_update as j_sa_update
 except ImportError:  # pragma: no cover - exercised on the card machine
@@ -34,6 +39,7 @@ except ImportError:  # pragma: no cover - exercised on the card machine
 
 from repro_torch.kernels import flash_attention as t_flash_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as t_wkv_mod
 from repro_torch.kernels import sa_fused as t_fused_mod
 from repro_torch.kernels import sa_update as t_update_mod
 
@@ -198,6 +204,73 @@ def test_flash_attention_noncausal(reference, hd):
                                rtol=1e-6)
 
 
+# ------------------------------------------------------------- rwkv6 wkv
+def _wkv_inputs(rng, B, T, H, hd, S0_zero=False, decay_shift=0.0):
+    """r, k, v, logw [B,T,H,hd], u [H,hd], S0 [B,H,hd,hd] as float32 numpy,
+    logw drawn as the reference's tests draw it, less ``decay_shift`` in
+    the exponent (at 4, logw is about -0.02 and the state carries across
+    chunks; at 0 a chunk of 16 or more tokens mostly forgets it)."""
+    r, k, v = (rng.standard_normal((B, T, H, hd)).astype(np.float32)
+               for _ in range(3))
+    logw = np.clip(-np.exp(rng.standard_normal((B, T, H, hd)) - decay_shift),
+                   -8.0, -1e-5).astype(np.float32)
+    u = rng.standard_normal((H, hd)).astype(np.float32)
+    S0 = (np.zeros if S0_zero else rng.standard_normal)(
+        (B, H, hd, hd)).astype(np.float32)
+    return r, k, v, logw, u, S0
+
+
+def assert_scale_close(got, ref, tol):
+    """|got - ref| <= tol * max(1, max|ref|) everywhere."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    err = float(np.abs(got - ref).max())
+    assert err <= tol * max(1.0, float(np.abs(ref).max())), err
+
+
+@pytest.mark.parametrize("B,T,H,hd,chunk", [
+    (2, 64, 3, 16, 16),
+    (1, 128, 2, 32, 32),
+    (3, 32, 1, 8, 16),
+])
+@pytest.mark.parametrize("decay_shift", [0.0, 4.0])
+def test_wkv_plain_matches_pallas(reference, B, T, H, hd, chunk, decay_shift):
+    """The reference's sweep (tests/test_kernels.py), and the same with slow
+    decay: the plain version against the Pallas kernel in interpret mode
+    and the sequential oracle."""
+    arrs = _wkv_inputs(np.random.default_rng(B * T + hd), B, T, H, hd,
+                       decay_shift=decay_shift)
+    y, S = t_wkv_mod.rwkv6_wkv_plain(*map(torch.from_numpy, arrs),
+                                     chunk=chunk)
+    assert y.dtype == S.dtype == torch.float32
+    jin = [jnp.asarray(a) for a in arrs]
+    for y_ref, S_ref in (j_wkv(*jin, chunk=chunk), wkv_ref(*jin)):
+        assert_scale_close(y.numpy(), y_ref, 1e-5)
+        assert_scale_close(S.numpy(), S_ref, 1e-5)
+
+
+def test_wkv_plain_bf16_inputs_match_pallas(reference):
+    """bfloat16 r/k/v (logw float32, as the reference's bf16 test has it):
+    both sides upcast the same values and accumulate in float32."""
+    r, k, v, logw, u, S0 = _wkv_inputs(np.random.default_rng(4), 1, 32, 2, 16,
+                                       S0_zero=True)
+    (rj, rt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in (r, k, v))
+    y, S = t_wkv_mod.rwkv6_wkv_plain(rt, kt, vt, torch.from_numpy(logw),
+                                     torch.from_numpy(u), torch.from_numpy(S0),
+                                     chunk=16)
+    rest = [jnp.asarray(a) for a in (logw, u, S0)]
+    for y_ref, S_ref in (j_wkv(rj, kj, vj, *rest, chunk=16),
+                         wkv_ref(rj, kj, vj, *rest)):
+        assert_scale_close(y.numpy(), y_ref, 1e-5)
+        assert_scale_close(S.numpy(), S_ref, 1e-5)
+
+
+def test_wkv_plain_needs_whole_chunks():
+    arrs = [torch.from_numpy(a) for a in
+            _wkv_inputs(np.random.default_rng(0), 1, 48, 1, 16)]
+    with pytest.raises(ValueError, match="divisible"):
+        ops.wkv(*arrs, chunk=32)
+
+
 # ------------------------------------------------------------ dispatch
 def test_ops_dispatch_cpu_takes_plain_and_counts_no_launch():
     ops.reset_launch_counts()
@@ -214,8 +287,13 @@ def test_ops_dispatch_cpu_takes_plain_and_counts_no_launch():
         ops.flash_attention(qkv, qkv, qkv, causal=False),
         t_flash_mod.flash_attention_plain(qkv, qkv, qkv, causal=False),
         rtol=0, atol=0)
+    wkv_in = [torch.from_numpy(a) for a in
+              _wkv_inputs(np.random.default_rng(1), 1, 32, 2, 16)]
+    for got, want in zip(ops.wkv(*wkv_in, chunk=16),
+                         t_wkv_mod.rwkv6_wkv_plain(*wkv_in, chunk=16)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert ops.launch_counts() == {"sa_update": 0, "sa_fused": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "rwkv6_wkv": 0}
     with pytest.raises(ValueError, match="mode"):
         ops.sa_update(x, buf, x, c, mode="kernel")
 
@@ -232,7 +310,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.randn(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         t_flash_mod.flash_attention(q, q, q)
+    wkv_in = [torch.from_numpy(a) for a in
+              _wkv_inputs(np.random.default_rng(1), 1, 32, 2, 16)]
+    with pytest.raises(ValueError, match="CUDA"):
+        t_wkv_mod.rwkv6_wkv(*wkv_in, chunk=16)
     assert ops.launch_counts()["sa_update"] == 0
+    assert ops.launch_counts()["rwkv6_wkv"] == 0
 
 
 # ----------------------------------------------------------- card only
@@ -275,3 +358,44 @@ def test_flash_kernel_matches_plain_on_card(card, B, H, K, S, hd, causal,
     ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
     assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
                  str(dtype).replace("torch.", ""), 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,hd,chunk", [
+    (8, 256, 40, 64, 64),   # RWKV6-3B's denoiser path
+    (2, 128, 4, 32, 64),    # the smoke config's head dim
+    (2, 64, 3, 16, 16), (1, 128, 2, 32, 32), (2, 96, 2, 64, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay_shift", [0.0, 4.0])  # 4: state carries over
+def test_wkv_kernel_matches_plain_on_card(card, B, T, H, hd, chunk, dtype,
+                                          decay_shift):
+    g = torch.Generator(card).manual_seed(T + hd)
+    rnd = lambda s: torch.randn(s, generator=g, device=card)
+    r, k, v = (rnd((B, T, H, hd)).to(dtype) for _ in range(3))
+    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), -8.0,
+                       -1e-5)
+    u, S0 = rnd((H, hd)), rnd((B, H, hd, hd))
+    before = ops.launch_counts()["rwkv6_wkv"]
+    y, S = ops.wkv(r, k, v, logw, u, S0, chunk=chunk)
+    assert ops.launch_counts()["rwkv6_wkv"] == before + 1
+    y_ref, S_ref = ops.wkv(r, k, v, logw, u, S0, chunk=chunk, mode="plain")
+    torch.cuda.synchronize()
+    assert y.dtype == S.dtype == torch.float32
+    assert_scale_close(y.cpu().numpy(), y_ref.cpu().numpy(), 2e-5)
+    assert_scale_close(S.cpu().numpy(), S_ref.cpu().numpy(), 2e-5)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_refuses_what_it_has_no_instance_for(card):
+    def inputs(T, hd):
+        r = torch.zeros((1, T, 2, hd), device=card)
+        return (r, r, r, r - 1.0, torch.zeros((2, hd), device=card),
+                torch.zeros((1, 2, hd, hd), device=card))
+    with pytest.raises(ValueError, match="head dim"):
+        ops.wkv(*inputs(64, 8), chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.wkv(*inputs(64, 16), chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.wkv(*inputs(48, 16), chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv(*(a.half() for a in inputs(64, 16)), chunk=16)

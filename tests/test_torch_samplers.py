@@ -158,7 +158,7 @@ def test_cpu_solves_launch_no_kernel():
     for combine in ("kernel", "fused"):
         solve_both(nfe=6, combine=combine)
     assert ops.launch_counts() == {"sa_update": 0, "sa_fused": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "rwkv6_wkv": 0}
 
 
 def test_fused_coefficients_rotate_columns_not_data():

@@ -38,6 +38,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 
 REPLACES = {
     "sa_update": "src/repro/kernels/sa_update.py:88",
@@ -116,9 +117,12 @@ def time_ms(fn, inner: int = 20, samples: int = 50) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          peak_ops: float = PEAK_F32_FLOP_PER_S) -> tuple[float, str]:
+    """(least ms, what sets it) for moving ``n_bytes`` and doing ``n_ops``
+    at ``peak_ops`` operations per second."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,16 +219,25 @@ def _ptxas_summary(lines) -> list[str]:
     return out
 
 
+#: the instance whose registers must not spill (DiT-XL/2's attention)
+NO_SPILL = "flash_kernel<f32,72>"
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     log = _build.build()
     wall = time.perf_counter() - t0
-    return {"phase": "build", "ok": True, "wall_s": wall,
-            "sources": {n: {"seconds": r["seconds"], "reused": r["reused"],
-                            "path": os.path.relpath(r["path"], ROOT),
-                            "ptxas": _ptxas_summary(r["ptxas"])}
-                        for n, r in log.items()}}
+    res = {"phase": "build", "ok": True, "wall_s": wall,
+           "sources": {n: {"seconds": r["seconds"], "reused": r["reused"],
+                           "path": os.path.relpath(r["path"], ROOT),
+                           "ptxas": _ptxas_summary(r["ptxas"])}
+                       for n, r in log.items()}}
+    lines = [ln for ln in res["sources"]["flash_attention"]["ptxas"]
+             if ln.startswith(NO_SPILL + ":")]
+    require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
+            "loads" in lines[0], f"{NO_SPILL} spills: {lines}")
+    return res
 
 
 def _combine_inputs(shape, P, dtype, seed):
@@ -260,6 +273,17 @@ def _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed, decay_shift=0.0):
             rnd((B, H, hd, hd)))
 
 
+def _device_kernels(fn) -> list[str]:
+    """Names of the device kernels one ``fn()`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.key for ev in prof.key_averages()
+                   if str(getattr(ev, "device_type", "")).endswith("CUDA")})
+
+
 def phase_kernels(timings: dict) -> dict:
     import torch
     from repro_torch.kernels import ops
@@ -290,6 +314,12 @@ def phase_kernels(timings: dict) -> dict:
         (2, 4, 4, 257, 257, 72, True),
         (2, 4, 2, 200, 200, 64, True),
         (2, 4, 2, 130, 130, 128, False),
+        # every head dim with a kernel instance
+        *[(2, 4, 2, 96, 96, hd, True) for hd in (16, 32, 64, 72, 80, 96, 128)],
+        # the edges of the kernel's 64-key tiles and 128-row query tiles
+        *[(2, 4, 4, n, n, 72, causal)
+          for n in (1, 63, 64, 65, 127, 128, 129) for causal in (False, True)],
+        (2, 8, 2, 129, 129, 72, False),     # GQA 4:1 at a ragged edge
     ]
     for (B, H, K, S, T, hd, causal) in attn:
         for dtype in (torch.float32, torch.bfloat16):
@@ -349,13 +379,29 @@ def phase_kernels(timings: dict) -> dict:
     B, H, S, hd = 8, 16, 256, 72
     q, k, v = _attn_inputs(B, H, H, S, S, hd, torch.float32, seed=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_bytes, attn_ops = 4 * B * H * S * hd * 4, 4 * B * H * S * S * hd
+    # the bound of the function at f32 accuracy: both products as three
+    # TF32 tensor-core products per multiply-add (as SDPA computes f32).
+    # Information: the kernel's own split (Q K^T as f32 FMAs on the CUDA
+    # cores, P V as 3xTF32), and both products as f32 FMAs (the earlier
+    # kernel's design and bound)
+    parts = {"qk_f32_cuda_cores": attn_ops / 2 / PEAK_F32_FLOP_PER_S * 1e3,
+             "pv_3xtf32_tensor_cores":
+                 3 * attn_ops / 2 / PEAK_TF32_FLOP_PER_S * 1e3,
+             "bytes": attn_bytes / PEAK_BYTES_PER_S * 1e3}
     timings["flash_attention"] = {
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=False)),
         "plain_ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=False,
                                                         mode="plain")),
         "library_ms": time_ms(lambda: sdpa(q, k, v)),
-        "bound": bound(4 * B * H * S * hd * 4, 4 * B * H * S * S * hd),
+        "library_kernels": _device_kernels(lambda: sdpa(q, k, v)),
+        "bound": bound(attn_bytes, 3 * attn_ops, PEAK_TF32_FLOP_PER_S),
+        "bound_peak": "TF32 tensor cores, 3 products per multiply-add",
+        "bound_parts_ms": parts,
+        "bound_f32_simt_ms": bound(attn_bytes, attn_ops)[0],
         "shape": [B, H, S, hd]}
+    f = timings["flash_attention"]
+    f["no_slower_than_library"] = f["ms"] <= f["library_ms"]
     # the WKV call of the RWKV6-3B denoiser (f32 inputs, as the model's)
     args = _wkv_inputs(*WKV_SHAPE, torch.float32, torch.float32, seed=5)
     timings["rwkv6_wkv"] = {
@@ -366,7 +412,8 @@ def phase_kernels(timings: dict) -> dict:
         "bound": bound(*wkv_bytes_ops(*WKV_SHAPE, WKV_CHUNK)),
         "shape": [*WKV_SHAPE, WKV_CHUNK]}
     return {"phase": "kernel_times", "ok": True, "card_peaks": {
-        "bytes_per_s": PEAK_BYTES_PER_S, "f32_flop_per_s": PEAK_F32_FLOP_PER_S},
+        "bytes_per_s": PEAK_BYTES_PER_S, "f32_flop_per_s": PEAK_F32_FLOP_PER_S,
+        "tf32_flop_per_s": PEAK_TF32_FLOP_PER_S},
         "times": {name: {**t, "bound_ms": t["bound"][0],
                          "bound_by": t["bound"][1]}
                   for name, t in timings.items()}}

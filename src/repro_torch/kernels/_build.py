@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags,
-so an edited source never loads a stale library). Compilation happens at
+so an edited source never loads a stale library), with nvcc's output
+beside it in ``lib<name>-<hash>.log``. Compilation happens at
 first use, or all at once through :func:`build` (one nvcc process per
 source, started together). The libraries expose a plain C interface: every
 pointer and the stream are ``c_void_p``, and each entry point returns
@@ -64,18 +65,23 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
+
+
 def build(names=SOURCES) -> dict[str, dict]:
     """Compile every named source whose library is missing, one nvcc per
     source, all started together. Returns, per source: seconds, the
     library path, whether an existing library was reused, and nvcc's
-    output lines (with -Xptxas -v: registers and spills per kernel)."""
+    output lines (with -Xptxas -v: registers and spills per kernel), kept
+    from the build that made a reused library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log, jobs = {}, {}
     for name in names:
         out = lib_path(name)
-        if out.exists():
+        if out.exists() and _log_path(out).exists():
             log[name] = {"seconds": 0.0, "path": str(out), "reused": True,
-                         "ptxas": []}
+                         "ptxas": _log_path(out).read_text().splitlines()}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -90,9 +96,13 @@ def build(names=SOURCES) -> dict[str, dict]:
             raise RuntimeError(
                 f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
                 f"{stdout}\n{stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         ptxas = [ln.strip() for ln in (stdout + stderr).splitlines()
                  if ln.strip()]
+        _log_path(tmp).write_text("\n".join(ptxas) + "\n")
+        # atomic: a concurrent loader sees all or nothing; the library goes
+        # last, so a library on disk always has its log beside it
+        os.replace(_log_path(tmp), _log_path(out))
+        os.replace(tmp, out)
         log[name] = {"seconds": seconds, "path": str(out), "reused": False,
                      "ptxas": ptxas}
     return log

@@ -4,7 +4,9 @@ q [B,H,S,hd]; k, v [B,K,T,hd] with K dividing H (GQA: q-head h reads
 kv-head h // (H/K)); causal or bidirectional; f32 softmax and
 accumulation; output in q.dtype. ``flash_attention`` launches the
 hand-written Hopper kernel (``csrc/flash_attention.cu``: one block per
-(b, h, q-tile), a loop over k-tiles inside it, running max/sum and the
+(b, h, q-tile), a loop over k-tiles inside it, Q K^T as f32 FMA chains
+on the CUDA cores (the plain version's own rounding), P V on the tensor
+cores as three TF32 products per multiply-add, running max/sum and the
 accumulator in registers, ragged T masked in the kernel).
 ``flash_attention_plain`` is the same function in plain PyTorch.
 """

@@ -204,6 +204,67 @@ def test_flash_attention_noncausal(reference, hd):
                                rtol=1e-6)
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32 on float32 values: keep 10 mantissa bits, rounding
+    to nearest with ties away from zero (add half of the dropped 13 bits to
+    the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """float32 values read as TF32 by dropping the low 13 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b in float32 from TF32 operands, one mma.sync per product:
+    big·big alone, or big·big + big·small + small·big with a = big + small,
+    big = a rounded to TF32 and small = a - big as the tensor core reads it
+    (at worst truncated to TF32). Products of TF32 values are exact in
+    float64, so only the operands' rounding is emulated."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.double() @ bb.double()
+    if products == 3:
+        out = (out + ab.double() @ _tf32_trunc(b - bb).double()
+               + _tf32_trunc(a - ab).double() @ bb.double())
+    return out.float()
+
+
+@pytest.mark.parametrize("hd,scale", [(64, 1.0), (72, 1.0), (128, 1.0),
+                                      (72, 10.0)])
+def test_three_tf32_products_hold_attention_f32(hd, scale):
+    """The Hopper flash kernel's arithmetic against the card-side tolerance
+    to the float32 plain version, 2e-5 · max(1, max|plain|): scores as
+    float32 FMA chains (the plain version's own), P·V as three TF32
+    tensor-core products per multiply-add. One TF32 product for P·V misses
+    the tolerance. At DiT-XL/2-like activations (``scale`` 10: |q|, |k| up
+    to ~45, logits up to ~500) scores from three TF32 products miss it too,
+    which is why the kernel keeps Q·K^T off the tensor cores."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (scale * torch.from_numpy(rng.standard_normal((1, 4, 256, hd))
+                                        .astype(np.float32)) for _ in range(3))
+    plain = t_flash_mod.flash_attention_plain(q, k, v, causal=False)
+    tol = 2e-5 * max(1.0, float(plain.abs().max()))
+
+    def error(score_products, pv_products):
+        if score_products:
+            s = _tf32_matmul(q, k.transpose(-1, -2), score_products)
+        else:
+            s = torch.einsum("bhsd,bhtd->bhst", q, k)
+        s = s / np.sqrt(hd)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        out = _tf32_matmul(p, v, pv_products) / p.sum(-1, keepdim=True)
+        return float((out - plain).abs().max())
+
+    kernel, one_tf32 = error(0, 3), error(0, 1)
+    assert kernel <= tol, (kernel, tol)
+    assert one_tf32 > tol, (one_tf32, tol)
+    if scale > 1:
+        tensor_core_scores = error(3, 3)
+        assert tensor_core_scores > tol, (tensor_core_scores, tol)
+
+
 # ------------------------------------------------------------- rwkv6 wkv
 def _wkv_inputs(rng, B, T, H, hd, S0_zero=False, decay_shift=0.0):
     """r, k, v, logw [B,T,H,hd], u [H,hd], S0 [B,H,hd,hd] as float32 numpy,
@@ -343,11 +404,22 @@ def test_combine_kernels_match_plain_on_card(card, shape, P, dtype):
                      str(dtype).replace("torch.", ""))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,H,K,S,hd,causal", [
+#: (B, H, K, S = T, hd, causal) for the kernel on the card: the main path's
+#: shape, every head dim with a kernel instance, lengths at the edges of the
+#: kernel's 64-key tiles and 128-row query tiles (64 rows for hd > 80) under
+#: both masks, GQA 4:1
+FLASH_CARD_CASES = [
     (8, 16, 16, 256, 72, False), (2, 16, 4, 256, 72, True),
     (2, 4, 4, 257, 72, False), (2, 4, 2, 200, 64, True),
-    (2, 4, 2, 130, 128, False)])
+    (2, 4, 2, 130, 128, False),
+    *[(2, 4, 2, 96, hd, True) for hd in t_flash_mod.HEAD_DIMS],
+    *[(2, 4, 4, n, 72, causal) for n in (1, 63, 64, 65, 127, 128, 129)
+      for causal in (False, True)],
+    (2, 8, 2, 129, 72, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,S,hd,causal", FLASH_CARD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain_on_card(card, B, H, K, S, hd, causal,
                                             dtype):
@@ -358,6 +430,24 @@ def test_flash_kernel_matches_plain_on_card(card, B, H, K, S, hd, causal,
     ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
     assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
                  str(dtype).replace("torch.", ""), 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_unaligned_tensors(card, dtype):
+    """Contiguous q/k/v whose storage starts one element past a 16-byte
+    boundary take the kernel's element-wise tile loads."""
+    g = torch.Generator(card).manual_seed(9)
+    shape = (1, 4, 70, 72)
+    n = int(np.prod(shape))
+    q, k, v = (torch.randn(n + 1, generator=g, device=card).to(dtype)[1:]
+               .view(shape) for _ in range(3))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    for causal in (False, True):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+        assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
+                     str(dtype).replace("torch.", ""), 2e-5)
 
 
 @pytest.mark.gpu

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch import attention_precision
 from repro_torch.launch import sample as launch_sample
 
 REPO = Path(__file__).resolve().parents[1]
@@ -89,6 +90,26 @@ def test_launch_sample_on_cpu_prints_nfe_accounting(capsys, extra):
     assert "finite=True" in out
 
 
+def test_attention_precision_on_cpu_records_every_call(capsys):
+    """The attention-precision entry point holds every attention call of one
+    solve against the plain version, SDPA and float64; on the CPU the
+    "kernel" is the plain version, so those two agree exactly."""
+    rec = attention_precision.main(["--arch", "dit-s", "--smoke", "--batch",
+                                    "2", "--seq", "16", "--nfe", "4",
+                                    "--device", "cpu"])
+    assert '"calls"' in capsys.readouterr().out
+    n_layers = launch_sample.get_smoke("dit-s").n_layers
+    assert rec["finite"] and rec["calls"] == n_layers * rec["nfe"] > 0
+    assert rec["kernel_vs_plain"] == {"max_abs_err": 0.0, "over_tolerance": 0}
+    for pair in ("plain_vs_f64", "sdpa_vs_plain", "sdpa_vs_f64"):
+        assert rec[pair]["over_tolerance"] == 0, rec
+    assert rec["plain_vs_f64"]["max_abs_err"] > 0.0
+    assert rec["max_abs_logit"] > 0.0 and rec["max_abs_v"] > 0.0
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA card"):
+            attention_precision.main(["--arch", "dit-s", "--smoke"])
+
+
 def _run_chip_smoke(cwd: Path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
@@ -126,6 +147,25 @@ def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
         pytest.skip("the CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build()
+
+
+def test_reused_library_reports_its_build_log(monkeypatch, tmp_path):
+    """A library built earlier comes back with the nvcc output (ptxas
+    registers and spills) of the build that made it; a library without
+    that log is built again."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    lib = _build.lib_path("flash_attention")
+    lib.write_bytes(b"")
+    line = "ptxas info    : Used 254 registers, 0 bytes spill stores"
+    lib.with_suffix(".log").write_text(line + "\n")
+    log = _build.build(("flash_attention",))["flash_attention"]
+    assert log["reused"] and log["ptxas"] == [line]
+    lib.with_suffix(".log").unlink()
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("the CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(("flash_attention",))
 
 
 @pytest.mark.gpu

@@ -8,8 +8,11 @@ holds each against its plain PyTorch version, then drives SA-Solver
 through the port's public entry points and the kernels over two
 full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
 denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
-latent [8, 256, 16]; and an SA solve of the GMM oracle. Each main path
-runs with the launch counts set to 0 just before it and read just after.
+latent [8, 256, 16]; the port's sampling entry point (``launch.sample.main``)
+with no kernel flag, which must route DiT-XL/2 and the RWKV6 smoke config
+through their kernels on the card; and an SA solve of the GMM oracle. Each
+main path runs with the launch counts set to 0 just before it and read
+just after.
 Each phase prints one JSON line; any failed check raises, and the script
 then exits non-zero without the success line. The last two lines are the
 ``kernels`` summary and ``{"ok": true, "device": {"platform": "gpu",
@@ -54,6 +57,8 @@ SOURCES = {
 }
 #: the kernels each main path must launch
 PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
+                "sample_dit": ("flash_attention",),
+                "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
@@ -199,17 +204,19 @@ def phase_device() -> dict:
 
 
 def _ptxas_summary(lines) -> list[str]:
-    """One line per kernel instance: name, type, template int, registers,
-    spills."""
+    """One line per kernel instance: name, template types and ints,
+    registers, spills."""
     out, name, spill = [], None, ""
     pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|flash_kernel|"
-                     r"wkv_kernel)I((?:f|13__nv_bfloat16)+)Li(\d+)E")
+                     r"wkv_kernel)I((?:f|13__nv_bfloat16)*)Li(\d+)E"
+                     r"(?:Li(\d+)E)?")
     for ln in lines:
         m = pat.search(ln)
         if "Compiling entry function" in ln and m:
             dts = re.findall(r"f|13__nv_bfloat16", m.group(2))
-            dt = ",".join("f32" if d == "f" else "bf16" for d in dts)
-            name = f"{m.group(1)}<{dt},{m.group(3)}>"
+            params = ["f32" if d == "f" else "bf16" for d in dts]
+            params += [g for g in m.group(3, 4) if g]
+            name = f"{m.group(1)}<{','.join(params)}>"
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and name:
@@ -219,8 +226,10 @@ def _ptxas_summary(lines) -> list[str]:
     return out
 
 
-#: the instance whose registers must not spill (DiT-XL/2's attention)
-NO_SPILL = "flash_kernel<f32,72>"
+#: the instances whose registers must not spill (DiT-XL/2's attention,
+#: RWKV6-3B's WKV)
+NO_SPILL = {"flash_attention": "flash_kernel<f32,72>",
+            "rwkv6_wkv": "wkv_kernel<64,64>"}
 
 
 def phase_build() -> dict:
@@ -233,10 +242,11 @@ def phase_build() -> dict:
                            "path": os.path.relpath(r["path"], ROOT),
                            "ptxas": _ptxas_summary(r["ptxas"])}
                        for n, r in log.items()}}
-    lines = [ln for ln in res["sources"]["flash_attention"]["ptxas"]
-             if ln.startswith(NO_SPILL + ":")]
-    require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
-            "loads" in lines[0], f"{NO_SPILL} spills: {lines}")
+    for source, instance in NO_SPILL.items():
+        lines = [ln for ln in res["sources"][source]["ptxas"]
+                 if ln.startswith(instance + ":")]
+        require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
+                "loads" in lines[0], f"{instance} spills: {lines}")
     return res
 
 
@@ -258,16 +268,19 @@ def _attn_inputs(B, H, K, S, T, hd, dtype, seed):
     return rnd((B, H, S, hd)), rnd((B, K, T, hd)), rnd((B, K, T, hd))
 
 
-def _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed, decay_shift=0.0):
-    """r/k/v in ``dtype``, logw = clip(-exp(N(0,1) - decay_shift)) (clipped
-    like the model's) in ``logw_dtype``, u and a nonzero S0 in float32.
-    At shift 0 a chunk of 64 tokens forgets the state entering it; at
-    shift 4 (logw about -0.02) the state carries across chunks."""
+def _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed, decay_shift=0.0,
+                floor=-8.0):
+    """r/k/v in ``dtype``, logw = clip(-exp(N(0,1) - decay_shift), floor,
+    -1e-5) (at the default floor clipped like the model's) in
+    ``logw_dtype``, u and a nonzero S0 in float32. At shift 0 a chunk of
+    64 tokens forgets the state entering it; at shift 4 (logw about -0.02)
+    the state carries across chunks; shift -3 with floor -50 gives decays
+    beyond the model's clamp."""
     import torch
     g = torch.Generator("cuda").manual_seed(seed)
     rnd = lambda s: torch.randn(s, generator=g, device="cuda")
     r, k, v = (rnd((B, T, H, hd)).to(dtype) for _ in range(3))
-    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), -8.0,
+    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), floor,
                        -1e-5)
     return (r, k, v, logw.to(logw_dtype), rnd((H, hd)),
             rnd((B, H, hd, hd)))
@@ -334,23 +347,34 @@ def phase_kernels(timings: dict) -> dict:
                           "err": e, "ok": ok})
     f32, bf16 = torch.float32, torch.bfloat16
     dtype_pairs = ((f32, f32), (bf16, f32), (bf16, bf16))  # r/k/v, logw
-    for (B, T, H, hd), (dtype, logw_dtype), shift in itertools.product(
-            (WKV_SHAPE, (8, 256, 4, 32)),  # RWKV6-3B, the smoke config's hd
-            dtype_pairs, (0.0, 4.0)):
-        args = _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed=hd,
-                           decay_shift=shift)
+    decays = ((0.0, -8.0), (4.0, -8.0), (-3.0, -50.0))     # shift, floor
+    wkv_cases = [(shape, WKV_CHUNK, dt, decay) for shape, dt, decay in
+                 itertools.product(
+                     (WKV_SHAPE,            # RWKV6-3B
+                      (8, 256, 4, 32),      # the smoke config's head dim
+                      (8, 64, 40, 64),      # one chunk
+                      (2, 1024, 8, 64),     # 16 chunks: two cluster groups
+                      (2, 576, 4, 32)),     # 9 chunks: groups of 5 and 4
+                     dtype_pairs, decays)]
+    # every head dim x chunk instance over 9 chunks (two cluster groups)
+    wkv_cases += [((2, 9 * chunk, 3, hd), chunk, dt, (0.0, -8.0))
+                  for hd in (16, 32, 64) for chunk in (16, 32, 64)
+                  for dt in dtype_pairs]
+    for (B, T, H, hd), chunk, (dtype, logw_dtype), (shift, floor) in wkv_cases:
+        args = _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed=hd + T,
+                           decay_shift=shift, floor=floor)
         errs, ok = [], True
-        for o, p in zip(ops.wkv(*args, chunk=WKV_CHUNK),
-                        ops.wkv(*args, chunk=WKV_CHUNK, mode="plain")):
+        for o, p in zip(ops.wkv(*args, chunk=chunk),
+                        ops.wkv(*args, chunk=chunk, mode="plain")):
             e, good = compare(o, p, "wkv")
             errs.append(e)
             ok = ok and good
         torch.cuda.synchronize()
         cases.append({"kernel": "rwkv6_wkv", "shape": [B, T, H, hd],
-                      "chunk": WKV_CHUNK,
+                      "chunk": chunk,
                       "dtype": str(dtype).replace("torch.", ""),
                       "logw_dtype": str(logw_dtype).replace("torch.", ""),
-                      "decay_shift": shift,
+                      "decay_shift": shift, "logw_floor": floor,
                       "y_err": errs[0], "S_err": errs[1], "ok": ok})
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
@@ -664,6 +688,46 @@ def phase_profile(state: dict) -> dict:
             **split, "backbone_eval_ms": eval_ms}
 
 
+def phase_sample_defaults(state: dict) -> dict:
+    """The port's sampling entry point, ``launch.sample.main``, with no kernel
+    flag on the card: DiT-XL/2 (full config) and the RWKV6 smoke config,
+    tame weights, SA NFE 20, two solves each. Each run is its own window
+    (main sets the launch counts to 0 before its solves); it must launch
+    the arch's kernel on every backbone evaluation and no other arch's."""
+    import io
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sample as launch_sample
+    runs = {}
+    for path, arch, smoke, kernel, other in (
+            ("sample_dit", "dit-xl-2", False, "flash_attention", "rwkv6_wkv"),
+            ("sample_rwkv6", "rwkv6-3b", True, "rwkv6_wkv",
+             "flash_attention")):
+        cfg = get_smoke(arch) if smoke else get_config(arch)
+        per_eval = cfg.n_layers * (2 if kernel == "rwkv6_wkv" else 1)
+        argv = ["--arch", arch, "--nfe", str(NFE), "--weights", "tame",
+                "--combine", "fused"] + (["--smoke"] if smoke else [])
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launch_sample.main(argv)
+        secs = time.perf_counter() - t
+        launches = ops.launch_counts()
+        state["launches"][path] = launches
+        want = per_eval * NFE * 2  # two solves
+        runs[path] = {"argv": argv, "seconds": secs, "launches": launches,
+                      "expected": {kernel: want, other: 0},
+                      "printed": out.getvalue().strip().splitlines(),
+                      "ok": launches[kernel] == want and launches[other] == 0
+                      and "finite=True" in out.getvalue()}
+    res = {"phase": "sample_defaults", "ok": all(r["ok"] for r in runs.values()),
+           "runs": runs}
+    emit(res)
+    require(res["ok"], f"sampling runs did not route through the kernels: "
+            f"{runs}")
+    return res
+
+
 def phase_gmm() -> dict:
     import torch
     from repro_torch.core import GMM, get_schedule, make_sampler
@@ -855,6 +919,7 @@ def main() -> int:
     state: dict = {"launches": {}, "held": {}}
     phase_main_path(state)
     emit(phase_profile(state))
+    phase_sample_defaults(state)
     phase_gmm()
     phase_rwkv6_path(state)
     emit(phase_rwkv6_profile(state))

@@ -13,6 +13,9 @@ def full() -> LMConfig:
         head_dim=64,
         d_ff=1536,
         vocab_size=8,
+        act="gelu",
+        gated_mlp=False,
+        rope_type="none",
         denoiser_latent=16,
     )
 
@@ -26,5 +29,8 @@ def smoke() -> LMConfig:
         n_kv_heads=2,
         d_ff=128,
         vocab_size=8,
+        act="gelu",
+        gated_mlp=False,
+        rope_type="none",
         denoiser_latent=8,
     )

@@ -21,6 +21,9 @@ def full() -> LMConfig:
         head_dim=72,
         d_ff=4608,
         vocab_size=8,          # unused in denoiser mode (kept tiny)
+        act="gelu",
+        gated_mlp=False,
+        rope_type="none",
         denoiser_latent=LATENT_DIM,
     )
 
@@ -34,5 +37,8 @@ def smoke() -> LMConfig:
         n_kv_heads=4,
         d_ff=256,
         vocab_size=8,
+        act="gelu",
+        gated_mlp=False,
+        rope_type="none",
         denoiser_latent=8,
     )

@@ -4,9 +4,10 @@ The port keeps the reference's parameter tree and layouts, so conversion
 is leaf by leaf: every leaf the port's model declares is taken from the
 reference tree (numpy arrays, e.g. from ``jax.device_get(params)``) with
 its shape checked, and any leaf the model does not declare is an error.
-Without a model, the backbone is recognised from the tree (an RWKV6 tree
-has ``blocks/tm``, a DiT tree ``blocks/attn``) and its shape read from
-it.
+Without a model, an RWKV6 tree (``blocks/tm``) is built from its shapes.
+A transformer tree (``blocks/attn``) needs ``model=`` or the reference's
+config: the block's activation, gating, RoPE and logit soft-capping leave
+no trace in the shapes, and the port computes only the DiT's.
 """
 
 from __future__ import annotations
@@ -30,17 +31,22 @@ def _flatten(tree, prefix=()) -> dict:
     return {prefix: tree}
 
 
-def _dit_from_tree(tree) -> TransformerLM:
-    """The DiT whose parameter schema has the tree's shapes."""
-    blocks = tree["blocks"]
-    L, d = np.shape(blocks["ln1"])
-    _, _, H, hd = np.shape(blocks["attn"]["wq"])
-    return TransformerLM(LMConfig(
-        n_layers=L, d_model=d, n_heads=H, head_dim=hd,
-        n_kv_heads=np.shape(blocks["attn"]["wk"])[2],
-        d_ff=np.shape(blocks["mlp"]["wi"])[2],
-        vocab_size=np.shape(tree["embed"])[0],
-        denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
+_LM_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "head_dim", "d_ff", "vocab_size", "act", "gated_mlp",
+              "rope_type", "attn_logit_softcap", "denoiser_latent")
+
+
+def _dit_from_config(config) -> TransformerLM:
+    """The port's transformer for the reference's ``LMConfig``; raises
+    ``NotImplementedError`` for what the port does not compute."""
+    absent = {k: getattr(config, k) for k in ("moe", "mla", "denoiser_cond")
+              if getattr(config, k, None) is not None}
+    if absent:
+        raise NotImplementedError(
+            f"the PyTorch port's transformer has no {sorted(absent)} "
+            f"({config.name})")
+    return TransformerLM(LMConfig(**{k: getattr(config, k)
+                                     for k in _LM_FIELDS}))
 
 
 def _rwkv6_from_tree(tree) -> RWKV6:
@@ -56,13 +62,18 @@ def _rwkv6_from_tree(tree) -> RWKV6:
         denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
 
 
-def params_from_jax(tree, model=None, *, device="cpu") -> dict:
-    """The port's parameter dict from the reference tree, for ``model``
-    (default: the DiT or RWKV6 denoiser whose shapes the tree has).
+def params_from_jax(tree, model=None, *, config=None,
+                    device="cpu") -> dict:
+    """The port's parameter dict from the reference tree, for ``model``;
+    without one, for the transformer of the reference's ``config`` (its
+    ``LMConfig``) or, for an RWKV6 tree, the denoiser whose shapes the
+    tree has.
 
-    Raises ``KeyError`` for a declared leaf missing from ``tree``, ``ValueError``
-    for a shape mismatch or for leaves of ``tree`` the model did not
-    consume.
+    Raises ``ValueError`` for a transformer tree given neither ``model``
+    nor ``config``, ``NotImplementedError`` for a config the port does not
+    compute, ``KeyError`` for a declared leaf missing from ``tree``,
+    ``ValueError`` for a shape mismatch or for leaves of ``tree`` the
+    model did not consume.
     """
     leaves = _flatten(tree)
     consumed = set()
@@ -83,8 +94,15 @@ def params_from_jax(tree, model=None, *, device="cpu") -> dict:
         return {k: walk(v, path + (k,)) for k, v in defs.items()}
 
     if model is None:
-        model = (_rwkv6_from_tree(tree) if "tm" in tree["blocks"]
-                 else _dit_from_tree(tree))
+        if "tm" in tree["blocks"]:
+            model = _rwkv6_from_tree(tree)
+        elif config is None:
+            raise ValueError(
+                "a transformer tree needs model= or the reference's config=: "
+                "its activation, gating, RoPE and soft-capping are not in "
+                "its shapes")
+        else:
+            model = _dit_from_config(config)
     params = walk(model.param_defs())
     extra = sorted("/".join(p) for p in leaves if p not in consumed)
     if extra:

@@ -11,10 +11,12 @@ Lprev = L - logw:
 Every exponent is <= 0, so no term overflows (the factored form
 exp(Lprev) * exp(-L) would: L reaches -512 within a chunk).
 ``rwkv6_wkv`` launches the hand-written Hopper kernel
-(``csrc/rwkv6_wkv.cu``: one block per (b, h) looping over the chunks, S
-resident in shared memory); ``rwkv6_wkv_plain`` is the same function in
-plain PyTorch with float32 accumulation, for CPU tensors and the
-card-side checks.
+(``csrc/rwkv6_wkv.cu``: one block per (b, h, chunk), the blocks of a
+(b, h) in a thread-block cluster that passes the state chain
+S_c = exp(Ltot_c) S_{c-1} + (k exp(Ltot - L))^T v through distributed
+shared memory; the three products as three TF32 tensor-core products);
+``rwkv6_wkv_plain`` is the same function in plain PyTorch with float32
+accumulation, for CPU tensors and the card-side checks.
 """
 
 from __future__ import annotations
@@ -93,10 +95,12 @@ def rwkv6_wkv(r, k, v, logw, u, S0, *, chunk: int = 64):
         raise ValueError(f"head dim {hd} has no kernel instance; have {HEAD_DIMS}")
     if chunk not in CHUNKS:
         raise ValueError(f"chunk {chunk} has no kernel instance; have {CHUNKS}")
-    if T % chunk:
-        raise ValueError(f"T={T} % chunk={chunk} != 0")
+    if T % chunk or T == 0:
+        raise ValueError(f"T={T} must be a positive multiple of chunk={chunk}")
     if not all(t.is_contiguous() for t in (r, k, v, logw, u, S0)):
         raise ValueError("r, k, v, logw, u and S0 must be contiguous")
+    if S0.data_ptr() % 16:  # the kernel reads S0 in 16-byte vectors
+        S0 = S0.clone()
     y = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
     s_out = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     lib = _build.load("rwkv6_wkv")

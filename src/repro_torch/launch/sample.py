@@ -2,20 +2,22 @@
 RWKV6 backbone.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-xl-2 \
-        --combine fused --flash --weights tame
+        --combine fused --weights tame
     PYTHONPATH=src python -m repro_torch.launch.sample --arch rwkv6-3b \
-        --combine fused --wkv-kernel --weights tame
+        --combine fused --weights tame
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error naming the missing card. ``--nfe`` goes through
 ``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1).
 ``--weights init`` samples the reference's initialisation (zero output
 heads, which predict exactly 0); ``--weights tame`` the contractive
-weights of ``models/tame.py`` (float32 residual stream). ``--flash`` runs
-the DiT blocks' attention through the flash kernel, ``--wkv-kernel`` the
-RWKV6 recurrence through the WKV kernel (the reference's ``use_pallas``),
-``--combine kernel|fused`` the solver combine through the sa_update /
-sa_fused kernels.
+weights of ``models/tame.py`` (float32 residual stream). On the card
+the DiT blocks' attention runs through the flash kernel and the RWKV6
+recurrence through the WKV kernel (the reference's ``use_pallas``);
+``--no-flash`` / ``--no-wkv-kernel`` ask for the plain versions there, and
+``--flash`` / ``--wkv-kernel`` take the kernels' dispatch on the CPU too
+(their plain versions). ``--combine kernel|fused`` runs the solver combine
+through the sa_update / sa_fused kernels.
 """
 
 from __future__ import annotations
@@ -38,26 +40,30 @@ from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
 __all__ = ["build_denoiser", "main"]
 
 
-def _kernel_options(cfg, flash: bool, wkv_kernel: bool) -> dict:
-    """The config fields the kernel flags set, refusing a flag the arch
-    has no kernel for."""
+def _kernel_options(cfg, flash: bool | None, wkv_kernel: bool | None) -> dict:
+    """The config fields the kernel flags set (None: the kernel for CUDA
+    tensors), refusing a flag given for an arch it does not apply to."""
     if isinstance(cfg, LMConfig):
-        if wkv_kernel:
-            raise SystemExit("--wkv-kernel applies to rwkv6-3b only")
+        if wkv_kernel is not None:
+            raise SystemExit("--wkv-kernel/--no-wkv-kernel apply to "
+                             "rwkv6-3b only")
         return {"use_flash": flash}
-    if flash:
-        raise SystemExit("--flash applies to the DiT archs only")
+    if flash is not None:
+        raise SystemExit("--flash/--no-flash apply to the DiT archs only")
     return {"use_kernel": wkv_kernel}
 
 
 def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
-                   flash: bool = False, wkv_kernel: bool = False,
+                   flash: bool | None = None,
+                   wkv_kernel: bool | None = None,
                    latent: int = 16, seed: int = 0, device="cuda"):
     """``(cfg, network)`` for ``arch``: the x0-prediction network
     ``(x, t, cond) -> x0`` with weights from ``seed``, on the card unless
     ``device`` says otherwise. ``weights="tame"`` uses the contractive
     construction and checks its Jacobian gain on the device. ``latent``
-    is the latent width of an arch whose config leaves it unset."""
+    is the latent width of an arch whose config leaves it unset.
+    ``flash`` (DiT) and ``wkv_kernel`` (RWKV6) pick the kernel (True) or
+    the plain version (False); None takes the kernel for CUDA tensors."""
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     opts = _kernel_options(cfg, flash, wkv_kernel)
@@ -107,10 +113,12 @@ def main(argv=None):
                     help="SA combine: torch.einsum, the sa_update kernel, or "
                     "the dual-output sa_fused kernel (ring history)")
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
-    ap.add_argument("--flash", action="store_true",
-                    help="DiT attention through the flash kernel")
-    ap.add_argument("--wkv-kernel", action="store_true",
-                    help="RWKV6 recurrence through the WKV kernel")
+    ap.add_argument("--flash", action=argparse.BooleanOptionalAction,
+                    help="DiT attention through the flash kernel (default: "
+                    "on for a CUDA device)")
+    ap.add_argument("--wkv-kernel", action=argparse.BooleanOptionalAction,
+                    help="RWKV6 recurrence through the WKV kernel (default: "
+                    "on for a CUDA device)")
     ap.add_argument("--latent", type=int, default=16,
                     help="latent width where the arch's config has none")
     ap.add_argument("--weights", default="init", choices=["init", "tame"])
@@ -145,6 +153,10 @@ def main(argv=None):
             torch.cuda.synchronize(device)
         return out
 
+    routed = getattr(cfg, "use_flash", getattr(cfg, "use_kernel", None))
+    if routed is None:
+        routed = device.type == "cuda"
+    dit = isinstance(cfg, LMConfig)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     x0 = run(2)
@@ -155,7 +167,7 @@ def main(argv=None):
           f"NFE={sampler.nfe} (requested {args.nfe}) steps={spec.n_steps} "
           f"tau={args.tau} P{args.predictor}C{args.corrector} {args.mode} "
           f"combine={args.combine} precision={args.precision} "
-          f"flash={args.flash} wkv_kernel={args.wkv_kernel} "
+          f"flash={dit and routed} wkv_kernel={not dit and routed} "
           f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())
     print(f"first run {t1 - t0:.2f}s, steady {t2 - t1:.2f}s; "

@@ -1,10 +1,11 @@
 """GQA/MQA/MHA self-attention, the no-cache path the DiT denoiser runs.
 
-``gqa_forward`` projects q/k/v, attends, and projects back. With
-``AttentionConfig.use_flash`` the attention itself goes through
-``kernels.ops.flash_attention`` (the Hopper kernel on a CUDA tensor, its
-plain version on a CPU tensor); otherwise through ``_sdpa``, the plain
-PyTorch attention of the reference. RoPE/M-RoPE, logit soft-capping, MLA
+``gqa_forward`` projects q/k/v, attends, and projects back. The attention
+itself goes through ``kernels.ops.flash_attention`` (the Hopper kernel on
+a CUDA tensor, its plain version on a CPU tensor) or through ``_sdpa``,
+the plain PyTorch attention of the reference: ``AttentionConfig.use_flash``
+True or False picks one, and None (the default) takes the kernel for CUDA
+tensors and ``_sdpa`` for CPU tensors. RoPE/M-RoPE, logit soft-capping, MLA
 and the KV-cache decode path come with the LM-zoo slice of the port.
 """
 
@@ -30,8 +31,10 @@ class AttentionConfig:
     n_kv_heads: int
     head_dim: int
     causal: bool = True
-    #: route the no-cache path through kernels.ops.flash_attention
-    use_flash: bool = False
+    #: route the no-cache path through kernels.ops.flash_attention (True),
+    #: through _sdpa (False), or by the tensors' device (None: the kernel
+    #: for CUDA tensors)
+    use_flash: bool | None = None
 
 
 def attn_defs(cfg: AttentionConfig) -> dict:
@@ -82,7 +85,8 @@ def gqa_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     q = promote_einsum("bsd,dhk->bshk", x, p["wq"])
     k = promote_einsum("bsd,dhk->bshk", x, p["wk"])
     v = promote_einsum("bsd,dhk->bshk", x, p["wv"])
-    if cfg.use_flash:
+    flash = q.is_cuda if cfg.use_flash is None else cfg.use_flash
+    if flash:
         o = kops.flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=causal)

@@ -16,7 +16,9 @@ data-dependent decay. Two equivalent evaluation paths:
 
 ``RWKV6Config.use_kernel`` routes the chunked path through
 ``kernels.ops.wkv`` (the Hopper kernel on a CUDA tensor, its plain version
-on a CPU tensor). ``denoise`` runs the causal stack forward and on the
+on a CPU tensor) when True, through the plain paths above when False,
+and by the tensors' device when None (the default): the kernel for CUDA
+tensors, which raises for a T that chunks do not divide. ``denoise`` runs the causal stack forward and on the
 time-reversed sequence and averages the two. The LM entry points
 (forward, loss, prefill, decode_step) come with a later slice.
 """
@@ -54,8 +56,9 @@ class RWKV6Config:
     #: residual-stream dtype
     dtype: torch.dtype = torch.bfloat16
     #: run the chunked WKV through kernels.ops.wkv (the counterpart of the
-    #: reference's ``use_pallas``)
-    use_kernel: bool = False
+    #: reference's ``use_pallas``): True, False, or None for the kernel on
+    #: CUDA tensors and the plain paths on CPU tensors
+    use_kernel: bool | None = None
     #: latent width of the denoiser's continuous input/output heads
     denoiser_latent: int | None = None
 
@@ -201,7 +204,8 @@ class RWKV6:
         v = (xv @ p["wv"]).reshape(B, T, H, hd)
         g = F.silu(xg @ p["wg"])
 
-        if cfg.use_kernel and chunked:
+        kernel = r.is_cuda if cfg.use_kernel is None else cfg.use_kernel
+        if kernel and chunked:
             y, S = kops.wkv(r, k, v, logw, p["u"], S0, chunk=cfg.chunk_size)
         elif chunked and T % cfg.chunk_size == 0 and T > cfg.chunk_size:
             y, S = wkv_chunked(r, k, v, logw, p["u"], S0, cfg.chunk_size)

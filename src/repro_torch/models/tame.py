@@ -99,14 +99,15 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
              n_layers: int | None = None, seed: int = 0,
              adaln_scale: float = 0.003, out_div: float = 50.0,
              t_damp: tuple[float, float] = (0.1, 0.3),
-             use_flash: bool = False, device="cuda"):
+             use_flash: bool | None = None, device="cuda"):
     """Build a DiT (smoke or full config) whose denoise map is contractive.
 
     The residual stream is float32, as in the reference's construction.
     Returns ``(model, params, mu)``; ``mu(seq) -> [seq, dz]`` is the fixed
     unit-scale anchor (deterministic in ``seed``) that
     :func:`tame_networks` adds to the model's x0 output. Runs on the card
-    unless ``device`` says otherwise.
+    unless ``device`` says otherwise; ``use_flash`` as on ``LMConfig``
+    (None: the flash kernel on the card, the plain attention on the CPU).
     """
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
@@ -119,7 +120,7 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
 
 def tame_rwkv6(arch: str = "rwkv6-3b", *, smoke: bool = True,
                n_layers: int | None = None, seed: int = 0,
-               out_div: float = 50.0, use_kernel: bool = False,
+               out_div: float = 50.0, use_kernel: bool | None = None,
                latent: int = 16, device="cuda"):
     """Build an RWKV6 denoiser (smoke or full config) whose denoise map is
     contractive: the residual branches' output projections scaled by
@@ -127,7 +128,8 @@ def tame_rwkv6(arch: str = "rwkv6-3b", *, smoke: bool = True,
     damped. The residual stream is float32 (the published config's is
     bfloat16: swap it with ``dataclasses.replace`` on ``model.cfg``);
     ``latent`` is the denoiser latent width, which the LM config leaves
-    unset. Returns
+    unset; ``use_kernel`` as on ``RWKV6Config`` (None: the WKV kernel on
+    the card, the plain recurrence on the CPU). Returns
     ``(model, params, mu)`` as :func:`tame_dit` does; runs on the card
     unless ``device`` says otherwise."""
     device = resolve_device(device)

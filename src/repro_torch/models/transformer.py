@@ -40,13 +40,22 @@ class LMConfig:
     #: size of the (unused in denoiser mode) token embedding and LM head,
     #: kept so the parameter tree is the reference's
     vocab_size: int = 1024
+    #: the reference's block options, at the only values the port computes
+    #: (the DiT's: GELU-tanh, ungated MLP, no RoPE, no logit soft-capping);
+    #: TransformerLM refuses any other
+    act: str = "gelu"
+    gated_mlp: bool = False
+    rope_type: str = "none"
+    attn_logit_softcap: float | None = None
     #: residual-stream dtype (the reference's compute dtype)
     dtype: torch.dtype = torch.bfloat16
     #: latent width of the denoiser's continuous input/output heads
     denoiser_latent: int | None = None
-    #: run the blocks' attention through the flash kernel (the reference
-    #: carries this on AttentionConfig only)
-    use_flash: bool = False
+    #: run the blocks' attention through the flash kernel (True), through
+    #: the plain attention (False), or by the tensors' device (None: the
+    #: kernel for CUDA tensors); the reference carries this on
+    #: AttentionConfig only
+    use_flash: bool | None = None
 
     @property
     def hd(self) -> int:
@@ -76,6 +85,14 @@ class TransformerLM:
             raise NotImplementedError(
                 "the PyTorch port runs the transformer in denoiser mode "
                 "only (denoiser_latent set); the LM zoo comes later")
+        computed = {"act": "gelu", "gated_mlp": False, "rope_type": "none",
+                    "attn_logit_softcap": None}
+        other = {k: getattr(cfg, k) for k, v in computed.items()
+                 if getattr(cfg, k) != v}
+        if other:
+            raise NotImplementedError(
+                f"the PyTorch port's transformer computes {computed} only "
+                f"(the DiT block); {cfg.name} asks for {other}")
         self.cfg = cfg
         self.acfg = cfg.attn_config()
 

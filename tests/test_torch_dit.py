@@ -153,10 +153,11 @@ def test_params_from_jax_rejects_unconsumed_and_missing_leaves():
     with pytest.raises(ValueError, match="blocks/stray"):
         params_from_jax(extra, tm)
     with pytest.raises(ValueError, match="blocks/stray"):
-        params_from_jax(extra)
-    # without a model the DiT schema comes from the tree's own shapes
-    for got, want in zip(jax.tree.leaves(params_from_jax(jp)),
-                         jax.tree.leaves(params_from_jax(jp, tm))):
+        params_from_jax(extra, config=j_get_smoke("dit-s"))
+    # without a model the DiT comes from the reference's config
+    for got, want in zip(
+            jax.tree.leaves(params_from_jax(jp, config=j_get_smoke("dit-s"))),
+            jax.tree.leaves(params_from_jax(jp, tm))):
         assert torch.equal(got, want)
     missing = dict(jp, denoiser={k: v for k, v in jp["denoiser"].items()
                                  if k != "out_proj"})
@@ -165,6 +166,47 @@ def test_params_from_jax_rejects_unconsumed_and_missing_leaves():
     bad = dict(jp, ln_f=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="ln_f"):
         params_from_jax(bad, tm)
+
+
+def test_params_from_jax_refuses_a_zoo_denoiser():
+    """A transformer tree's shapes do not say its activation, gating, RoPE
+    or soft-capping: without ``model=`` or the reference config the
+    converter refuses it, and with starcoder2-3b's config (GELU, ungated,
+    RoPE) it raises, since the port computes only the DiT block; a DiT
+    config still converts and denoises as the reference does."""
+    jcfg = dataclasses.replace(j_get_smoke("starcoder2-3b"),
+                               denoiser_latent=8)
+    assert jcfg.rope_type == "rope"
+    jm = j_build_model(jcfg)
+    jp = jax.device_get(j_init_params(jax.random.PRNGKey(0), jm.param_defs(),
+                                      jnp.float32))
+    with pytest.raises(ValueError, match="config="):
+        params_from_jax(jp)
+    with pytest.raises(NotImplementedError, match="rope_type"):
+        params_from_jax(jp, config=jcfg)
+    jcfg = dataclasses.replace(j_get_smoke("dit-s"), dtype=jnp.float32)
+    jm = j_build_model(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(1), jm.param_defs(), jnp.float32)
+    jp["denoiser"]["out_proj"] = 0.05 * jax.random.normal(
+        jax.random.PRNGKey(2), jp["denoiser"]["out_proj"].shape)
+    tp = params_from_jax(jax.device_get(jp), config=jcfg)
+    tm = TransformerLM(dataclasses.replace(get_smoke("dit-s"),
+                                           dtype=torch.float32))
+    z = np.random.default_rng(0).standard_normal((2, 16, 8)).astype(np.float32)
+    ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.5))
+    got = tm.denoise(tp, torch.from_numpy(z), 0.5)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("act", "silu"), ("gated_mlp", True), ("rope_type", "rope"),
+    ("attn_logit_softcap", 30.0)])
+def test_transformer_refuses_block_options_it_does_not_compute(field, value):
+    cfg = get_smoke("dit-s")
+    assert (cfg.act, cfg.gated_mlp, cfg.rope_type,
+            cfg.attn_logit_softcap) == ("gelu", False, "none", None)
+    with pytest.raises(NotImplementedError, match=field):
+        TransformerLM(dataclasses.replace(cfg, **{field: value}))
 
 
 # ------------------------------------------------------------------ tame

@@ -332,6 +332,129 @@ def test_wkv_plain_needs_whole_chunks():
         ops.wkv(*arrs, chunk=32)
 
 
+def _cumsum_shuffle(x):
+    """Inclusive cumsum along the last axis (C <= 64) in the order of a
+    warp-shuffle scan: each of 32 lanes sums its C/32 values, a
+    Kogge-Stone scan over the lanes, then each lane adds its prefix."""
+    C = x.shape[-1]
+    per = max(1, C // 32)
+    n = C // per
+    xs = x.reshape(*x.shape[:-1], n, per)
+    part = [xs[..., 0]]
+    for j in range(1, per):
+        part.append(part[-1] + xs[..., j])
+    p = part[-1].clone()
+    off = 1
+    while off < n:
+        shifted = torch.zeros_like(p)
+        shifted[..., off:] = p[..., :-off]
+        p = torch.where(torch.arange(n) >= off, shifted + p, p)
+        off *= 2
+    excl = torch.zeros_like(p)
+    excl[..., 1:] = p[..., :-1]
+    out = [excl + q for q in part[:-1]] + [p]
+    return torch.stack(out, -1).reshape(x.shape)
+
+
+def _wkv_hopper_emulation(r, k, v, logw, u, S0, chunk, scan="time"):
+    """The Hopper WKV kernel's arithmetic in plain PyTorch: every chunk's
+    terms at once (the pairwise scores summed over the two interleaved
+    4-column halves of the head dim, as two lanes share most tiles; the
+    bonus on A's diagonal; U_c = (k exp(Ltot - L))^T v), then the state
+    chain S_c = exp(Ltot_c) S_{c-1} + U_c, then y = A v +
+    (r exp(Lprev)) S_{c-1} as one accumulation. The three products are
+    three TF32 products each. ``scan`` is the order of the cumulative sum:
+    "time" (the kernel's and the plain version's) or "shuffle"."""
+    B, T, H, hd = r.shape
+    nc = T // chunk
+    per_chunk = lambda a: a.float().reshape(B, nc, chunk, H, hd).permute(
+        0, 3, 1, 2, 4)                                     # [B,H,nc,C,hd]
+    rc, kc, vc, lw = map(per_chunk, (r, k, v, logw))
+    if scan == "time":
+        L = torch.cumsum(lw, dim=3)
+    else:
+        L = _cumsum_shuffle(lw.transpose(3, 4)).transpose(3, 4)
+    Lprev = L - lw
+    Ltot = L[:, :, :, -1]
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool), -1)
+    D = torch.where(tri[..., None], Lprev[..., :, None, :] - L[..., None, :, :],
+                    -torch.inf)
+    terms = rc[..., :, None, :] * kc[..., None, :, :] * torch.exp(D)
+    half = ((torch.arange(hd) // 4) % 2).bool()
+    A = terms[..., ~half].sum(-1) + terms[..., half].sum(-1)
+    A = A + torch.diag_embed((rc * u.float()[None, :, None, None] * kc).sum(-1))
+    r_dec = rc * torch.exp(Lprev)
+    k_dec = kc * torch.exp(Ltot[..., None, :] - L)
+    U = _tf32_matmul(k_dec.transpose(-1, -2), vc, 3)
+    S, entering = S0.float(), []
+    for c in range(nc):
+        entering.append(S)
+        S = torch.exp(Ltot[:, :, c])[..., None] * S + U[:, :, c]
+    y = _tf32_matmul(torch.cat([A, r_dec], -1),
+                     torch.cat([vc, torch.stack(entering, 2)], -2), 3)
+    return y.permute(0, 2, 3, 1, 4).reshape(B, T, H, hd), S
+
+
+def _tame_block_wkv_inputs():
+    """The WKV inputs of the first block of a tame RWKV6 smoke denoiser
+    (hd 32, chunk 64) over a latent [1, 256, 16], forward direction."""
+    from repro_torch.models import rwkv6 as t_rwkv6
+    from repro_torch.models.tame import tame_rwkv6
+    model, params, mu = tame_rwkv6(n_layers=1, device="cpu")
+    calls = []
+    orig = t_rwkv6.wkv_chunked
+    t_rwkv6.wkv_chunked = lambda *a: calls.append(a) or orig(*a)
+    try:
+        z = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (1, 256, 16)).astype(np.float32))
+        model.denoise(params, z, 0.5)
+    finally:
+        t_rwkv6.wkv_chunked = orig
+    return calls[0][:6], calls[0][6]
+
+
+@pytest.mark.parametrize("case", ["tame_block", "decay_shift_0",
+                                  "clamp_floor", "beyond_clamp"])
+def test_wkv_hopper_decomposition_holds_plain_and_pallas(reference, case):
+    """The redesigned kernel's arithmetic (chunk-parallel terms, the U_c
+    state chain, three TF32 products) within the card-side tolerance
+    2e-5 · max(1, max|ref|) of the plain version and of the Pallas kernel
+    in interpret mode: at the activations of a tame RWKV6 smoke block, and
+    with a nonzero S0 at the model's decays and at decays mostly at its
+    clamp (-8). Beyond the clamp (decays down to -50, which the kernel's
+    contract takes) the plain version and the Pallas kernel are 4.7e-5
+    apart themselves (the f32 rounding of L near -3000 differs), so there
+    the emulation is held to the plain version only; and a cumulative sum
+    in warp-shuffle order instead of time order misses the tolerance: it
+    feeds the exponents, which is why the kernel keeps the plain version's
+    order."""
+    if case == "tame_block":
+        args, chunk = _tame_block_wkv_inputs()
+        args = tuple(a.contiguous() for a in args)
+    else:
+        shift, floor = {"decay_shift_0": (0.0, -8.0),
+                        "clamp_floor": (-3.0, -8.0),
+                        "beyond_clamp": (-3.0, -50.0)}[case]
+        rng = np.random.default_rng(11)
+        r, k, v, _, u, S0 = _wkv_inputs(rng, 2, 256, 2, 64)
+        logw = np.clip(-np.exp(rng.standard_normal(r.shape) - shift), floor,
+                       -1e-5).astype(np.float32)
+        args, chunk = tuple(map(torch.from_numpy, (r, k, v, logw, u, S0))), 64
+    y, S = _wkv_hopper_emulation(*args, chunk)
+    refs = [t_wkv_mod.rwkv6_wkv_plain(*args, chunk=chunk)]
+    if case != "beyond_clamp":
+        jy, jS = j_wkv(*[jnp.asarray(a.numpy()) for a in args], chunk=chunk)
+        refs.append((np.array(jy), np.array(jS)))
+    for ref_y, ref_S in refs:
+        assert_scale_close(y.numpy(), _to_np(ref_y), 2e-5)
+        assert_scale_close(S.numpy(), _to_np(ref_S), 2e-5)
+    if case == "beyond_clamp":
+        y_sh, _ = _wkv_hopper_emulation(*args, chunk, scan="shuffle")
+        plain_y = refs[0][0]
+        err = float((y_sh - plain_y).abs().max())
+        assert err > 2e-5 * max(1.0, float(plain_y.abs().max())), err
+
+
 # ------------------------------------------------------------ dispatch
 def test_ops_dispatch_cpu_takes_plain_and_counts_no_launch():
     ops.reset_launch_counts()
@@ -450,20 +573,16 @@ def test_flash_kernel_takes_unaligned_tensors(card, dtype):
                      str(dtype).replace("torch.", ""), 2e-5)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,T,H,hd,chunk", [
-    (8, 256, 40, 64, 64),   # RWKV6-3B's denoiser path
-    (2, 128, 4, 32, 64),    # the smoke config's head dim
-    (2, 64, 3, 16, 16), (1, 128, 2, 32, 32), (2, 96, 2, 64, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("decay_shift", [0.0, 4.0])  # 4: state carries over
-def test_wkv_kernel_matches_plain_on_card(card, B, T, H, hd, chunk, dtype,
-                                          decay_shift):
-    g = torch.Generator(card).manual_seed(T + hd)
+def _check_wkv_on_card(card, B, T, H, hd, chunk, dtype, logw_dtype,
+                       decay_shift, floor=-8.0):
+    """One kernel call against the plain version on the same card inputs:
+    r/k/v in ``dtype``, logw = clip(-exp(N(0,1) - decay_shift), floor,
+    -1e-5) in ``logw_dtype``, nonzero S0."""
+    g = torch.Generator(card).manual_seed(T + hd + chunk)
     rnd = lambda s: torch.randn(s, generator=g, device=card)
     r, k, v = (rnd((B, T, H, hd)).to(dtype) for _ in range(3))
-    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), -8.0,
-                       -1e-5)
+    logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), floor,
+                       -1e-5).to(logw_dtype)
     u, S0 = rnd((H, hd)), rnd((B, H, hd, hd))
     before = ops.launch_counts()["rwkv6_wkv"]
     y, S = ops.wkv(r, k, v, logw, u, S0, chunk=chunk)
@@ -473,6 +592,39 @@ def test_wkv_kernel_matches_plain_on_card(card, B, T, H, hd, chunk, dtype,
     assert y.dtype == S.dtype == torch.float32
     assert_scale_close(y.cpu().numpy(), y_ref.cpu().numpy(), 2e-5)
     assert_scale_close(S.cpu().numpy(), S_ref.cpu().numpy(), 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,hd,chunk", [
+    (8, 256, 40, 64, 64),   # RWKV6-3B's denoiser path
+    (2, 128, 4, 32, 64),    # the smoke config's head dim
+    (2, 64, 3, 16, 16), (1, 128, 2, 32, 32), (2, 96, 2, 64, 32),
+    (2, 64, 3, 64, 64),     # one chunk
+    (1, 1024, 2, 64, 64),   # 16 chunks: two cluster groups of 8
+    (1, 576, 2, 32, 64),    # 9 chunks: groups of 5 and 4
+    (1, 160, 2, 16, 16)])   # 10 chunks of 16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay_shift,floor", [
+    (0.0, -8.0), (4.0, -8.0),   # 4: state carries over
+    (-3.0, -50.0)])             # large decays, beyond the model's clamp
+def test_wkv_kernel_matches_plain_on_card(card, B, T, H, hd, chunk, dtype,
+                                          decay_shift, floor):
+    _check_wkv_on_card(card, B, T, H, hd, chunk, dtype, torch.float32,
+                       decay_shift, floor)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", t_wkv_mod.HEAD_DIMS)
+@pytest.mark.parametrize("chunk", t_wkv_mod.CHUNKS)
+@pytest.mark.parametrize("dtype,logw_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_wkv_kernel_every_instance_on_card(card, hd, chunk, dtype,
+                                           logw_dtype):
+    """Every head dim x chunk instance, over 9 chunks (two cluster groups),
+    with bfloat16 inputs too."""
+    _check_wkv_on_card(card, 2, 9 * chunk, 3, hd, chunk, dtype, logw_dtype,
+                       0.0)
 
 
 @pytest.mark.gpu

@@ -3,7 +3,9 @@
 - ``src/repro_torch`` and ``chip_smoke.py`` import nothing of JAX and
   nothing of the JAX package ``repro``;
 - entry points run on the card unless the caller asks for the CPU, and
-  without a card they stop with an error naming it;
+  without a card they stop with an error naming it; on the card they go
+  through the kernels unless the caller asks for the plain versions, and
+  on the CPU the default runs the plain paths it always ran;
 - ``chip_smoke.py`` fails (non-zero exit, no success line) without a card
   and when run alone, away from the repository;
 - the kernel libraries are built from the repository's sources into a
@@ -24,6 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.launch import attention_precision
 from repro_torch.launch import sample as launch_sample
+from repro_torch.launch import wkv_phases
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -90,6 +93,40 @@ def test_launch_sample_on_cpu_prints_nfe_accounting(capsys, extra):
     assert "finite=True" in out
 
 
+def _samples_line(out: str) -> str:
+    """The printed sample statistics, without the timings."""
+    line = next(ln for ln in out.splitlines() if "out mean=" in ln)
+    return line[line.index("out mean="):]
+
+
+@pytest.mark.parametrize("arch,plain,seq", [
+    ("dit-s", "--no-flash", 16), ("rwkv6-3b", "--no-wkv-kernel", 64)])
+def test_launch_sample_default_on_cpu_runs_the_plain_paths(capsys, arch,
+                                                           plain, seq):
+    """With no kernel flag a CPU run is bitwise the run that asks for the
+    plain versions (DiT: ``_sdpa``; RWKV6: the chunked plain recurrence),
+    as every CPU run was before the kernels became the card's default."""
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--seq", str(seq),
+            "--nfe", "6", "--device", "cpu", "--weights", "tame",
+            "--combine", "fused"]
+    launch_sample.main(argv)
+    default = capsys.readouterr().out
+    launch_sample.main(argv + [plain])
+    asked = capsys.readouterr().out
+    assert "flash=False wkv_kernel=False" in default
+    assert _samples_line(default) == _samples_line(asked)
+    assert "'flash_attention': 0" in default and "'rwkv6_wkv': 0" in default
+
+
+def test_launch_sample_refuses_a_plain_flag_of_another_arch():
+    with pytest.raises(SystemExit, match="--no-flash"):
+        launch_sample.main(["--arch", "rwkv6-3b", "--smoke", "--device",
+                            "cpu", "--no-flash"])
+    with pytest.raises(SystemExit, match="--no-wkv-kernel"):
+        launch_sample.main(["--arch", "dit-s", "--smoke", "--device", "cpu",
+                            "--no-wkv-kernel"])
+
+
 def test_attention_precision_on_cpu_records_every_call(capsys):
     """The attention-precision entry point holds every attention call of one
     solve against the plain version, SDPA and float64; on the CPU the
@@ -108,6 +145,32 @@ def test_attention_precision_on_cpu_records_every_call(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA card"):
             attention_precision.main(["--arch", "dit-s", "--smoke"])
+
+
+def test_wkv_phases_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        wkv_phases.main([])
+
+
+def test_wkv_phase_build_is_its_own_library():
+    """The instrumented WKV build has its own hashed library, so it never
+    stands in for the kernel the port launches."""
+    plain = _build.lib_path("rwkv6_wkv")
+    phases = _build.lib_path("rwkv6_wkv", wkv_phases.FLAGS)
+    assert plain != phases and phases.parent == plain.parent
+
+
+@pytest.mark.gpu
+def test_wkv_phases_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    rec = wkv_phases.main(["--shape", "2", "256", "4", "64"])
+    assert rec["blocks"] == 2 * 4 * 4
+    assert set(rec["cycles_per_block"]) == set(wkv_phases.PHASES) | {"total"}
+    assert rec["instrumented_rel_err"]["y"] <= 2e-5
+    assert '"cycles_per_block"' in capsys.readouterr().out
 
 
 def _run_chip_smoke(cwd: Path):
@@ -178,3 +241,23 @@ def test_launch_sample_on_the_card(capsys):
     out = capsys.readouterr().out
     assert "NFE=9 (requested 9) steps=8" in out and "finite=True" in out
     assert "'sa_fused': 16" in out and "'flash_attention': 36" in out  # two runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,seq,kernel,calls", [
+    ("dit-s", 16, "flash_attention", 2 * 9 * 2),      # layers x NFE x runs
+    ("rwkv6-3b", 64, "rwkv6_wkv", 2 * 2 * 9 * 2)])    # x two directions
+def test_launch_sample_defaults_to_the_kernels_on_the_card(capsys, arch, seq,
+                                                          kernel, calls):
+    """With no kernel flag ``launch.sample`` runs the arch's kernel on the card;
+    ``--no-flash`` / ``--no-wkv-kernel`` run the plain version instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--seq", str(seq),
+            "--nfe", "9", "--weights", "tame"]
+    launch_sample.main(argv)
+    out = capsys.readouterr().out
+    assert f"'{kernel}': {calls}" in out and "finite=True" in out
+    launch_sample.main(argv + ["--no-flash" if arch == "dit-s"
+                               else "--no-wkv-kernel"])
+    assert f"'{kernel}': 0" in capsys.readouterr().out

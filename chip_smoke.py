@@ -348,20 +348,24 @@ def phase_kernels(timings: dict) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     dtype_pairs = ((f32, f32), (bf16, f32), (bf16, bf16))  # r/k/v, logw
     decays = ((0.0, -8.0), (4.0, -8.0), (-3.0, -50.0))     # shift, floor
-    wkv_cases = [(shape, WKV_CHUNK, dt, decay) for shape, dt, decay in
-                 itertools.product(
-                     (WKV_SHAPE,            # RWKV6-3B
-                      (8, 256, 4, 32),      # the smoke config's head dim
-                      (8, 64, 40, 64),      # one chunk
-                      (2, 1024, 8, 64),     # 16 chunks: two cluster groups
-                      (2, 576, 4, 32)),     # 9 chunks: groups of 5 and 4
+    # (shape, chunk, seed, dtypes, decays): the two full-length shapes are
+    # seeded with hd, the others with hd + T
+    wkv_cases = [(shape, WKV_CHUNK, seed, dt, decay)
+                 for (shape, seed), dt, decay in itertools.product(
+                     ((WKV_SHAPE, 64),                   # RWKV6-3B
+                      ((8, 256, 4, 32), 32),             # the smoke config's hd
+                      ((8, 64, 40, 64), 128),            # one chunk
+                      ((2, 1024, 8, 64), 1088),          # 16 chunks: two groups
+                      ((2, 576, 4, 32), 608)),           # 9 chunks: 5 and 4
                      dtype_pairs, decays)]
     # every head dim x chunk instance over 9 chunks (two cluster groups)
-    wkv_cases += [((2, 9 * chunk, 3, hd), chunk, dt, (0.0, -8.0))
+    wkv_cases += [((2, 9 * chunk, 3, hd), chunk, hd + 9 * chunk, dt,
+                   (0.0, -8.0))
                   for hd in (16, 32, 64) for chunk in (16, 32, 64)
                   for dt in dtype_pairs]
-    for (B, T, H, hd), chunk, (dtype, logw_dtype), (shift, floor) in wkv_cases:
-        args = _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed=hd + T,
+    for ((B, T, H, hd), chunk, seed, (dtype, logw_dtype),
+         (shift, floor)) in wkv_cases:
+        args = _wkv_inputs(B, T, H, hd, dtype, logw_dtype, seed=seed,
                            decay_shift=shift, floor=floor)
         errs, ok = [], True
         for o, p in zip(ops.wkv(*args, chunk=chunk),

@@ -5,10 +5,10 @@ Each ``csrc/<name>.cu`` compiles on its own into
 headers ``csrc/*.cuh`` and the flags, so an edited source never loads a
 stale library), with nvcc's output beside it in ``lib<name>-<hash>.log``.
 Compilation happens at first use, or all at once through :func:`build`
-(one nvcc process per source, started together). The libraries expose a plain C interface: every
-pointer and the stream are ``c_void_p``, and each entry point returns
-``cudaGetLastError()`` after its launch, which :func:`check` turns into an
-exception.
+(one nvcc process per source, started together). The libraries expose a
+plain C interface: every pointer and the stream are ``c_void_p``, and each
+entry point returns ``cudaGetLastError()`` after its launch, which
+:func:`check` turns into an exception.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ SIGNATURES = {
     },
 }
 
-_LIBS: dict[tuple, ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -59,11 +59,11 @@ def _nvcc() -> str:
         "toolkit (nvcc on PATH or /usr/local/cuda/bin/nvcc)")
 
 
-def lib_path(name: str, extra_flags: tuple = ()) -> Path:
+def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    flags = " ".join(NVCC_FLAGS + tuple(extra_flags)).encode()
-    digest = hashlib.sha256(src + headers + flags).hexdigest()
+    digest = hashlib.sha256(src + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -71,24 +71,22 @@ def _log_path(lib: Path) -> Path:
     return lib.with_suffix(".log")
 
 
-def build(names=SOURCES, extra_flags: tuple = ()) -> dict[str, dict]:
+def build(names=SOURCES) -> dict[str, dict]:
     """Compile every named source whose library is missing, one nvcc per
-    source, all started together (``extra_flags`` after the usual ones,
-    e.g. a ``-D`` for an instrumented variant). Returns, per source:
-    seconds, the library path, whether an existing library was reused, and
-    nvcc's output lines (with -Xptxas -v: registers and spills per
-    kernel), kept from the build that made a reused library."""
+    source, all started together. Returns, per source: seconds, the
+    library path, whether an existing library was reused, and nvcc's
+    output lines (with -Xptxas -v: registers and spills per kernel), kept
+    from the build that made a reused library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log, jobs = {}, {}
     for name in names:
-        out = lib_path(name, extra_flags)
+        out = lib_path(name)
         if out.exists() and _log_path(out).exists():
             log[name] = {"seconds": 0.0, "path": str(out), "reused": True,
                          "ptxas": _log_path(out).read_text().splitlines()}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs[name] = (proc, tmp, out, time.perf_counter())
@@ -112,22 +110,20 @@ def build(names=SOURCES, extra_flags: tuple = ()) -> dict[str, dict]:
     return log
 
 
-def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (built with
-    ``extra_flags``), built on first use."""
-    key = (name, tuple(extra_flags))
-    lib = _LIBS.get(key)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path = lib_path(name, extra_flags)
+    path = lib_path(name)
     if not path.exists():
-        build((name,), extra_flags)
+        build((name,))
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
-    _LIBS[key] = lib
+    _LIBS[name] = lib
     return lib
 
 

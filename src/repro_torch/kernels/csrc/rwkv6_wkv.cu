@@ -34,7 +34,9 @@
 //   block j's shared memory, so every block reads and writes one share
 //   (no block is read by all the others at once). Longer T runs groups of
 //   at most 8 chunks one after another in the same cluster, each thread
-//   carrying its entries of S to the next group in S_T's buffer. Nothing
+//   carrying its entries of S to the next group in S_T's buffer, with a
+//   block barrier between groups (the next group's tiles land where the
+//   last product of this one reads). Nothing
 //   beyond the inputs and outputs touches device memory.
 // - The pairwise scores in register tiles. A thread owns a 4x4 tile of
 //   (t, s) rows and reads r, Lprev (rows t) and k, L (rows s) as 16-byte
@@ -71,8 +73,7 @@
 // 700 W, 4.2x the 38.5 us bound. Accurate expf costs about a dozen
 // instructions per exp-FMA triple, so the scores are bound by the issue
 // rate (about 59 us of the card's time for 165 M triples) before the
-// special-function lanes; they are 42% of a block's cycles
-// (launch/wkv_phases.py). A v is unbalanced across warps (the last m-tile
+// special-function lanes. A v is unbalanced across warps (the last m-tile
 // has 4x the k-steps of the first), and a block's tile loads overlap only
 // the other block's work, not its own.
 
@@ -85,30 +86,6 @@
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
-
-// Phase timing for `python -m repro_torch.launch.wkv_phases`: built with
-// -DWKV_PHASES, thread 0 of every block adds the clock cycles of each phase
-// (ending at a barrier) to wkv_phase_cycles[phase] and counts its blocks in
-// the last entry; otherwise the markers compile to nothing.
-constexpr int kPhases = 8;
-#ifdef WKV_PHASES
-__device__ unsigned long long wkv_phase_cycles[kPhases + 1];
-#define WKV_PHASE_START long long wkv_t0_ = clock64()
-#define WKV_PHASE(n)                                                   \
-  do {                                                                 \
-    if (threadIdx.x == 0) {                                            \
-      const long long t_ = clock64();                                  \
-      atomicAdd(&wkv_phase_cycles[n], (unsigned long long)(t_ - wkv_t0_)); \
-      wkv_t0_ = t_;                                                    \
-    }                                                                  \
-  } while (0)
-#define WKV_PHASE_BLOCK_DONE \
-  if (threadIdx.x == 0) atomicAdd(&wkv_phase_cycles[kPhases], 1ull)
-#else
-#define WKV_PHASE_START
-#define WKV_PHASE(n)
-#define WKV_PHASE_BLOCK_DONE
-#endif
 
 namespace {
 
@@ -337,7 +314,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
   const int64_t sbase = ((int64_t)b * H + h) * HD * HD;
   const float* uh = u + (int64_t)h * HD;
   const bool bf_in = rkv_bf16 != 0, bf_w = logw_bf16 != 0;
-  WKV_PHASE_START;
 
   for (int c0 = 0; c0 < nc; c0 += G) {
     const int c = c0 + rank;
@@ -355,7 +331,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
       for (int idx = tid; idx < C * SM::PA; idx += kThreads) As[idx] = 0.f;
       cp_async_wait<3>();
       __syncthreads();
-      WKV_PHASE(0);  // logw in
 
       // the cumulative sum in time order, one thread per channel
       if (tid < HD) {
@@ -375,7 +350,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
       }
       cp_async_wait<1>();
       __syncthreads();
-      WKV_PHASE(1);  // the cumulative sum; r and k in
 
       // strictly-lower A in 4x4 register tiles
       if constexpr (C == 64) {
@@ -430,11 +404,9 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
         }
       }
       __syncthreads();
-      WKV_PHASE(2);  // the pairwise scores and the bonus
 
       cp_async_wait<0>();
       __syncthreads();  // v is in
-      WKV_PHASE(3);
 
       // y = A v (A is zero above the diagonal: stop there), beside the
       // decays of r and k in place
@@ -453,7 +425,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
       }
       for (int i = tid; i < HD; i += kThreads) eL[i] = expf(Ls[(C - 1) * SM::PL + i]);
       __syncthreads();
-      WKV_PHASE(4);  // A v and the decays
 
       // U_c = (k exp(Ltot - L))^T v, over L's tile
       if (warp < UT::warps) {
@@ -475,7 +446,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
       }
     }
     cluster.sync();  // every chunk's U_c and exp(Ltot_c) are in
-    WKV_PHASE(5);    // U_c and the wait for the cluster
 
     // the state chain, split over the cluster by rows: block p folds the
     // rows i = p, p + G, ... of S over the group's chunks, reading each
@@ -518,7 +488,6 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
       }
     }
     cluster.sync();  // every block's Ss is written; no U_j is read again
-    WKV_PHASE(6);    // the state chain and the wait for the cluster
 
     // y += (r exp(Lprev)) S, written into [B,T,H,HD]
     if (active && warp < YT::warps) {
@@ -535,9 +504,10 @@ wkv_kernel(const void* __restrict__ r, const void* __restrict__ k,
         *reinterpret_cast<float2*>(y0 + 8 * row) = make_float2(yacc[q][2], yacc[q][3]);
       }
     }
-    WKV_PHASE(7);  // (r exp(Lprev)) S and y out (thread 0's warp)
+    // the next group's loads overwrite Rs and Ss (as logw), which every
+    // warp has just read: no warp starts them before all are done
+    if (c0 + G < nc) __syncthreads();
   }
-  WKV_PHASE_BLOCK_DONE;
 }
 
 template <int HD, int C>
@@ -607,15 +577,3 @@ extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-#ifdef WKV_PHASES
-// the phase cycles summed over blocks (kPhases entries) and the block count
-extern "C" int rwkv6_wkv_phases(unsigned long long* out, int reset) {
-  if (reset) {
-    unsigned long long zero[kPhases + 1] = {};
-    return (int)cudaMemcpyToSymbol(wkv_phase_cycles, zero, sizeof(zero));
-  }
-  return (int)cudaMemcpyFromSymbol(out, wkv_phase_cycles,
-                                   sizeof(unsigned long long) * (kPhases + 1));
-}
-#endif

@@ -574,11 +574,12 @@ def test_flash_kernel_takes_unaligned_tensors(card, dtype):
 
 
 def _check_wkv_on_card(card, B, T, H, hd, chunk, dtype, logw_dtype,
-                       decay_shift, floor=-8.0):
-    """One kernel call against the plain version on the same card inputs:
-    r/k/v in ``dtype``, logw = clip(-exp(N(0,1) - decay_shift), floor,
-    -1e-5) in ``logw_dtype``, nonzero S0."""
-    g = torch.Generator(card).manual_seed(T + hd + chunk)
+                       decay_shift, floor=-8.0, seed=None):
+    """One kernel call against the plain version on the same card inputs
+    (drawn from ``seed``, by default T + hd): r/k/v in ``dtype``, logw =
+    clip(-exp(N(0,1) - decay_shift), floor, -1e-5) in ``logw_dtype``,
+    nonzero S0."""
+    g = torch.Generator(card).manual_seed(T + hd if seed is None else seed)
     rnd = lambda s: torch.randn(s, generator=g, device=card)
     r, k, v = (rnd((B, T, H, hd)).to(dtype) for _ in range(3))
     logw = torch.clamp(-torch.exp(rnd((B, T, H, hd)) - decay_shift), floor,
@@ -624,7 +625,30 @@ def test_wkv_kernel_every_instance_on_card(card, hd, chunk, dtype,
     """Every head dim x chunk instance, over 9 chunks (two cluster groups),
     with bfloat16 inputs too."""
     _check_wkv_on_card(card, 2, 9 * chunk, 3, hd, chunk, dtype, logw_dtype,
-                       0.0)
+                       0.0, seed=9 * chunk + hd + chunk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,chunk", [(64, 64), (64, 16), (16, 16)])
+def test_wkv_kernel_many_groups_repeat_bitwise_on_card(card, hd, chunk):
+    """64 or 128 chunks, 8 or 16 cluster groups one after another, with
+    the state carried across them (decay shift 4): ten calls on the same
+    inputs agree bit for bit (the kernel has no atomics, so a difference is
+    a race between one group's last product and the next group's tile
+    loads) and with the plain version within 2e-5."""
+    T = 128 * chunk if chunk == 16 else 64 * chunk
+    g = torch.Generator(card).manual_seed(T + hd + 1)
+    rnd = lambda s: torch.randn(s, generator=g, device=card)
+    r, k, v = (rnd((2, T, 4, hd)) for _ in range(3))
+    logw = torch.clamp(-torch.exp(rnd((2, T, 4, hd)) - 4.0), -8.0, -1e-5)
+    u, S0 = rnd((4, hd)), rnd((2, 4, hd, hd))
+    outs = [ops.wkv(r, k, v, logw, u, S0, chunk=chunk) for _ in range(10)]
+    y_ref, S_ref = ops.wkv(r, k, v, logw, u, S0, chunk=chunk, mode="plain")
+    torch.cuda.synchronize()
+    for y, S in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(S, outs[0][1])
+    assert_scale_close(outs[0][0].cpu().numpy(), y_ref.cpu().numpy(), 2e-5)
+    assert_scale_close(outs[0][1].cpu().numpy(), S_ref.cpu().numpy(), 2e-5)
 
 
 @pytest.mark.gpu

@@ -26,7 +26,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.launch import attention_precision
 from repro_torch.launch import sample as launch_sample
-from repro_torch.launch import wkv_phases
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -147,30 +146,17 @@ def test_attention_precision_on_cpu_records_every_call(capsys):
             attention_precision.main(["--arch", "dit-s", "--smoke"])
 
 
-def test_wkv_phases_needs_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    with pytest.raises(SystemExit, match="no CUDA card"):
-        wkv_phases.main([])
-
-
-def test_wkv_phase_build_is_its_own_library():
-    """The instrumented WKV build has its own hashed library, so it never
-    stands in for the kernel the port launches."""
-    plain = _build.lib_path("rwkv6_wkv")
-    phases = _build.lib_path("rwkv6_wkv", wkv_phases.FLAGS)
-    assert plain != phases and phases.parent == plain.parent
-
-
-@pytest.mark.gpu
-def test_wkv_phases_on_the_card(capsys):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
-    rec = wkv_phases.main(["--shape", "2", "256", "4", "64"])
-    assert rec["blocks"] == 2 * 4 * 4
-    assert set(rec["cycles_per_block"]) == set(wkv_phases.PHASES) | {"total"}
-    assert rec["instrumented_rel_err"]["y"] <= 2e-5
-    assert '"cycles_per_block"' in capsys.readouterr().out
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_build_hash_covers_the_shared_headers(monkeypatch, tmp_path, name):
+    """An edit to a shared header under csrc/ names a new library for every
+    source, so no stale library built against the old header is loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PORT / "kernels" / "csrc", csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.lib_path(name)
+    header = csrc / "tf32_mma.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.lib_path(name) != before
 
 
 def _run_chip_smoke(cwd: Path):

@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives SA-Solver
+holds each against its plain PyTorch version, times each at the main
+path's shape (the combines also over a size sweep, beside the per-launch
+floor of the same yardstick), then drives SA-Solver
 through the port's public entry points and the kernels over two
 full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
 denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
@@ -77,6 +79,12 @@ SW2_LIMIT = 0.05
 # the RWKV6-3B denoiser's WKV calls: [B, T, H, hd], chunk
 WKV_SHAPE = (8, 256, 40, 64)
 WKV_CHUNK = 64
+#: the combine sweep's sizes (P = 3): the main path's latent [8, 256, 16],
+#: the GMM phase's 65,536 x 2, a ragged n (the scalar path), DiT-XL/2's
+#: latent at batch 256, and one whose operands are well past the L2 (the
+#: one held to the HBM bound; last, it sizes the copy_ stream)
+SWEEP_N = (32768, 131072, 1000003, 1048576, 8388608)
+L2_BYTES = 50e6  # H100 SXM
 
 
 def emit(obj) -> None:
@@ -247,6 +255,12 @@ def phase_build() -> dict:
                  if ln.startswith(instance + ":")]
         require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
                 "loads" in lines[0], f"{instance} spills: {lines}")
+    # every combine instance: 2 dtypes x P 1..5 x 2 kernels
+    combine = res["sources"]["sa_combine"]["ptxas"]
+    spills = [ln for ln in combine if "0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    require(len(combine) == 20 and not spills,
+            f"sa_combine: {len(combine)} instances, spilling: {spills}")
     return res
 
 
@@ -259,6 +273,104 @@ def _combine_inputs(shape, P, dtype, seed):
     c2 = [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]
     coeffs = torch.tensor([c1, c2], dtype=torch.float32, device="cuda")
     return x, buf, xi, coeffs
+
+
+def _offset_view(t, offset: int):
+    """``t``'s values as a contiguous view that starts ``offset`` elements
+    into a larger flat tensor (so its data pointer is not 16-byte aligned
+    for an odd offset)."""
+    if not offset:
+        return t
+    flat = t.new_empty(t.numel() + offset)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
+
+
+def _combine_fns(name, x, buf, xi, c):
+    """(kernel call, plain call, library call, library label, output rows)
+    of one combine on these operands; the library yardstick is one
+    ``torch.matmul`` of the packed coefficients over the operands stacked
+    beforehand as one [P+2, n] tensor (x, xi, buf rows: the packing's
+    order), in the operand dtype."""
+    import torch
+    from repro_torch.kernels import ops
+    stacked = torch.cat([x.reshape(1, -1), xi.reshape(1, -1),
+                         buf.reshape(buf.shape[0], -1)])
+    if name == "sa_update":
+        c0 = c[0].contiguous()
+        cl = c0.to(x.dtype)
+        return (lambda: ops.sa_update(x, buf, xi, c0),
+                lambda: ops.sa_update(x, buf, xi, c0, mode="plain"),
+                lambda: torch.matmul(cl, stacked),
+                "torch.matmul(coeffs [P+2], stacked [P+2, n])", 1)
+    cl = c.to(x.dtype)
+    return (lambda: ops.sa_fused_update(x, buf, xi, c),
+            lambda: ops.sa_fused_update(x, buf, xi, c, mode="plain"),
+            lambda: torch.matmul(cl, stacked),
+            "torch.matmul(coeffs [2, P+2], stacked [P+2, n])", 2)
+
+
+def combine_bound(rows: int, n: int, P: int, itemsize: int):
+    """((least ms, what sets it), bytes) of one combine: x, xi and P
+    history rows read once, ``rows`` outputs written once, the
+    coefficients read once; per output row 3 + 2P flops an element."""
+    n_bytes = (P + 2 + rows) * n * itemsize + rows * (P + 2) * 4
+    return bound(n_bytes, rows * (2 * P + 3) * n), n_bytes
+
+
+def combine_times(timings: dict) -> dict:
+    """The combines' times: at the main path's shape (f32, P = 3) beside
+    the plain version and the library yardstick (into ``timings``); the
+    per-node floor of the same yardstick (a one-element ``zero_()``) and
+    two ``copy_`` yardsticks; and the sweep over ``SWEEP_N`` (P = 3, f32
+    and bfloat16): ms, byte bound, achieved GB/s and share of the bound."""
+    import torch
+    z = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(lambda: z.zero_())
+    n = math.prod(SHAPE)
+    # what a read before the write adds to the floor, and the rate of a
+    # plain read-write stream past the L2: copy_ of n f32 elements, and of
+    # as many bytes as sa_update moves at the sweep's largest n in f32
+    src = torch.zeros(n, device="cuda")
+    dst = torch.empty_like(src)
+    copy_small_ms = time_ms(lambda: dst.copy_(src))
+    src = torch.zeros(3 * SWEEP_N[-1], device="cuda")
+    dst = torch.empty_like(src)
+    copy_big_ms = time_ms(lambda: dst.copy_(src))
+    copy_bytes = 2 * src.numel() * 4
+    copies = {"n_f32_ms": copy_small_ms, "n": n, "stream_ms": copy_big_ms,
+              "stream_bytes": copy_bytes,
+              "stream_GB_per_s": copy_bytes / copy_big_ms / 1e6,
+              "call": "dst.copy_(src), float32"}
+    del src, dst
+    x, buf, xi, c = _combine_inputs(SHAPE, 3, torch.float32, seed=11)
+    for name in ("sa_update", "sa_fused"):
+        fn, plain, lib, label, rows = _combine_fns(name, x, buf, xi, c)
+        timings[name] = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+                         "library_ms": time_ms(lib), "library_call": label,
+                         "launch_floor_ms": floor_ms,
+                         "bound": combine_bound(rows, n, 3, 4)[0],
+                         "shape": [3, *SHAPE]}
+    sweep = []
+    for n in SWEEP_N:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, buf, xi, c = _combine_inputs((n,), 3, dtype, seed=12)
+            for name in ("sa_update", "sa_fused"):
+                fn, _, lib, _, rows = _combine_fns(name, x, buf, xi, c)
+                (b_ms, by), n_bytes = combine_bound(rows, n, 3,
+                                                    x.element_size())
+                ms = time_ms(fn)
+                sweep.append({"kernel": name, "n": n, "P": 3,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "ms": ms, "library_ms": time_ms(lib),
+                              "bound_ms": b_ms, "bound_by": by,
+                              "bytes": n_bytes, "GB_per_s": n_bytes / ms / 1e6,
+                              "share_of_bound": b_ms / ms,
+                              "operands_fit_l2": n_bytes < L2_BYTES})
+            del x, buf, xi, c
+    return {"launch_floor_ms": floor_ms,
+            "launch_floor_call": "zero_() of a one-element CUDA tensor",
+            "copy_yardsticks": copies, "combine_sweep": sweep}
 
 
 def _attn_inputs(B, H, K, S, T, hd, dtype, seed):
@@ -301,10 +413,14 @@ def phase_kernels(timings: dict) -> dict:
     import torch
     from repro_torch.kernels import ops
     cases = []
-    for shape in (SHAPE, (1000003,), (4, 100, 7)):
+    # shapes (offset 0), and the main path's n as views one element into
+    # their storage, which the vector path cannot take
+    for shape, offset in ((SHAPE, 0), ((1000003,), 0), ((4, 100, 7), 0),
+                          ((8388608,), 0), ((math.prod(SHAPE),), 1)):
         for P in (1, 3, 5):
             for dtype in (torch.float32, torch.bfloat16):
-                x, buf, xi, c = _combine_inputs(shape, P, dtype, seed=P)
+                x, buf, xi, c = (_offset_view(t, offset) for t in
+                                 _combine_inputs(shape, P, dtype, seed=P))
                 e1, ok1 = compare(ops.sa_update(x, buf, xi, c[0]),
                                   ops.sa_update(x, buf, xi, c[0], mode="plain"),
                                   "combine")
@@ -314,7 +430,7 @@ def phase_kernels(timings: dict) -> dict:
                 e3, ok3 = compare(kc, pc, "combine")
                 torch.cuda.synchronize()
                 cases.append({"kernel": "sa_update+sa_fused",
-                              "shape": list(shape), "P": P,
+                              "shape": list(shape), "offset": offset, "P": P,
                               "dtype": str(dtype).replace("torch.", ""),
                               "sa_update_err": e1,
                               "sa_fused_err": max(e2, e3),
@@ -386,24 +502,9 @@ def phase_kernels(timings: dict) -> dict:
     require(not bad, f"kernels disagree with their plain versions: {bad}")
 
     # times at the main path's shapes (f32): sa_update as the kernel
-    # combine's predictor call (P=3), sa_fused with P=3, attention at
-    # DiT-XL/2's (8, 16, 256, 72)
-    n = math.prod(SHAPE)
-    x, buf, xi, c = _combine_inputs(SHAPE, 3, torch.float32, seed=11)
-    c0 = c[0].contiguous()
-    timings["sa_update"] = {
-        "ms": time_ms(lambda: ops.sa_update(x, buf, xi, c0)),
-        "plain_ms": time_ms(lambda: ops.sa_update(x, buf, xi, c0, mode="plain")),
-        "library_ms": None,
-        "bound": bound((3 + 2 + 1) * n * 4 + 5 * 4, (2 * 3 + 3) * n),
-        "shape": [3, *SHAPE]}
-    timings["sa_fused"] = {
-        "ms": time_ms(lambda: ops.sa_fused_update(x, buf, xi, c)),
-        "plain_ms": time_ms(lambda: ops.sa_fused_update(x, buf, xi, c,
-                                                        mode="plain")),
-        "library_ms": None,
-        "bound": bound((3 + 2 + 2) * n * 4 + 10 * 4, 2 * (2 * 3 + 3) * n),
-        "shape": [3, *SHAPE]}
+    # combine's predictor call (P=3), sa_fused with P=3, and their sweep;
+    # attention at DiT-XL/2's (8, 16, 256, 72)
+    combine = combine_times(timings)
     B, H, S, hd = 8, 16, 256, 72
     q, k, v = _attn_inputs(B, H, H, S, S, hd, torch.float32, seed=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -444,7 +545,7 @@ def phase_kernels(timings: dict) -> dict:
         "tf32_flop_per_s": PEAK_TF32_FLOP_PER_S},
         "times": {name: {**t, "bound_ms": t["bound"][0],
                          "bound_by": t["bound"][1]}
-                  for name, t in timings.items()}}
+                  for name, t in timings.items()}, **combine}
 
 
 @contextlib.contextmanager

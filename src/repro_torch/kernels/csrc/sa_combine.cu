@@ -17,17 +17,34 @@
 // written once (twice for sa_fused) against 2(P+2) (4(P+2)) flops, about
 // 0.1 flop per byte, three orders of magnitude below the H100's
 // flop-per-byte balance. The least time is (P+2 reads + writes) * n *
-// itemsize / 3.35 TB/s.
+// itemsize / 3.35 TB/s. At the main path's latent (n = 32,768) that is
+// 0.23-0.27 us, below the per-launch floor: there the kernel is bound by
+// the latency of one round trip to memory, and what counts is that every
+// SM issues its loads at once.
 //
-// What the design does about it: one pass, each operand byte read once and
-// each output written once; 16-byte vector loads and stores (4 f32 or 8 bf16
-// elements per thread per operand) wherever every operand pointer and the
-// row stride n are 16-byte aligned, a masked scalar tail otherwise (no
-// host-side padding or copy); a grid-stride loop so one launch covers any n.
-// The coefficients (P+2 or 2(P+2) floats) are read once per thread block
-// into shared memory. P <= 5 is a template parameter, so the row loop
-// unrolls and the accumulators stay in registers. The TPU's (8, 128) tile
-// grain (choose_tile / lane_align) has no counterpart here.
+// What the design does about it:
+// - One pass, each operand byte read once through the read-only path
+//   (ld.global.nc) and each output written once, with plain stores: the
+//   next kernel reads the outputs, so no hint pushes them out of L2.
+// - 16-byte vectors (4 f32 or 8 bf16 elements) wherever every operand
+//   pointer and the row stride n are 16-byte aligned; a scalar loop
+//   otherwise (ragged n, views that start off alignment), correct and
+//   slow, with no host-side padding or copy.
+// - The coefficients (P+2, or 2(P+2) for sa_fused) go straight into
+//   registers by warp-uniform read-only loads, issued together with the
+//   operand loads: no shared-memory staging, no barrier before the first
+//   operand load.
+// - The geometry comes from the wrapper (kernels/sa_update.py,
+//   combine_geometry): at small n one vector per thread in blocks of
+//   32-256 threads, so the grid spans every SM; at large n blocks of 256
+//   threads, the grid capped at two resident blocks per SM on the vector
+//   path (16 on the scalar one), a grid-stride loop beyond that. A thread
+//   issues all P+2 16-byte loads of a vector before its first multiply;
+//   each load instruction of a warp reads 512 contiguous bytes. (Two
+//   vectors per thread per step were tried and ran no faster past the L2.)
+// - P <= 5 is a template parameter, so the loops unroll and the
+//   accumulators stay in registers. The TPU's (8, 128) tile grain
+//   (choose_tile / lane_align) has no counterpart here.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,36 +52,53 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
+constexpr int kMaxThreads = 256;
+constexpr int kMinBlocksPerSM = 2;  // the vector path's resident blocks in combine_geometry
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// A 16-byte vector of T as f32 values, and one T element, in and out.
+template <typename T> struct Elem;
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+template <> struct Elem<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static void store(float* p, float v) { *p = v; }
+};
 
-// Elements per 16-byte vector.
-template <typename T> struct Vec { static constexpr int N = 16 / sizeof(T); };
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // element 2i is the low half of word i; bf16 -> f32 is exact
+  __device__ static void unpack(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static uint32_t bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  __device__ static uint4 pack(const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = bits(f[2 * i]) | (bits(f[2 * i + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ static float load(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+  __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+};
 
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int k = 0; k < Vec<T>::N; ++k) out[k] = to_f32(e[k]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_vec(T* p, const float* in) {
-  uint4 raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int k = 0; k < Vec<T>::N; ++k) e[k] = from_f32<T>(in[k]);
-  *reinterpret_cast<uint4*>(p) = raw;
+__device__ __forceinline__ uint4 load16(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // acc = c0*x + c1*xi, then acc += c[2+j]*b_j; explicit round-to-nearest
@@ -74,175 +108,161 @@ __device__ __forceinline__ float head(const float* c, float x, float xi) {
   return __fadd_rn(__fmul_rn(c[0], x), __fmul_rn(c[1], xi));
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-sa_update_kernel(const T* __restrict__ x, const T* __restrict__ buf,
-                 const T* __restrict__ xi, const float* __restrict__ coeffs,
-                 T* __restrict__ out, int64_t n, int vectorized) {
-  __shared__ float c[P + 2];
-  if (threadIdx.x < P + 2) c[threadIdx.x] = coeffs[threadIdx.x];
-  __syncthreads();
-  constexpr int V = Vec<T>::N;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n_vec = vectorized ? n / V : 0;
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    const int64_t base = v * V;
-    float xv[V], xiv[V], acc[V], bv[V];
-    load_vec(x + base, xv);
-    load_vec(xi + base, xiv);
+template <typename T, int P, int R>
+__device__ __forceinline__ void combine(
+    const T* __restrict__ x, const T* __restrict__ buf,
+    const T* __restrict__ xi, const float* __restrict__ coeffs,
+    T* const (&out)[R], int64_t n, int vectorized) {
+  float c[R][P + 2];
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = head(c, xv[k], xiv[k]);
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < P + 2; ++j) c[r][j] = __ldg(coeffs + r * (P + 2) + j);
+  constexpr int V = Elem<T>::N;
+  const int64_t n_vec = vectorized ? n / V : 0;
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < n_vec;
+       v += threads) {
+    // all P+2 loads before the first multiply
+    const uint4 rx = load16(x + v * V), rxi = load16(xi + v * V);
+    uint4 rb[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) rb[j] = load16(buf + j * n + v * V);
+    float xv[V], xiv[V], bv[V], acc[R][V];
+    Elem<T>::unpack(rx, xv);
+    Elem<T>::unpack(rxi, xiv);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[r][k] = head(c[r], xv[k], xiv[k]);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      load_vec(buf + (int64_t)j * n + base, bv);
+      Elem<T>::unpack(rb[j], bv);  // one read feeds every row
 #pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(c[2 + j], bv[k]));
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          acc[r][k] = __fadd_rn(acc[r][k], __fmul_rn(c[r][2 + j], bv[k]));
     }
-    store_vec(out + base, acc);
-  }
-  // scalar path: the whole range when unaligned, else the ragged tail
-  for (int64_t e = n_vec * V + tid; e < n; e += stride) {
-    float acc = head(c, to_f32(x[e]), to_f32(xi[e]));
 #pragma unroll
-    for (int j = 0; j < P; ++j)
-      acc = __fadd_rn(acc, __fmul_rn(c[2 + j], to_f32(buf[(int64_t)j * n + e])));
-    out[e] = from_f32<T>(acc);
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<uint4*>(out[r] + v * V) = Elem<T>::pack(acc[r]);
+  }
+  // scalar path: the whole range when not vectorized, else nothing (the
+  // vector path needs n % V == 0)
+  for (int64_t e = n_vec * V + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < n; e += threads) {
+    float b[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) b[j] = Elem<T>::load(buf + j * n + e);
+    const float xe = Elem<T>::load(x + e), xie = Elem<T>::load(xi + e);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float acc = head(c[r], xe, xie);
+#pragma unroll
+      for (int j = 0; j < P; ++j) acc = __fadd_rn(acc, __fmul_rn(c[r][2 + j], b[j]));
+      Elem<T>::store(out[r] + e, acc);
+    }
   }
 }
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSM)
+sa_update_kernel(const T* __restrict__ x, const T* __restrict__ buf,
+                 const T* __restrict__ xi, const float* __restrict__ coeffs,
+                 T* __restrict__ out, int64_t n, int vectorized) {
+  T* const outs[1] = {out};
+  combine<T, P, 1>(x, buf, xi, coeffs, outs, n, vectorized);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSM)
 sa_fused_kernel(const T* __restrict__ x, const T* __restrict__ buf,
                 const T* __restrict__ xi, const float* __restrict__ coeffs,
                 T* __restrict__ pred, T* __restrict__ corr, int64_t n,
                 int vectorized) {
-  __shared__ float c[2 * (P + 2)];  // row 0 predictor, row 1 corrector
-  if (threadIdx.x < 2 * (P + 2)) c[threadIdx.x] = coeffs[threadIdx.x];
-  __syncthreads();
-  const float* cp = c;
-  const float* cc = c + (P + 2);
-  constexpr int V = Vec<T>::N;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t n_vec = vectorized ? n / V : 0;
-  for (int64_t v = tid; v < n_vec; v += stride) {
-    const int64_t base = v * V;
-    float xv[V], xiv[V], ap[V], ac[V], bv[V];
-    load_vec(x + base, xv);
-    load_vec(xi + base, xiv);
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      ap[k] = head(cp, xv[k], xiv[k]);
-      ac[k] = head(cc, xv[k], xiv[k]);
-    }
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      load_vec(buf + (int64_t)j * n + base, bv);  // one read feeds both sums
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        ap[k] = __fadd_rn(ap[k], __fmul_rn(cp[2 + j], bv[k]));
-        ac[k] = __fadd_rn(ac[k], __fmul_rn(cc[2 + j], bv[k]));
-      }
-    }
-    store_vec(pred + base, ap);
-    store_vec(corr + base, ac);
-  }
-  for (int64_t e = n_vec * V + tid; e < n; e += stride) {
-    const float xe = to_f32(x[e]), xie = to_f32(xi[e]);
-    float ap = head(cp, xe, xie);
-    float ac = head(cc, xe, xie);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float b = to_f32(buf[(int64_t)j * n + e]);
-      ap = __fadd_rn(ap, __fmul_rn(cp[2 + j], b));
-      ac = __fadd_rn(ac, __fmul_rn(cc[2 + j], b));
-    }
-    pred[e] = from_f32<T>(ap);
-    corr[e] = from_f32<T>(ac);
-  }
+  T* const outs[2] = {pred, corr};  // coeffs row 0 predictor, row 1 corrector
+  combine<T, P, 2>(x, buf, xi, coeffs, outs, n, vectorized);
 }
+
+struct Launch {
+  const void *x, *buf, *xi, *coeffs;
+  void *out0, *out1;  // out1 null: sa_update
+  long long n;
+  int blocks, threads, vectorized;
+  cudaStream_t stream;
+};
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// What the kernels can run: blocks of 32, 64, 128 or 256 threads; the
+// vector path only where every pointer and n are 16-byte aligned.
 template <typename T>
-int grid_for(int64_t n, int vectorized) {
-  const int64_t work = vectorized ? (n + Vec<T>::N - 1) / Vec<T>::N : n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return (int)blocks;
+bool runnable(const Launch& a) {
+  if (a.n < 0 || a.blocks < 1) return false;
+  if (a.threads != 32 && a.threads != 64 && a.threads != 128 && a.threads != 256)
+    return false;
+  if (a.vectorized == 0) return true;
+  return a.vectorized == 1 && a.n % Elem<T>::N == 0 && aligned16(a.x) &&
+         aligned16(a.buf) && aligned16(a.xi) && aligned16(a.out0) &&
+         (!a.out1 || aligned16(a.out1));
 }
 
 template <typename T, int P>
-void launch_update(const void* x, const void* buf, const void* xi,
-                   const void* coeffs, void* out, int64_t n, cudaStream_t s) {
-  const int vec = aligned16(x) && aligned16(buf) && aligned16(xi) &&
-                  aligned16(out) && (n % Vec<T>::N == 0);
-  sa_update_kernel<T, P><<<grid_for<T>(n, vec), kThreads, 0, s>>>(
-      (const T*)x, (const T*)buf, (const T*)xi, (const float*)coeffs,
-      (T*)out, n, vec);
-}
-
-template <typename T, int P>
-void launch_fused(const void* x, const void* buf, const void* xi,
-                  const void* coeffs, void* pred, void* corr, int64_t n,
-                  cudaStream_t s) {
-  const int vec = aligned16(x) && aligned16(buf) && aligned16(xi) &&
-                  aligned16(pred) && aligned16(corr) &&
-                  (n % Vec<T>::N == 0);
-  sa_fused_kernel<T, P><<<grid_for<T>(n, vec), kThreads, 0, s>>>(
-      (const T*)x, (const T*)buf, (const T*)xi, (const float*)coeffs,
-      (T*)pred, (T*)corr, n, vec);
-}
-
-template <typename T>
-int dispatch_update(int P, const void* x, const void* buf, const void* xi,
-                    const void* coeffs, void* out, int64_t n, cudaStream_t s) {
-  switch (P) {
-    case 1: launch_update<T, 1>(x, buf, xi, coeffs, out, n, s); break;
-    case 2: launch_update<T, 2>(x, buf, xi, coeffs, out, n, s); break;
-    case 3: launch_update<T, 3>(x, buf, xi, coeffs, out, n, s); break;
-    case 4: launch_update<T, 4>(x, buf, xi, coeffs, out, n, s); break;
-    case 5: launch_update<T, 5>(x, buf, xi, coeffs, out, n, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch(const Launch& a) {
+  if (a.out1)
+    sa_fused_kernel<T, P><<<a.blocks, a.threads, 0, a.stream>>>(
+        (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
+        (T*)a.out0, (T*)a.out1, a.n, a.vectorized);
+  else
+    sa_update_kernel<T, P><<<a.blocks, a.threads, 0, a.stream>>>(
+        (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
+        (T*)a.out0, a.n, a.vectorized);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_fused(int P, const void* x, const void* buf, const void* xi,
-                   const void* coeffs, void* pred, void* corr, int64_t n,
-                   cudaStream_t s) {
+int dispatch(const Launch& a, int P) {
+  if (!runnable<T>(a)) return (int)cudaErrorInvalidValue;
   switch (P) {
-    case 1: launch_fused<T, 1>(x, buf, xi, coeffs, pred, corr, n, s); break;
-    case 2: launch_fused<T, 2>(x, buf, xi, coeffs, pred, corr, n, s); break;
-    case 3: launch_fused<T, 3>(x, buf, xi, coeffs, pred, corr, n, s); break;
-    case 4: launch_fused<T, 4>(x, buf, xi, coeffs, pred, corr, n, s); break;
-    case 5: launch_fused<T, 5>(x, buf, xi, coeffs, pred, corr, n, s); break;
+    case 1: return launch<T, 1>(a);
+    case 2: return launch<T, 2>(a);
+    case 3: return launch<T, 3>(a);
+    case 4: return launch<T, 4>(a);
+    case 5: return launch<T, 5>(a);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+}
+
+int dispatch(const Launch& a, int P, int dtype) {
+  if (dtype == 0) return dispatch<float>(a, P);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, P);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 = cudaSuccess); the Python wrapper raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16. blocks and threads come from
+// combine_geometry; vectorized says that every pointer and n are 16-byte
+// aligned. Returns cudaErrorInvalidValue
+// for what the kernels cannot run (no launch), else cudaGetLastError()
+// after the launch (0 = cudaSuccess); the Python wrapper raises on
+// anything but 0.
 extern "C" int sa_update_launch(const void* x, const void* buf, const void* xi,
                                 const void* coeffs, void* out, long long n,
-                                int P, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_update<float>(P, x, buf, xi, coeffs, out, n, s);
-  if (dtype == 1) return dispatch_update<__nv_bfloat16>(P, x, buf, xi, coeffs, out, n, s);
-  return (int)cudaErrorInvalidValue;
+                                int P, int dtype, int blocks, int threads,
+                                int vectorized, void* stream) {
+  const Launch a{x, buf, xi, coeffs, out, nullptr, n, blocks, threads,
+                 vectorized, (cudaStream_t)stream};
+  return dispatch(a, P, dtype);
 }
 
 extern "C" int sa_fused_launch(const void* x, const void* buf, const void* xi,
                                const void* coeffs, void* pred, void* corr,
-                               long long n, int P, int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_fused<float>(P, x, buf, xi, coeffs, pred, corr, n, s);
-  if (dtype == 1) return dispatch_fused<__nv_bfloat16>(P, x, buf, xi, coeffs, pred, corr, n, s);
-  return (int)cudaErrorInvalidValue;
+                               long long n, int P, int dtype, int blocks,
+                               int threads, int vectorized, void* stream) {
+  if (!corr) return (int)cudaErrorInvalidValue;
+  const Launch a{x, buf, xi, coeffs, pred, corr, n, blocks, threads,
+                 vectorized, (cudaStream_t)stream};
+  return dispatch(a, P, dtype);
 }

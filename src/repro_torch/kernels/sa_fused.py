@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .sa_update import DTYPE_CODES, check_operands
+from .sa_update import _sms, check_operands, launch_args
 
 __all__ = ["sa_fused_update", "sa_fused_update_plain"]
 
@@ -57,10 +57,8 @@ def sa_fused_update(x, buf, xi, coeffs):
     corr = torch.empty_like(x)
     lib = _build.load("sa_combine")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.sa_fused_launch(x.data_ptr(), buf.data_ptr(), xi.data_ptr(),
-                             coeffs.data_ptr(), pred.data_ptr(),
-                             corr.data_ptr(), x.numel(), buf.shape[0],
-                             DTYPE_CODES[x.dtype], stream)
+    rc = lib.sa_fused_launch(
+        *launch_args(x, buf, xi, coeffs, (pred, corr), _sms(x.device)), stream)
     _build.check(rc, "sa_fused_update")
     launches += 1
     return pred, corr

@@ -11,16 +11,26 @@ function in plain PyTorch; the CPU path and the card-side checks use it.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 
-__all__ = ["sa_update", "sa_update_plain", "MAX_ROWS", "DTYPE_CODES"]
+__all__ = ["sa_update", "sa_update_plain", "combine_geometry", "launch_args",
+           "MAX_ROWS", "DTYPE_CODES"]
 
 #: most history rows the kernel is instantiated for
 MAX_ROWS = 5
 #: operand dtypes the combine kernels take, with their C codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: threads per block at large n; the blocks of that size an SM keeps
+#: resident on the vector path (``__launch_bounds__(256, 2)`` in
+#: ``csrc/sa_combine.cu``), and the blocks per SM the scalar path may
+#: launch (enough to fill every SM's resident threads with 4-byte loads)
+BLOCK = 256
+RESIDENT_BLOCKS = 2
+SCALAR_BLOCKS = 16
 
 #: kernel launches made by :func:`sa_update` in this process
 launches = 0
@@ -41,6 +51,51 @@ def sa_update_plain(x, buf, xi, coeffs):
     for j in range(buf.shape[0]):
         acc = acc + c[2 + j] * buf[j].float()
     return acc.to(x.dtype)
+
+
+def combine_geometry(n: int, itemsize: int, vectorized: bool,
+                     sms: int) -> tuple[int, int]:
+    """``(blocks, threads)`` of one combine launch over ``n`` elements of
+    ``itemsize`` bytes on a card with ``sms`` SMs.
+
+    A work item is a 16-byte vector on the vector path, an element on the
+    scalar one; each thread takes one item per step. While one step
+    covers the items in blocks of up to ``BLOCK`` threads on every SM,
+    the blocks hold the least power of two from 32 threads that spreads
+    the items over every SM. Beyond that: blocks of ``BLOCK``, the grid
+    capped at ``RESIDENT_BLOCKS`` per SM on the vector path and
+    ``SCALAR_BLOCKS`` on the scalar one (the kernel's grid-stride loop
+    covers the rest). The kernel covers item ``block * threads + thread +
+    k * blocks * threads`` for k = 0, 1, ... while below the item count,
+    on each path."""
+    items = n // (16 // itemsize) if vectorized else n
+    if items <= sms * BLOCK:
+        threads = 32
+        while threads < BLOCK and threads * sms < items:
+            threads *= 2
+        return max(1, -(-items // threads)), threads
+    cap = sms * (RESIDENT_BLOCKS if vectorized else SCALAR_BLOCKS)
+    return min(-(-items // BLOCK), cap), BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_args(x, buf, xi, coeffs, outs, sms: int) -> tuple:
+    """The C entry point's arguments but the stream, in its order: the
+    x, buf, xi, coeffs and output pointers, n, P, the dtype code, the
+    geometry (:func:`combine_geometry`) and whether the vector path runs
+    (every operand and output pointer and the row stride n 16-byte
+    aligned)."""
+    n = x.numel()
+    itemsize = x.element_size()
+    data = [t.data_ptr() for t in (x, buf, xi, *outs)]
+    vectorized = n % (16 // itemsize) == 0 and all(p % 16 == 0 for p in data)
+    return (*data[:3], coeffs.data_ptr(), *data[3:], n, buf.shape[0],
+            DTYPE_CODES[x.dtype], *combine_geometry(n, itemsize, vectorized, sms),
+            int(vectorized))
 
 
 def check_operands(x, buf, xi, coeffs, rows: int) -> None:
@@ -77,9 +132,8 @@ def sa_update(x, buf, xi, coeffs):
     out = torch.empty_like(x)
     lib = _build.load("sa_combine")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.sa_update_launch(x.data_ptr(), buf.data_ptr(), xi.data_ptr(),
-                              coeffs.data_ptr(), out.data_ptr(), x.numel(),
-                              buf.shape[0], DTYPE_CODES[x.dtype], stream)
+    rc = lib.sa_update_launch(
+        *launch_args(x, buf, xi, coeffs, (out,), _sms(x.device)), stream)
     _build.check(rc, "sa_update")
     launches += 1
     return out

@@ -21,6 +21,9 @@ need no JAX and run on a machine with a card and no JAX
 (``pytest -m gpu tests/test_torch_kernels.py``).
 """
 
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -502,18 +505,112 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts()["rwkv6_wkv"] == 0
 
 
+# ------------------------------------------------------ combine geometry
+_ITEM_DTYPES = {4: torch.float32, 2: torch.bfloat16}
+
+
+def _combine_hits(n, itemsize, vectorized, blocks, threads):
+    """How often the combine kernels' loops touch each of the n elements,
+    with the index mapping of ``combine_geometry``'s docstring (the
+    vector loop, then the scalar loop)."""
+    V = 16 // itemsize
+    n_vec = n // V if vectorized else 0
+    first = np.arange(blocks * threads)
+    idx = []
+    for k in range(0, n_vec, blocks * threads):
+        v = k + first
+        v = v[v < n_vec]
+        idx.append((v[:, None] * V + np.arange(V)).ravel())
+    for k in range(n_vec * V, n, blocks * threads):
+        e = k + first
+        idx.append(e[e < n])
+    idx = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+    return np.bincount(idx, minlength=n)
+
+
+@pytest.mark.parametrize("n", [1, 7, 32768, 131072, 1000003, 8388608])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("vectorized", [True, False])
+def test_combine_geometry_covers_every_element_once(n, itemsize, vectorized):
+    """The launch geometry on a 132-SM card: each element is combined
+    exactly once; the main path's latent (n = 32,768) spans at least 64
+    SMs in f32 and bf16; at large n the grid stays within its cap (the
+    resident blocks on the vector path). A ragged n never takes the vector
+    path."""
+    sms = 132
+    V = 16 // itemsize
+    if vectorized and n % V:
+        x = torch.zeros(n, dtype=_ITEM_DTYPES[itemsize])
+        args = t_update_mod.launch_args(x, x[None], x, torch.zeros(3),
+                                        (x,), sms)
+        assert args[-1] == 0
+        assert args[-3:-1] == t_update_mod.combine_geometry(n, itemsize,
+                                                            False, sms)
+        return
+    blocks, threads = t_update_mod.combine_geometry(n, itemsize, vectorized,
+                                                    sms)
+    assert blocks >= 1 and threads in (32, 64, 128, 256)
+    hits = _combine_hits(n, itemsize, vectorized, blocks, threads)
+    assert hits.min() == 1 and hits.max() == 1
+    if n == 32768:
+        assert blocks >= 64
+    items = n // V if vectorized else n
+    if items > sms * t_update_mod.BLOCK:
+        assert threads == t_update_mod.BLOCK
+        assert blocks <= sms * (t_update_mod.RESIDENT_BLOCKS if vectorized
+                                else t_update_mod.SCALAR_BLOCKS)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0),
+                                          (torch.bfloat16, 0),
+                                          (torch.float32, 1)])
+def test_combine_launch_args_match_c_signatures(fused, dtype, offset):
+    """The wrappers' arguments fit the C entry points' ctypes signatures
+    in ``_build.SIGNATURES`` (count and integer widths), end with the
+    geometry of ``combine_geometry``, and ask for the vector path only on
+    16-byte aligned operands."""
+    from repro_torch.kernels import _build
+    P, n = 3, 4096
+    view = lambda s: torch.randn(math.prod(s) + offset).to(dtype)[offset:] \
+        .view(s)
+    x, buf, xi = view((n,)), view((P, n)), view((n,))
+    coeffs = torch.randn(2, P + 2) if fused else torch.randn(P + 2)
+    outs = (torch.empty_like(x),) * (2 if fused else 1)
+    args = t_update_mod.launch_args(x, buf, xi, coeffs, outs, 132) + (0,)
+    name = "sa_fused_launch" if fused else "sa_update_launch"
+    sig = _build.SIGNATURES["sa_combine"][name]
+    assert len(args) == len(sig)
+    for ctype, value in zip(sig, args):
+        assert isinstance(value, int) and not isinstance(value, bool)
+        bits = 8 * ctypes.sizeof(ctype)
+        lo = 0 if ctype is ctypes.c_void_p else -2 ** (bits - 1)
+        assert lo <= value < lo + 2 ** bits, (ctype, value)
+    vectorized = offset == 0
+    assert args[-2] == int(vectorized)
+    assert args[-4:-2] == t_update_mod.combine_geometry(
+        n, x.element_size(), vectorized, 132)
+    assert args[-7:-4] == (n, P, t_update_mod.DTYPE_CODES[dtype])
+
+
 # ----------------------------------------------------------- card only
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 256, 16), (1000003,), (4, 100, 7)])
-@pytest.mark.parametrize("P", [1, 3, 5])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_combine_kernels_match_plain_on_card(card, shape, P, dtype):
+def _combine_card_inputs(card, shape, P, dtype, offset=0):
+    """x, buf, xi in ``dtype`` and coeffs [2, P+2], each a contiguous view
+    ``offset`` elements into its storage (off 16-byte alignment for an odd
+    offset: the kernels' scalar path)."""
     g = torch.Generator(card).manual_seed(P)
-    rnd = lambda s: torch.randn(s, generator=g, device=card).to(dtype)
+
+    def rnd(s):
+        flat = torch.randn(math.prod(s) + offset, generator=g, device=card)
+        return flat.to(dtype)[offset:].view(s)
     x, buf, xi = rnd(shape), rnd((P,) + shape), rnd(shape)
-    c = torch.tensor([[0.9, 0.1] + [0.3 / (j + 1) for j in range(P)],
-                      [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]],
-                     device=card)
+    c = torch.zeros(2 * (P + 2) + offset, device=card)[offset:].view(2, P + 2)
+    c.copy_(torch.tensor([[0.9, 0.1] + [0.3 / (j + 1) for j in range(P)],
+                          [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]]))
+    return x, buf, xi, c
+
+
+def _check_combines_on_card(x, buf, xi, c):
     before = ops.launch_counts()
     outs = [(ops.sa_update(x, buf, xi, c[0]),
              ops.sa_update(x, buf, xi, c[0], mode="plain")),
@@ -524,7 +621,99 @@ def test_combine_kernels_match_plain_on_card(card, shape, P, dtype):
     assert after["sa_fused"] - before["sa_fused"] == 1
     for got, ref in outs:
         assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
-                     str(dtype).replace("torch.", ""))
+                     str(x.dtype).replace("torch.", ""))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 256, 16), (1000003,), (4, 100, 7),
+                                   (8388608,)])
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_match_plain_on_card(card, shape, P, dtype):
+    _check_combines_on_card(*_combine_card_inputs(card, shape, P, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_take_offset_views_on_card(card, P, dtype):
+    """The main path's n as views one element into their storage: the
+    vector path cannot take them, the scalar path must."""
+    x, buf, xi, c = _combine_card_inputs(card, (32768,), P, dtype, offset=1)
+    assert x.data_ptr() % 16 and t_update_mod.launch_args(
+        x, buf, xi, c, (x,), 132)[-1] == 0
+    _check_combines_on_card(x, buf, xi, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 256, 16), (8388608,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_repeat_bitwise_on_card(card, shape, dtype):
+    """Ten calls of each combine on the same inputs give the same bits."""
+    x, buf, xi, c = _combine_card_inputs(card, shape, 3, dtype)
+    first = (ops.sa_update(x, buf, xi, c[0]), *ops.sa_fused_update(x, buf, xi, c))
+    for _ in range(9):
+        again = (ops.sa_update(x, buf, xi, c[0]),
+                 *ops.sa_fused_update(x, buf, xi, c))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _launch_combine(x, buf, xi, coeffs, geometry=None, vectorized=None):
+    """Launch a combine through its C entry point (sa_fused for coeffs
+    [2, P+2]) with the wrapper's arguments, the geometry or the vector flag
+    replaced where given. Returns (rc, outputs)."""
+    from repro_torch.kernels import _build
+    outs = tuple(torch.empty_like(x) for _ in range(coeffs.dim()))
+    args = list(t_update_mod.launch_args(x, buf, xi, coeffs, outs, 132))
+    if geometry is not None:
+        args[-3:-1] = geometry
+    if vectorized is not None:
+        args[-1] = vectorized
+    lib = _build.load("sa_combine")
+    fn = lib.sa_fused_launch if coeffs.dim() == 2 else lib.sa_update_launch
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return rc, outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((8, 256, 16), 0), ((131072,), 0),
+                                          ((5003,), 0), ((32768,), 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_same_bits_at_any_geometry_on_card(card, shape,
+                                                           offset, dtype):
+    """The geometry moves work between threads and steps, never the
+    arithmetic: every geometry the kernels run gives the wrapper's bits,
+    grid-stride loops and partial last steps included."""
+    x, buf, xi, c = _combine_card_inputs(card, shape, 3, dtype, offset)
+    geometries = [(1, 32), (3, 64), (7, 256), (500, 128), (264, 256),
+                  (2112, 256)]
+    for coeffs in (c[0], c):
+        rc, want = _launch_combine(x, buf, xi, coeffs)
+        assert rc == 0
+        for geometry in geometries:
+            rc, got = _launch_combine(x, buf, xi, coeffs, geometry)
+            assert rc == 0, geometry
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), geometry
+
+
+@pytest.mark.gpu
+def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
+    """The C entry points return an error and launch nothing for a block
+    size or grid they have no instance for, the vector path on unaligned
+    operands or a vector flag other than 0 and 1, or P outside 1..5."""
+    x, buf, xi, c = _combine_card_inputs(card, (4096,), 3, torch.float32)
+    xo, bo, xio, co = _combine_card_inputs(card, (4096,), 3, torch.float32,
+                                           offset=1)
+    for coeffs in (c[0], c):
+        assert _launch_combine(x, buf, xi, coeffs)[0] == 0
+        for geometry in ((4, 48), (4, 512), (0, 64)):
+            assert _launch_combine(x, buf, xi, coeffs, geometry)[0] != 0
+        assert _launch_combine(x, buf, xi, coeffs, vectorized=2)[0] != 0
+    assert _launch_combine(xo, bo, xio, co[0], vectorized=1)[0] != 0
+    with pytest.raises(ValueError, match="history rows"):
+        ops.sa_update(x, torch.zeros(6, 4096, device=card), xi,
+                      torch.zeros(8, device=card))
 
 
 #: (B, H, K, S = T, hd, causal) for the kernel on the card: the main path's

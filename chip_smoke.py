@@ -10,9 +10,12 @@ floor of the same yardstick), then drives SA-Solver
 through the port's public entry points and the kernels over two
 full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
 denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
-latent [8, 256, 16]; the port's sampling entry point (``launch.sample.main``)
+latent [8, 256, 16]; step programs and the SEEDS and DPM-Solver++ rules
+over DiT-XL/2 (``programs_path``); the port's sampling entry point
+(``launch.sample.main``)
 with no kernel flag, which must route DiT-XL/2 and the RWKV6 smoke config
-through their kernels on the card; and an SA solve of the GMM oracle. Each
+through their kernels on the card; and SA, SEEDS and DPM-Solver++ solves
+of the GMM oracle. Each
 main path runs with the launch counts set to 0 just before it and read
 just after.
 Each phase prints one JSON line; any failed check raises, and the script
@@ -59,6 +62,7 @@ SOURCES = {
 }
 #: the kernels each main path must launch
 PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
+                "programs": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused")}
@@ -76,6 +80,11 @@ GAP_LIMIT = 1e-4
 #: whole-solve bar on the bfloat16 residual stream (the reference's bf16 bar)
 GAP_LIMIT_BF16 = 1e-2
 SW2_LIMIT = 0.05
+#: the GMM phase's other families (NFE 20, predictor order 3, no
+#: corrector, tau 1, fused), each gated at SW2_LIMIT only where the JAX
+#: reference's own CPU solve of the same spec meets it (held by
+#: tests/test_torch_families.py); otherwise recorded as information
+GMM_FAMILIES = {"dpmpp_multistep": True, "seeds": False}
 # the RWKV6-3B denoiser's WKV calls: [B, T, H, hd], chunk
 WKV_SHAPE = (8, 256, 40, 64)
 WKV_CHUNK = 64
@@ -589,19 +598,16 @@ def held_against_plain(record: dict):
 
 def phase_main_path(state: dict) -> dict:
     import torch
-    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.core import Denoiser, make_sampler
     from repro_torch.kernels import ops
     from repro_torch.models import TransformerLM, init_params
     from repro_torch.models.common import ParamDef
-    from repro_torch.models.tame import (ensure_contractive, tame_dit,
-                                         tame_networks)
+    from repro_torch.models.tame import tame_networks
     dev = torch.device("cuda")
-    schedule = get_schedule("vp_linear")
-    t0 = time.perf_counter()
-    model, params, mu = tame_dit("dit-xl-2", smoke=False, seed=0,
-                                 use_flash=True, device=dev)
-    torch.cuda.synchronize()
-    weights_s = time.perf_counter() - t0
+    dit = build_tame_dit_xl2()
+    model, params, mu, schedule = (dit[k] for k in ("model", "params", "mu",
+                                                    "schedule"))
+    xT, g, contract = dit["xT"], dit["g"], dit["contract"]
     cfg = model.cfg
     plain_model = TransformerLM(dataclasses.replace(cfg, use_flash=False))
 
@@ -612,9 +618,6 @@ def phase_main_path(state: dict) -> dict:
                             prediction="x0")
 
     probe = sampler("einsum", "f32")
-    g = torch.Generator(dev).manual_seed(1)
-    xT = probe.init_noise(g, SHAPE)
-    contract = ensure_contractive(model, params, mu, xT, g)
     if contract["halvings"]:
         print(f"tame: adaLN weights damped by {contract['factor']} to "
               f"reach Jacobian gain < 1 at full width", flush=True)
@@ -706,7 +709,7 @@ def phase_main_path(state: dict) -> dict:
               "params": sum(t.numel() for t in _leaves(params)),
               "latent": list(SHAPE),
               "use_flash": cfg.use_flash, "weights": "tame",
-              "weights_s": weights_s, "contractive": contract,
+              "weights_s": dit["weights_s"], "contractive": contract,
               "sampler": {"name": "sa", "nfe": NFE, "tau": 1.0,
                           "predictor_order": 3, "corrector_order": 3,
                           "mode": "PEC"},
@@ -777,7 +780,7 @@ def phase_profile(state: dict) -> dict:
     from repro_torch.core import Denoiser, make_sampler
     from repro_torch.models.tame import tame_networks
     dev = torch.device("cuda")
-    model, params, mu, schedule = state.pop("tame")
+    model, params, mu, schedule = state["tame"]
     s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
                      schedule=schedule, prediction="x0")
     net = tame_networks(model, params, mu)
@@ -791,6 +794,204 @@ def phase_profile(state: dict) -> dict:
     eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=10)
     return {"phase": "profile", "ok": True, "solve": "fused f32, steady",
             **split, "backbone_eval_ms": eval_ms}
+
+
+def build_tame_dit_xl2() -> dict:
+    """The DiT phases' tame DiT-XL/2 on the card: seed 0, flash on, its
+    adaLN damped until contractive on the x_T drawn from generator seed 1
+    (the main path's x_T; ``g`` comes back advanced past the check), with
+    the seconds the weights took."""
+    import torch
+    from repro_torch.core import get_schedule, make_sampler
+    from repro_torch.models.tame import ensure_contractive, tame_dit
+    dev = torch.device("cuda")
+    schedule = get_schedule("vp_linear")
+    t0 = time.perf_counter()
+    model, params, mu = tame_dit("dit-xl-2", smoke=False, seed=0,
+                                 use_flash=True, device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    g = torch.Generator(dev).manual_seed(1)
+    xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
+    contract = ensure_contractive(model, params, mu, xT, g)
+    return {"model": model, "params": params, "mu": mu, "schedule": schedule,
+            "xT": xT, "g": g, "contract": contract, "weights_s": weights_s}
+
+
+def _tame_dit_xl2(state: dict):
+    """The main path's tame DiT-XL/2 ``(model, params, mu, schedule)``, or
+    the same one anew when a phase runs without the main path."""
+    if "tame" in state:
+        return state.pop("tame")
+    t = build_tame_dit_xl2()
+    return t["model"], t["params"], t["mu"], t["schedule"]
+
+
+def expected_launches(sampler, per_eval: int) -> dict:
+    """Kernel launches of one solve, from the spec's per-step modes: under
+    ``fused`` a step with a corrector launches sa_fused and a
+    predictor-only step sa_update; under ``kernel`` two sa_update launches
+    or one; under the cond fallback every step runs the corrector
+    combine. The backbone launches flash ``per_eval`` times an
+    evaluation."""
+    from repro_torch.kernels import ops
+    spec = sampler.spec
+    M = spec.n_steps
+    if spec.program is not None:
+        flags = spec.program.mode_flags(M)
+    else:
+        uc = spec.corrector_order > 0
+        flags = [(uc, uc and spec.mode == "PECE")] * M
+    with_corrector = sum(uc for uc, _ in flags)
+    if sampler.plan.statics[1] == ("cond",):
+        with_corrector = M
+    p_only = M - with_corrector
+    combine = spec.combine
+    return dict.fromkeys(ops.launch_counts(), 0) | {
+        "flash_attention": per_eval * sampler.nfe,
+        "sa_fused": with_corrector if combine == "fused" else 0,
+        "sa_update": {"fused": p_only, "kernel": 2 * with_corrector + p_only,
+                      "einsum": 0}[combine]}
+
+
+def phase_programs_path(state: dict) -> dict:
+    """Step programs and the SEEDS and DPM-Solver++ table rules over
+    DiT-XL/2 at full width and depth (tame weights, latent [8, 256, 16],
+    NFE budget 20, flash on), through the combine kernels, with the
+    phase's own x_T and noise:
+
+    1. the ``constant`` and ``order-ramp`` presets under ``fused``, f32,
+       each ``torch.equal`` to the fixed-spec fused solve;
+    2. ``pece-head`` stamped to NFE 20 (15 steps: 3 PECE, 12 PEC) under
+       ``fused``/``kernel``/``einsum`` in f32 and ``fused``/``einsum`` in
+       bf16;
+    3. ``predictor-tail`` (PEC, then P) under ``fused`` and ``einsum``;
+    4. alternating P/PEC over 19 steps (the cond fallback) under
+       ``fused``/``kernel``/``einsum``;
+    5. ``seeds`` and ``dpmpp_multistep``, predictor order 3, no corrector,
+       tau 1, under ``kernel``/``fused``/``einsum``.
+
+    Every solve: finite, launch counts exactly as its modes give them,
+    flash 28 times its NFE. Kernel solves within GAP_LIMIT of einsum in
+    f32 (beside an x_T-nudge yardstick) and GAP_LIMIT_BF16 in bf16; one
+    more solve of each kernel run of 2-5 with every kernel call held
+    against its plain version."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.core.programs import StepProgram, program_preset_for_nfe
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = _tame_dit_xl2(state)
+    per_eval = model.cfg.n_layers
+    den = Denoiser(tame_networks(model, params, mu), schedule,
+                   prediction="x0")
+    g = torch.Generator(dev).manual_seed(31)
+    xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
+    xis = [torch.randn(SHAPE, generator=g, device=dev) for _ in range(NFE)]
+    v = torch.randn(SHAPE, generator=g, device=dev)
+    x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
+    alternating = StepProgram(mode=tuple("P" if i % 2 == 0 else "PEC"
+                                         for i in range(NFE - 1)))
+    families = dict(predictor_order=3, corrector_order=0, tau=1.0)
+    specs = {  # label -> (family, program, make_sampler keywords)
+        "fixed": ("sa", None, {}),
+        "constant": ("sa", program_preset_for_nfe("constant", NFE), {}),
+        "order_ramp": ("sa", program_preset_for_nfe("order-ramp", NFE), {}),
+        "pece_head": ("sa", program_preset_for_nfe("pece-head", NFE), {}),
+        "predictor_tail": ("sa", program_preset_for_nfe("predictor-tail",
+                                                        NFE), {}),
+        "cond": ("sa", alternating, {}),
+        "seeds": ("seeds", None, families),
+        "dpmpp": ("dpmpp_multistep", None, families),
+    }
+
+    def sampler(label, combine, precision="f32"):
+        name, program, kw = specs[label]
+        return make_sampler(name, nfe=NFE, schedule=schedule,
+                            prediction="x0", combine=combine,
+                            precision=precision, program=program, **kw)
+
+    def solve(s, x=xT):
+        want = expected_launches(s, per_eval)
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, x, noise=lambda i: xis[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        require(launches == want,
+                f"programs: {s.spec}: launches {launches}, expected {want}")
+        require(bool(torch.isfinite(out).all()) and
+                tuple(out.shape) == SHAPE, f"programs: {s.spec}: bad output")
+        return out, secs, launches
+
+    ops.reset_launch_counts()  # the programs main-path window starts here
+    runs, outs = {}, {}
+    held: dict = {}
+    for label, combine, precision in (
+            ("fixed", "fused", "f32"), ("constant", "fused", "f32"),
+            ("order_ramp", "fused", "f32"),
+            *[("pece_head", c, "f32") for c in ("fused", "kernel", "einsum")],
+            ("pece_head", "fused", "bf16"), ("pece_head", "einsum", "bf16"),
+            ("predictor_tail", "fused", "f32"),
+            ("predictor_tail", "einsum", "f32"),
+            *[(lb, c, "f32") for lb in ("cond", "seeds", "dpmpp")
+              for c in ("fused", "kernel", "einsum")]):
+        s = sampler(label, combine, precision)
+        out, cold, launches = solve(s)
+        out2, steady, _ = solve(s)
+        key = f"{label}_{combine}_{precision}"
+        outs[key] = out
+        program = s.spec.program
+        runs[key] = {
+            "sampler": s.spec.name, "cold_s": cold, "steady_s": steady,
+            "repeat_bitwise": bool(torch.equal(out, out2)),
+            "steps": s.spec.n_steps, "nfe": s.nfe,
+            "program": program.to_json() if program is not None else None,
+            "segments": (program.segments(s.spec.n_steps)
+                         if program is not None else None),
+            "modes": repr(s.plan.statics[1]), "launches": launches}
+        if combine != "einsum" and label not in ("fixed", "constant",
+                                                 "order_ramp"):
+            with held_against_plain(held):
+                solve(s)
+    out_pert, _, _ = solve(sampler("pece_head", "einsum"), x=x_pert)
+    state["launches"]["programs"] = ops.launch_counts()  # window ends
+    state["held"]["programs"] = held
+
+    bitwise = {f"{lb}_vs_fixed_fused_f32": bool(torch.equal(
+        outs[f"{lb}_fused_f32"], outs["fixed_fused_f32"]))
+        for lb in ("constant", "order_ramp")}
+    gaps = {"pece_head_perturbation_yardstick_f32": rel_gap(
+        out_pert, outs["pece_head_einsum_f32"])}
+    for key in outs:
+        label, combine, precision = key.rsplit("_", 2)
+        if combine in ("fused", "kernel") and label not in (
+                "fixed", "constant", "order_ramp"):
+            gaps[f"{label}_{combine}_vs_einsum_{precision}"] = rel_gap(
+                outs[key], outs[f"{label}_einsum_{precision}"])
+    bad = {k: g_ for k, g_ in gaps.items()
+           if not g_ <= (GAP_LIMIT_BF16 if k.endswith("bf16") else GAP_LIMIT)}
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    result = {"phase": "programs_path", "arch": model.cfg.name,
+              "layers": model.cfg.n_layers, "d_model": model.cfg.d_model,
+              "latent": list(SHAPE), "weights": "tame", "nfe_budget": NFE,
+              "runs": runs, "bitwise_equal": bitwise, "rel_gap_final": gaps,
+              "gap_limit_f32": GAP_LIMIT, "gap_limit_bf16": GAP_LIMIT_BF16,
+              "held_against_plain": held,
+              "ok": all(bitwise.values()) and not bad and not held_bad}
+    emit(result)
+    require(all(bitwise.values()),
+            f"programs: constant programs not bitwise the fixed spec: "
+            f"{bitwise}")
+    require(not bad, f"programs: gaps above their limits: {bad}")
+    require(not held_bad, f"programs: kernel calls out of tolerance: "
+            f"{held_bad}")
+    require(set(held) == set(PATH_KERNELS["programs"]),
+            f"programs: held calls missing: {held}")
+    return result
 
 
 def phase_sample_defaults(state: dict) -> dict:
@@ -836,6 +1037,7 @@ def phase_sample_defaults(state: dict) -> dict:
 def phase_gmm() -> dict:
     import torch
     from repro_torch.core import GMM, get_schedule, make_sampler
+    from repro_torch.core.samplers import get_family
     from repro_torch.core.metrics import sliced_w2
     from repro_torch.kernels import ops
     schedule = get_schedule("vp_linear")
@@ -857,14 +1059,40 @@ def phase_gmm() -> dict:
     sw2 = sliced_w2(out, target, torch.Generator("cuda").manual_seed(7))
     sw2_xT = sliced_w2(xT.cuda(), target, torch.Generator("cuda").manual_seed(7))
     gap = float((out.cpu() - out_cpu).abs().max())
-    res = {"phase": "gmm", "ok": sw2 <= SW2_LIMIT, "points": n,
+    families = {}
+    for name, gated in GMM_FAMILIES.items():
+        fs = make_sampler(name, nfe=NFE, tau=1.0, predictor_order=3,
+                          corrector_order=0, combine="fused",
+                          schedule=schedule)
+        conv = get_family(name).model_convention(fs.spec)
+        before = ops.launch_counts()
+        f_out = fs.sample(gmm.model_fn(schedule, conv), xT.cuda(),
+                          noise=lambda i: xis_dev[i])
+        after = ops.launch_counts()
+        f_sw2 = sliced_w2(f_out, target,
+                          torch.Generator("cuda").manual_seed(7))
+        families[name] = {
+            "sampler": f"{name} nfe=20 tau=1.0 P3C0 fused",
+            "convention": conv, "steps": fs.spec.n_steps,
+            "launches": {k: after[k] - before[k] for k in after},
+            "finite": bool(torch.isfinite(f_out).all()),
+            "sliced_w2_x0": f_sw2, "gated": gated,
+            "ok": bool(torch.isfinite(f_out).all()) and (
+                f_sw2 <= SW2_LIMIT or not gated)}
+    res = {"phase": "gmm", "points": n,
            "sampler": "sa nfe=20 tau=1.0 P3C3 PEC fused",
            "sa_fused_launches": launches, "sliced_w2_x0": sw2,
            "sliced_w2_xT": sw2_xT, "sliced_w2_limit": SW2_LIMIT,
-           "max_abs_gap_to_cpu_solve": gap}
+           "max_abs_gap_to_cpu_solve": gap, "families": families,
+           "ok": sw2 <= SW2_LIMIT and all(f["ok"] for f in families.values())}
     emit(res)
     require(launches == s.spec.n_steps, f"gmm: sa_fused launched {launches}x")
     require(sw2 <= SW2_LIMIT, f"gmm sliced-W2 {sw2} above {SW2_LIMIT}")
+    for name, f in families.items():
+        want = dict.fromkeys(f["launches"], 0) | {"sa_update": f["steps"]}
+        require(f["launches"] == want,
+                f"gmm: {name} launches {f['launches']}, expected {want}")
+        require(f["ok"], f"gmm: {name}: {f}")
     return res
 
 
@@ -1024,6 +1252,7 @@ def main() -> int:
     state: dict = {"launches": {}, "held": {}}
     phase_main_path(state)
     emit(phase_profile(state))
+    phase_programs_path(state)
     phase_sample_defaults(state)
     phase_gmm()
     phase_rwkv6_path(state)

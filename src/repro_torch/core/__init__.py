@@ -1,6 +1,7 @@
 """repro_torch.core — SA-Solver on PyTorch: schedules, tau schedules, the
-float64 coefficient engine, the multistep sampler core, the denoiser
-adapter, and the analytic GMM oracle with its metric.
+float64 coefficient engine, per-step solver programs, the multistep
+sampler core (SA, SEEDS, DPM-Solver++), the denoiser adapter, and the
+analytic GMM oracle with its metric.
 
 Sampling entry point: ``make_sampler(name, nfe=..., ...)``.
 """
@@ -8,6 +9,8 @@ Sampling entry point: ``make_sampler(name, nfe=..., ...)``.
 from .coefficients import SolverTables, build_tables, exp_monomial_integrals
 from .denoiser import Denoiser, canonical_prediction, convert_prediction
 from .oracle import GMM, gaussian_oracle
+from .programs import (StepProgram, list_presets, parse_program,
+                       program_preset)
 from . import samplers
 from .samplers import (Sampler, SamplerPlan, SamplerSpec, list_samplers,
                        make_sampler, register_sampler)
@@ -23,5 +26,6 @@ __all__ = [
     "exp_monomial_integrals", "NoiseSchedule", "VPLinearSchedule",
     "VPCosineSchedule", "VESchedule", "EDMSchedule", "get_schedule",
     "timestep_grid", "TauSchedule", "ConstantTau", "BandedTau", "DDIMEtaTau",
+    "StepProgram", "program_preset", "list_presets", "parse_program",
     "GMM", "gaussian_oracle",
 ]

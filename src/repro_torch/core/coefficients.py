@@ -229,6 +229,10 @@ class SolverTables:
     #: schedule values on the grid (M+1,)
     alphas: np.ndarray | None = None
     sigmas: np.ndarray | None = None
+    #: per-interval *effective* orders after the warm-up clamp (M,);
+    #: set for step-program builds, None for fixed-spec builds
+    p_orders: np.ndarray | None = None
+    c_orders: np.ndarray | None = None
 
     @property
     def n_steps(self) -> int:
@@ -294,16 +298,19 @@ def build_tables(
     the effective orders are min(i+1, predictor_order) and
     min(i+1, corrector_order).
 
-    ``program`` (per-interval step programs) is not part of this slice of
-    the port and must be None. ``builder`` selects the family's
-    coefficient rule; the default is :class:`SATableBuilder` with the given
-    ``parameterization``, and a passed builder's own ``parameterization``
-    wins over the argument.
+    ``program`` (a :class:`repro_torch.core.programs.StepProgram`)
+    overrides ``tau``/``predictor_order``/``corrector_order`` with
+    *per-interval* tracks: each interval gets its own orders and tau,
+    zero-padded into tables of one width ``R = max(P, C, 1,
+    program.width)``, so variable-order tables are data to the executor.
+    Requested orders are clamped to the same warm-up ramp; a program that
+    pins constant order and tau gives byte-identical tables to the fixed
+    arguments it shadows.
+
+    ``builder`` selects the family's coefficient rule; the default is
+    :class:`SATableBuilder` with the given ``parameterization``, and a
+    passed builder's own ``parameterization`` wins over the argument.
     """
-    if program is not None:
-        raise NotImplementedError(
-            "step programs (program=) come with the step-program slice of "
-            "the PyTorch port (repro_torch.core.programs); pass program=None")
     if builder is None:
         builder = SATableBuilder(parameterization)
     parameterization = builder.parameterization
@@ -313,12 +320,23 @@ def build_tables(
     alphas = schedule.alpha(ts)
     sigmas = schedule.sigma(ts)
 
-    if isinstance(tau, (int, float)):
-        tau = ConstantTau(float(tau))
-    taus = tau.on_intervals(schedule, ts)
-    P = max(1, predictor_order)
-    Cn = corrector_order
-    R = max(P, Cn, 1)  # buffer rows: both tables padded to this width
+    if program is not None:
+        rp = program.resolve(schedule, ts)
+        taus = rp.taus
+        p_req = rp.p_orders
+        c_req = rp.c_orders
+        P = max(1, int(p_req.max()))
+        Cn = int(c_req.max())
+        R = max(P, Cn, 1, int(program.width))
+    else:
+        if isinstance(tau, (int, float)):
+            tau = ConstantTau(float(tau))
+        taus = tau.on_intervals(schedule, ts)
+        p_req = np.full(M, max(1, predictor_order), dtype=int)
+        c_req = np.full(M, corrector_order, dtype=int)
+        P = max(1, predictor_order)
+        Cn = corrector_order
+        R = max(P, Cn, 1)  # buffer rows: both tables padded to this width
     if len(taus) != M:
         raise ValueError("tau schedule returned wrong length")
     taus = builder.map_taus(np.asarray(taus, dtype=np.float64))
@@ -328,17 +346,21 @@ def build_tables(
     pred = np.zeros((M, R))
     corr_new = np.zeros(M)
     corr = np.zeros((M, R))
+    p_eff = np.zeros(M, dtype=int)
+    c_eff = np.zeros(M, dtype=int)
 
     for i in range(M):
         ctx = IntervalContext(
             i=i, lams=lams, alphas=alphas, sigmas=sigmas, tau=taus[i])
         decay[i], noise[i] = builder.decay_noise(ctx)
 
-        p_ord = min(i + 1, P)
+        p_ord = min(i + 1, max(1, int(p_req[i])))
+        p_eff[i] = p_ord
         pred[i, :p_ord] = builder.row(ctx, p_ord, include_new=False)
 
-        if Cn > 0:
-            c_ord = min(i + 1, Cn)
+        if c_req[i] > 0:
+            c_ord = min(i + 1, int(c_req[i]))
+            c_eff[i] = c_ord
             bc = builder.row(ctx, c_ord, include_new=True)
             corr_new[i] = bc[0]
             corr[i, :c_ord] = bc[1:]
@@ -349,4 +371,6 @@ def build_tables(
         predictor_order=P, corrector_order=Cn,
         parameterization=parameterization,
         alphas=alphas, sigmas=sigmas,
+        p_orders=p_eff if program is not None else None,
+        c_orders=c_eff if program is not None else None,
     )

@@ -6,8 +6,10 @@
     g = torch.Generator("cuda").manual_seed(0)
     x0 = s.sample(model_fn, s.init_noise(g, (4096, 2)), g)
 
-This slice registers the SA-Solver family on the multistep core; the
-other families and the baselines follow in later slices.
+The three multistep-core families are registered: "sa", "seeds" and
+"dpmpp_multistep" (see ``multistep`` for the shared executor and
+``coefficients.TableBuilder`` for adding another); the baselines follow
+in a later slice.
 """
 
 from ..denoiser import (PREDICTION_TYPES, Denoiser, canonical_prediction,
@@ -28,6 +30,8 @@ from .base import (
 
 # importing the family module registers it
 from . import sa as _sa_family  # noqa: F401
+from . import seeds as _seeds_family  # noqa: F401
+from . import dpmpp as _dpmpp_family  # noqa: F401
 from .multistep import make_multistep_family, tables_to_arrays
 
 __all__ = [

@@ -63,9 +63,9 @@ class SamplerSpec:
     Families read the subset of fields they understand. ``schedule`` is a
     registry name ("vp_linear") or a frozen :class:`NoiseSchedule`.
     ``ts`` overrides the (grid, n_steps) construction with an explicit
-    decreasing grid. Fields whose features wait for later slices of the
-    port (``program``, ``feature_cache``) are kept so specs read the same
-    as the reference's; setting them raises.
+    decreasing grid. ``feature_cache`` waits for a later slice of the
+    port; it is kept so specs read the same as the reference's, and
+    setting it raises.
     """
 
     name: str = "sa"
@@ -82,7 +82,12 @@ class SamplerSpec:
     predictor_order: int = 3
     corrector_order: int = 3
     mode: str = "PEC"  # "PEC" | "PECE"
-    #: per-interval step program (a later slice of the port); must be None
+    #: optional :class:`repro_torch.core.programs.StepProgram`: per-interval
+    #: (predictor order, corrector order, P/PEC/PECE mode, tau) tracks.
+    #: When set it shadows tau/predictor_order/corrector_order/mode above.
+    #: Per-interval orders and taus are table *data*; only the mode
+    #: pattern reaches the executor statics. A program pinning constant
+    #: order and tau is bitwise identical to the fixed-spec path.
     program: Any = None
     #: "einsum" (one torch.einsum contraction), "kernel" (the sa_update
     #: kernel), or "fused" (the dual-output predictor+corrector kernel:
@@ -154,7 +159,9 @@ class SamplerSpec:
 @dataclasses.dataclass(frozen=True, eq=False)
 class SamplerPlan:
     """Host precompute. ``arrays`` are f32 CPU tensors (copied once per
-    device by :meth:`arrays_on`); ``host`` keeps the float64 grid and
+    device by :meth:`arrays_on`) and host values that stay on the host
+    (a step program's per-step flags, which the executor's Python loop
+    reads without a device sync); ``host`` keeps the float64 grid and
     tables; ``statics`` are the spec fields the executor branches on."""
 
     spec: SamplerSpec
@@ -171,7 +178,8 @@ class SamplerPlan:
         device = torch.device(device)
         dev = self._on_device.get(device)
         if dev is None:
-            dev = {k: v.to(device) for k, v in self.arrays.items()}
+            dev = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+                   for k, v in self.arrays.items()}
             self._on_device[device] = dev
         return dev
 
@@ -190,6 +198,13 @@ class SamplerFamily:
     steps_from_nfe: Callable[[int, dict], int]
     #: spec -> the prediction convention the executor consumes
     model_convention: Callable[[SamplerSpec], str]
+    #: whether the family consumes FULL step programs (per-interval order
+    #: and mode tracks, not just the tau track): the multistep core's
+    #: families do
+    full_programs: bool = False
+    #: whether tau is definitionally inert for this family (a
+    #: deterministic family maps every tau to 0)
+    tau_inert: bool = False
 
 
 _REGISTRY: dict[str, SamplerFamily] = {}

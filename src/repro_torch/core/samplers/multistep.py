@@ -1,7 +1,7 @@
 """Family-agnostic multistep-integrator core.
 
-SA-Solver (and, in later slices, SEEDS and DPM-Solver++ multistep) are
-exponential Adams integrators: per interval, the next state is
+SA-Solver, SEEDS and DPM-Solver++ multistep are exponential Adams
+integrators: per interval, the next state is
 ``decay_i * x + sum_j b_j * eval_j + noise_i * xi`` over a short
 newest-first history of model evaluations, with an optional corrector row
 that also weights the predicted-point eval. The family-specific part is
@@ -32,9 +32,23 @@ Precision policy (``spec.precision``): ``"f32"`` or ``"bf16"`` (state,
 history and model input carried in bfloat16, every combine accumulating
 in f32, tables f32, the same f32 noise stream rounded to bfloat16).
 
-Step programs, feature caching, the cond fallback and the step-granular
-adapter come with later slices of the port; a spec that asks for them
-raises.
+Step programs (``spec.program``, a
+:class:`repro_torch.core.programs.StepProgram`): per-interval orders and
+taus land in the zero-padded coefficient tables (data), while the mode
+pattern is structure and goes into the statics as contiguous
+``(use_corrector, pece, length)`` segments, which the executor's one loop
+over the global step index follows (so the ring head runs on across
+segment boundaries). A single-segment program collapses to exactly the
+fixed-spec statics, so constant programs are bitwise the fixed path.
+Patterns that fragment into more than :data:`MAX_SCAN_SEGMENTS` segments
+fall back to the statics ``("cond",)``: every step runs the corrector
+combine (predictor-only steps get ``corr := pred`` rows, folded before
+the kernel coefficients are packed) and the PECE re-evaluation follows a
+per-step flag kept on the host, so every such pattern at one step count
+shares one statics tuple.
+
+Feature caching and the step-granular adapter come with later slices of
+the port; a spec that asks for them raises.
 """
 
 from __future__ import annotations
@@ -43,22 +57,72 @@ import numpy as np
 import torch
 
 from ...kernels import ops
+from ...kernels.sa_update import MAX_ROWS
 from ..coefficients import SolverTables, TableBuilder, build_tables
+from ..programs import StepProgram
 from .base import SamplerFamily, SamplerSpec, carry_dtype, register_sampler
 
-__all__ = ["execute_multistep", "make_multistep_family", "multistep_nfe",
-           "multistep_statics", "multistep_steps_from_nfe", "plan_multistep",
-           "tables_to_arrays"]
+__all__ = ["MAX_SCAN_SEGMENTS", "execute_multistep", "make_multistep_family",
+           "multistep_nfe", "multistep_statics", "multistep_steps_from_nfe",
+           "plan_multistep", "tables_to_arrays"]
 
 _COMBINES = ("einsum", "kernel", "fused")
 _HISTORIES = ("ring", "concat")
 
+#: a program whose mode pattern fragments into more contiguous segments
+#: than this runs under the statics ``("cond",)``: the mode pattern moves
+#: into plan data (folded corrector rows and per-step PECE flags), so every
+#: such pattern at one step count shares one statics tuple
+MAX_SCAN_SEGMENTS = 4
+
+
+def _use_cond_fallback(program: StepProgram | None, n_steps: int) -> bool:
+    return (program is not None
+            and len(program.segments(n_steps)) > MAX_SCAN_SEGMENTS)
+
+
+def check_program(spec: SamplerSpec) -> StepProgram | None:
+    if spec.program is None:
+        return None
+    if not isinstance(spec.program, StepProgram):
+        raise TypeError(
+            f"spec.program must be a StepProgram, got "
+            f"{type(spec.program).__name__} (build one with "
+            "repro_torch.core.programs.StepProgram / program_preset / "
+            "parse_program)")
+    L = spec.program.length()
+    if L is not None and L != spec.n_steps:
+        raise ValueError(
+            f"program covers {L} intervals but the spec solves "
+            f"{spec.n_steps} steps")
+    return spec.program
+
+
+def _check_kernel_rows(spec: SamplerSpec, tables: SolverTables) -> None:
+    """Refuse a kernel combine whose calls would stack more history rows
+    than the kernels are instantiated for, before any evaluation: the
+    plain versions take any P, so the CPU would solve what the card
+    cannot."""
+    if spec.combine not in ("kernel", "fused"):
+        return
+    R = tables.pred.shape[1]
+    # a program's c_orders are 0 exactly on its predictor-only steps (the
+    # cond fallback runs the corrector combine only if some step has one)
+    corrector = (spec.corrector_order > 0 if tables.c_orders is None
+                 else bool((tables.c_orders > 0).any()))
+    # the kernel combine's corrector call stacks the predicted-point
+    # eval on top of the R history rows
+    rows = R + 1 if spec.combine == "kernel" and corrector else R
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"combine={spec.combine!r} needs {rows} history rows in one "
+            f"kernel call (table width {R}"
+            + (", plus the predicted-point evaluation" if rows > R else "")
+            + f"); the sa_update/sa_fused kernels take 1..{MAX_ROWS} rows. "
+            "Use combine='einsum', or lower the orders or program width")
+
 
 def _unported(spec: SamplerSpec) -> None:
-    if spec.program is not None:
-        raise NotImplementedError(
-            "step programs (spec.program) come with the step-program slice "
-            "of the PyTorch port; use a fixed spec")
     if spec.feature_cache is not None:
         raise NotImplementedError(
             "feature caching (spec.feature_cache) comes with the "
@@ -77,10 +141,11 @@ def _rotated(a: dict, i: int, P: int, *rows) -> torch.Tensor:
     return c
 
 
-def tables_to_arrays(tables: SolverTables) -> dict:
+def tables_to_arrays(tables: SolverTables, corr=None) -> dict:
     """f32 view of the host-f64 coefficient tables, plus the packed
     coefficient rows the kernel combines take (the same f32 values, laid
-    out once per plan instead of once per step):
+    out once per plan instead of once per step). ``corr`` replaces
+    ``tables.corr`` (the cond fallback's folded rows) before any packing:
 
     - ``pred_packed`` [M, P+2]: (decay, noise, pred row), newest-first;
     - ``corr_packed`` [M, P+3]: (decay, noise, corr_new, corr row);
@@ -90,7 +155,8 @@ def tables_to_arrays(tables: SolverTables) -> dict:
     f32 = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32)
     a = dict(ts=f32(tables.ts), decay=f32(tables.decay),
              noise=f32(tables.noise), pred=f32(tables.pred),
-             corr_new=f32(tables.corr_new), corr=f32(tables.corr))
+             corr_new=f32(tables.corr_new),
+             corr=f32(tables.corr if corr is None else corr))
     if tables.alphas is not None:
         a["alphas"] = f32(tables.alphas)
         a["sigmas"] = f32(tables.sigmas)
@@ -105,22 +171,44 @@ def tables_to_arrays(tables: SolverTables) -> dict:
 
 
 def plan_multistep(spec: SamplerSpec, builder: TableBuilder):
-    """Build the family's coefficient tables and ship them as plan data."""
+    """Build the family's coefficient tables and ship them as plan data.
+
+    Under the cond fallback the predictor-only steps' corrector rows are
+    folded to their predictor rows (``corr_new`` is already 0 there, so
+    the unconditional corrector combine reproduces ``x_pred``) BEFORE the
+    kernel coefficients are packed from them, and the per-step PECE flags
+    ride the plan as a host tuple. The host ``tables`` keep the true
+    rows."""
+    schedule = spec.resolve_schedule()
+    ts = spec.grid_ts()
+    program = check_program(spec)
     tables = build_tables(
-        spec.resolve_schedule(), spec.grid_ts(),
+        schedule, ts,
         tau=spec.tau,
         predictor_order=spec.predictor_order,
         corrector_order=spec.corrector_order,
         parameterization=spec.parameterization,
+        program=program,
         builder=builder,
     )
-    return tables_to_arrays(tables), {"ts": tables.ts, "tables": tables}
+    _check_kernel_rows(spec, tables)
+    if not _use_cond_fallback(program, spec.n_steps):
+        return tables_to_arrays(tables), {"ts": tables.ts, "tables": tables}
+    corr = np.array(tables.corr)
+    p_only = tables.c_orders == 0
+    corr[p_only] = tables.pred[p_only]
+    arrays = tables_to_arrays(tables, corr=corr)
+    arrays["pece"] = tuple(bool(p) for _, p in
+                           program.mode_flags(spec.n_steps))
+    return arrays, {"ts": tables.ts, "tables": tables}
 
 
 def multistep_statics(spec: SamplerSpec, convention: str) -> tuple:
     """The spec fields the executor branches on (validated here, before
     any planning). ``convention`` is the prediction convention of the
-    family's tables."""
+    family's tables. The mode structure is ``(use_corrector, pece)`` for
+    a fixed spec or a mode-uniform program, ``("segments", segs)`` for a
+    program of 2..MAX_SCAN_SEGMENTS segments, ``("cond",)`` beyond."""
     if spec.combine not in _COMBINES:
         raise ValueError(
             f"combine={spec.combine!r}; expected one of {_COMBINES}")
@@ -134,11 +222,39 @@ def multistep_statics(spec: SamplerSpec, convention: str) -> tuple:
             "coefficient columns encode the ring head); use "
             "history='ring' or a non-fused combine")
     _unported(spec)
-    use_corrector = spec.corrector_order > 0
-    modes = (use_corrector, spec.mode == "PECE" and use_corrector)
+    program = check_program(spec)
+    if program is not None:
+        segs = program.segments(spec.n_steps)
+        if len(segs) == 1:
+            # mode-uniform: exactly the fixed-spec statics
+            modes = (segs[0][0], segs[0][1])
+        elif len(segs) > MAX_SCAN_SEGMENTS:
+            modes = ("cond",)
+        else:
+            modes = ("segments", segs)
+    else:
+        use_corrector = spec.corrector_order > 0
+        modes = (use_corrector, spec.mode == "PECE" and use_corrector)
     return (convention, modes, spec.combine,
             spec.denoise_final and convention == "data",
             spec.history == "ring", spec.precision)
+
+
+def _step_modes(modes: tuple, dev: dict, M: int) -> list:
+    """Per-step ``(use_corrector, pece)`` host flags of the statics' mode
+    structure."""
+    if modes[0] == "segments":
+        flags = [(uc, pece) for uc, pece, n in modes[1] for _ in range(n)]
+    elif modes[0] == "cond":
+        # every step runs the corrector combine (predictor-only steps
+        # were folded into the tables); the re-eval follows the host flags
+        flags = [(True, pece) for pece in dev["pece"]]
+    else:
+        flags = [(modes[0], modes[1])] * M
+    if len(flags) != M:
+        raise ValueError(
+            f"mode segments cover {len(flags)} steps but the tables have {M}")
+    return flags
 
 
 def _combine_rows(combine, cdt, decay_i, x_prev, packed, buf, noise_i, xi):
@@ -154,10 +270,12 @@ def _combine_rows(combine, cdt, decay_i, x_prev, packed, buf, noise_i, xi):
 
 def execute_multistep(statics, dev, model_fn, x_T, noise):
     """The multistep solve as a Python loop over the M steps on the device
-    of ``x_T``. ``noise(i)`` returns step i's float32 Gaussian draw."""
-    _, (use_corrector, pece), combine, denoise, ring, precision = statics
+    of ``x_T``, each step in the mode its segment (or host flag) gives it.
+    ``noise(i)`` returns step i's float32 Gaussian draw."""
+    _, modes, combine, denoise, ring, precision = statics
     P = dev["pred"].shape[1]  # buffer rows = max(pred order, corr order)
     M = dev["decay"].shape[0]
+    flags = _step_modes(modes, dev, M)
     cdt = carry_dtype(precision)
     f32 = torch.float32
 
@@ -168,7 +286,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
     buf = torch.zeros((P,) + tuple(x.shape), dtype=cdt, device=x.device)
     buf[0] = eval_model(x, dev["ts"][0])
 
-    for i in range(M):
+    for i, (use_corrector, pece) in enumerate(flags):
         xi = noise(i).to(cdt)
         decay_i = dev["decay"][i]
         noise_i = dev["noise"][i]
@@ -229,22 +347,38 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
 
 def multistep_nfe(spec: SamplerSpec) -> int:
     _unported(spec)
+    program = check_program(spec)
+    if program is not None:
+        # 1 init eval + 1 per step + 1 more per PECE step
+        return program.nfe(spec.n_steps)
     per_step = 2 if (spec.mode == "PECE" and spec.corrector_order > 0) else 1
     return spec.n_steps * per_step + 1
 
 
 def multistep_steps_from_nfe(nfe: int, kw: dict) -> int:
-    if kw.get("program") is not None:
-        raise NotImplementedError(
-            "step programs (program=) come with the step-program slice of "
-            "the PyTorch port")
+    program = kw.get("program")
+    if isinstance(program, StepProgram):
+        L = program.length()
+        if L is not None:
+            # explicit per-interval tracks dictate the step count; an
+            # overdraw of the budget raises instead of truncating
+            if program.nfe(L) > nfe:
+                raise ValueError(
+                    f"program spends {program.nfe(L)} evaluations over "
+                    f"its {L} intervals but the budget is nfe={nfe}")
+            return L
+        # all-scalar program: invert its uniform per-step cost
+        _, pece = program.mode_flags(1)[0]
+        return max(1, (nfe - 1) // (2 if pece else 1))
     pece = kw.get("mode", "PEC") == "PECE" and kw.get("corrector_order", 3) > 0
     return max(1, (nfe - 1) // (2 if pece else 1))
 
 
-def make_multistep_family(name: str, builder_of) -> SamplerFamily:
+def make_multistep_family(name: str, builder_of, *,
+                          tau_inert: bool = False) -> SamplerFamily:
     """Register a solver family that is only a coefficient-table rule:
-    ``builder_of(spec) -> TableBuilder``."""
+    ``builder_of(spec) -> TableBuilder``. It takes full step programs;
+    ``tau_inert`` marks a family whose rule maps every tau to 0."""
     def plan(spec):
         return plan_multistep(spec, builder_of(spec))
 
@@ -257,5 +391,5 @@ def make_multistep_family(name: str, builder_of) -> SamplerFamily:
     family = SamplerFamily(
         name=name, plan=plan, execute=execute_multistep, statics=statics,
         nfe_of=multistep_nfe, steps_from_nfe=multistep_steps_from_nfe,
-        model_convention=convention)
+        model_convention=convention, full_programs=True, tau_inert=tau_inert)
     return register_sampler(family)

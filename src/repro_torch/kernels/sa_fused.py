@@ -28,17 +28,12 @@ launches = 0
 
 
 def sa_fused_update_plain(x, buf, xi, coeffs):
-    """coeffs [2, P+2] -> ``(x_pred, corr_base)`` with x.dtype. At f32 the
-    two partial sums come out of one [2,P] x [P,N] contraction; for bf16
-    histories two unrolled f32 accumulators, as the kernel does."""
+    """coeffs [2, P+2] -> ``(x_pred, corr_base)`` with x.dtype: two f32
+    accumulators in the kernel's order and rounding, as
+    :func:`repro_torch.kernels.sa_update.sa_update_plain` for each row."""
     c = coeffs.to(torch.float32)
     xf = x.float()
     xif = xi.float()
-    if buf.dtype == torch.float32:
-        sums = torch.einsum("qp,p...->q...", c[:, 2:], buf)
-        x_pred = c[0, 0] * xf + c[0, 1] * xif + sums[0]
-        corr_base = c[1, 0] * xf + c[1, 1] * xif + sums[1]
-        return x_pred.to(x.dtype), corr_base.to(x.dtype)
     acc_p = c[0, 0] * xf + c[0, 1] * xif
     acc_c = c[1, 0] * xf + c[1, 1] * xif
     for j in range(buf.shape[0]):

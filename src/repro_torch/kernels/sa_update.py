@@ -40,13 +40,14 @@ def sa_update_plain(x, buf, xi, coeffs):
     """x [*shape]; buf [P, *shape]; xi [*shape]; coeffs [P+2] packed as
     (decay, noise, b_0..b_{P-1}). Returns x' with x.dtype.
 
-    Dtype-gated like the reference oracle: at f32 one contraction over
-    the rows; for narrow (bf16) histories an unrolled f32 multiply-add
-    chain in the kernel's accumulation order."""
+    The kernel's arithmetic in plain PyTorch, for every dtype: an f32
+    chain ``(c0*x + c1*xi) + c_j*b_j`` for j = 0..P-1, each product and
+    sum rounded on its own (the kernel does not contract them into FMAs),
+    so the two agree bit for bit. A reordered sum (one contraction over
+    the rows) differs from it by an ulp of the largest partial sum, which
+    exceeds the held tolerance of a result that cancels (SEEDS' noise-
+    convention combines on DiT-XL/2)."""
     c = coeffs.to(torch.float32)
-    if buf.dtype == torch.float32:
-        acc = torch.einsum("p,p...->...", c[2:], buf)
-        return (c[0] * x.float() + acc + c[1] * xi.float()).to(x.dtype)
     acc = c[0] * x.float() + c[1] * xi.float()
     for j in range(buf.shape[0]):
         acc = acc + c[2 + j] * buf[j].float()

@@ -1,4 +1,5 @@
-"""Diffusion sampling entry point of the port: SA-Solver over a DiT or an
+"""Diffusion sampling entry point of the port: a multistep sampler (SA,
+SEEDS or DPM-Solver++, optionally under a step program) over a DiT or an
 RWKV6 backbone.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-xl-2 \
@@ -8,7 +9,9 @@ RWKV6 backbone.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error naming the missing card. ``--nfe`` goes through
-``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1).
+``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1);
+``--program`` stamps a preset at the largest step count whose own cost
+fits ``--nfe``.
 ``--weights init`` samples the reference's initialisation (zero output
 heads, which predict exactly 0); ``--weights tame`` the contractive
 weights of ``models/tame.py`` (float32 residual stream). On the card
@@ -30,7 +33,8 @@ import torch
 
 from ..configs import ARCHS, get_config, get_smoke
 from ..core import Denoiser, get_schedule
-from ..core.samplers import Sampler, SamplerSpec
+from ..core.programs import list_presets, parse_program
+from ..core.samplers import Sampler, SamplerSpec, get_family, list_samplers
 from ..device import resolve_device
 from ..kernels import ops
 from ..models import LMConfig, build_model, init_params
@@ -103,15 +107,31 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--sampler", default="sa", choices=list_samplers())
     ap.add_argument("--nfe", type=int, default=20)
     ap.add_argument("--tau", type=float, default=1.0)
     ap.add_argument("--predictor", type=int, default=3)
     ap.add_argument("--corrector", type=int, default=3)
     ap.add_argument("--mode", default="PEC", choices=["PEC", "PECE"])
+    ap.add_argument("--program", default=None,
+                    help="per-step solver program: a preset name "
+                    f"({', '.join(list_presets())}), an inline JSON "
+                    "object, or @path to a JSON file; assigns per-"
+                    "interval predictor/corrector order, P/PEC/PECE "
+                    "mode, and tau (shadows --tau/--predictor/"
+                    "--corrector/--mode)")
+    ap.add_argument("--grid", default="logsnr",
+                    choices=["time", "logsnr", "karras"])
+    ap.add_argument("--schedule", default="vp_linear")
     ap.add_argument("--combine", default="einsum",
                     choices=["einsum", "kernel", "fused"],
-                    help="SA combine: torch.einsum, the sa_update kernel, or "
-                    "the dual-output sa_fused kernel (ring history)")
+                    help="solver combine: torch.einsum, the sa_update "
+                    "kernel, or the dual-output sa_fused kernel (ring "
+                    "history)")
+    ap.add_argument("--history", default="ring",
+                    choices=["ring", "concat"],
+                    help="evaluation-history layout (concat is the seed "
+                    "layout that re-stacks the buffer every step)")
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--flash", action=argparse.BooleanOptionalAction,
                     help="DiT attention through the flash kernel (default: "
@@ -135,12 +155,28 @@ def main(argv=None):
                                   wkv_kernel=args.wkv_kernel,
                                   latent=args.latent, seed=args.seed,
                                   device=device)
-    schedule = get_schedule("vp_linear")
+    schedule = get_schedule(args.schedule)
+    program = None
+    if args.program is not None:
+        if not get_family(args.sampler).full_programs:
+            raise SystemExit(
+                "--program needs a family that consumes full step "
+                "programs (the multistep core: sa, seeds, "
+                f"dpmpp_multistep); {args.sampler!r} only honors the "
+                "tau track")
+        # presets are stamped at the largest step count whose own cost
+        # (PECE steps evaluate twice) fits --nfe; an explicit JSON
+        # program dictates its own step count through from_nfe, which
+        # checks the budget again
+        program = parse_program(args.program, args.nfe - 1, tau=args.tau,
+                                nfe=args.nfe)
     spec = SamplerSpec.from_nfe(
-        "sa", args.nfe, schedule=schedule, tau=args.tau,
-        predictor_order=args.predictor, corrector_order=args.corrector,
-        mode=args.mode, combine=args.combine, precision=args.precision,
-        prediction="x0")
+        args.sampler, args.nfe, schedule=schedule, grid=args.grid,
+        tau=args.tau, predictor_order=args.predictor,
+        corrector_order=args.corrector, mode=args.mode,
+        program=program,  # shadows the four fields above when set
+        combine=args.combine, history=args.history,
+        precision=args.precision, prediction="x0")
     sampler = Sampler(spec)
     model_fn = Denoiser(network, schedule, prediction="x0")
     g = torch.Generator(device).manual_seed(args.seed + 1)
@@ -163,10 +199,15 @@ def main(argv=None):
     t1 = time.perf_counter()
     run(3)
     t2 = time.perf_counter()
-    print(f"arch={cfg.name} latent={cfg.denoiser_latent} sampler=sa "
+    print(f"arch={cfg.name} latent={cfg.denoiser_latent} "
+          f"sampler={args.sampler} "
           f"NFE={sampler.nfe} (requested {args.nfe}) steps={spec.n_steps} "
-          f"tau={args.tau} P{args.predictor}C{args.corrector} {args.mode} "
-          f"combine={args.combine} precision={args.precision} "
+          + (f"program={args.program}"  # the program shadows tau/P/C/mode
+             if program is not None else
+             f"tau={args.tau} P{args.predictor}C{args.corrector} "
+             f"{args.mode}")
+          + f" combine={args.combine} history={args.history} "
+          f"precision={args.precision} "
           f"flash={dit and routed} wkv_kernel={not dit and routed} "
           f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())

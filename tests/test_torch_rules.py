@@ -52,6 +52,15 @@ def test_no_jax_and_no_reference_imports(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
 
 
+def test_import_rule_walks_every_module_of_the_port():
+    """The import rule above is parametrized over a walk of the package,
+    so modules added to the port are checked too."""
+    files = {str(p.relative_to(PORT)) for p in _files() if PORT in p.parents}
+    assert {"core/programs.py", "core/samplers/seeds.py",
+            "core/samplers/dpmpp.py"} <= files
+    assert files == {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+
+
 def test_relative_imports_stay_inside_the_port():
     for path in PORT.rglob("*.py"):
         depth = len(path.relative_to(PORT).parts) - 1
@@ -90,6 +99,45 @@ def test_launch_sample_on_cpu_prints_nfe_accounting(capsys, extra):
     steps = 8 if "PECE" not in extra else 4
     assert f"NFE=9 (requested 9) steps={steps}" in out
     assert "finite=True" in out
+
+
+def test_launch_sample_runs_a_family_under_a_program(capsys):
+    """``--sampler`` and ``--program``: a preset stamped to the NFE budget
+    (pece-head at NFE 9: 7 steps, 1 PECE + 6 PEC), printed in place of
+    tau/P/C/mode."""
+    launch_sample.main(["--arch", "dit-s", "--smoke", "--batch", "2",
+                        "--seq", "16", "--nfe", "9", "--device", "cpu",
+                        "--sampler", "seeds", "--program", "pece-head",
+                        "--grid", "time", "--schedule", "vp_cosine",
+                        "--history", "concat"])
+    out = capsys.readouterr().out
+    assert "sampler=seeds NFE=9 (requested 9) steps=7 program=pece-head" \
+        in out
+    assert "history=concat" in out and "finite=True" in out
+    assert " P3C3 " not in out and "tau=" not in out
+
+
+def test_launch_sample_refuses_a_program_for_a_tau_track_family(capsys):
+    """``--program`` needs a family that consumes full step programs. The
+    port registers only such families, so the guard is checked through a
+    stub family that does not."""
+    from repro_torch.core.samplers import base
+    sa = base.get_family("sa")
+    stub = base.SamplerFamily(
+        name="tau_track_stub", plan=sa.plan, execute=sa.execute,
+        statics=sa.statics, nfe_of=sa.nfe_of,
+        steps_from_nfe=sa.steps_from_nfe,
+        model_convention=sa.model_convention)
+    assert not stub.full_programs
+    base.register_sampler(stub)
+    try:
+        with pytest.raises(SystemExit, match="only honors the tau track"):
+            launch_sample.main(["--arch", "dit-s", "--smoke", "--device",
+                                "cpu", "--sampler", "tau_track_stub",
+                                "--program", "constant"])
+    finally:
+        del base._REGISTRY["tau_track_stub"]
+    assert "tau_track_stub" not in base.list_samplers()
 
 
 def _samples_line(out: str) -> str:

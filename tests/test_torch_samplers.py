@@ -179,7 +179,7 @@ def test_fused_coefficients_rotate_columns_not_data():
     (dict(combine="pallas"), ValueError, "combine"),
     (dict(history="tree"), ValueError, "history"),
     (dict(precision="fp8"), ValueError, "precision"),
-    (dict(program=object()), NotImplementedError, "step-program slice"),
+    (dict(program=object()), TypeError, "StepProgram"),
     (dict(feature_cache=2), NotImplementedError, "feature-cache slice"),
 ])
 def test_spec_validation(bad, exc, match):
@@ -192,8 +192,8 @@ def test_unported_entry_points_raise_loudly():
     model = TGMM.default_2d().model_fn(t_get_schedule("vp_linear"))
     with pytest.raises(NotImplementedError, match="trajectory"):
         s.sample(model, torch.zeros(SHAPE), trajectory=True)
-    with pytest.raises(NotImplementedError, match="step-program"):
-        tsamplers.SamplerSpec.from_nfe("sa", 9, program=object())
+    with pytest.raises(TypeError, match="StepProgram"):
+        tsamplers.make_sampler("sa", nfe=9, program=object())
     with pytest.raises(ValueError, match="unknown sampler"):
         tsamplers.make_sampler("ddim", nfe=5)
 

@@ -137,10 +137,25 @@ def test_build_tables_order5_near_branch_switch():
 
 
 def test_build_tables_program_waits_for_its_slice():
+    """Step programs build the reference's per-interval tables (orders,
+    modes and taus varying per interval, the warm-up clamp, a width
+    floor)."""
+    from repro.core.programs import StepProgram as JStepProgram
+    from repro_torch.core.programs import StepProgram
     ts = tsched.timestep_grid(tsched.get_schedule("vp_linear"), 5)
-    with pytest.raises(NotImplementedError, match="step-program slice"):
-        tcoef.build_tables(tsched.get_schedule("vp_linear"), ts,
-                           program=object())
+    prog = StepProgram(predictor_order=(1, 3, 2, 3, 1),
+                       corrector_order=(2, 0, 3, 1, 2),
+                       mode=("PECE", "PEC", "P", "PEC", "PEC"),
+                       tau=(0.2, 1.0, 0.0, 0.5, 0.7), width=4)
+    got = tcoef.build_tables(tsched.get_schedule("vp_linear"), ts,
+                             program=prog)
+    ref = jcoef.build_tables(jsched.get_schedule("vp_linear"), ts,
+                             program=JStepProgram.from_json(prog.to_json()))
+    for field in ("decay", "noise", "pred", "corr_new", "corr", "taus"):
+        assert _rel(getattr(got, field), getattr(ref, field)) <= 1e-12, field
+    assert got.pred.shape == ref.pred.shape == (5, 4)
+    np.testing.assert_array_equal(got.p_orders, ref.p_orders)
+    np.testing.assert_array_equal(got.c_orders, ref.c_orders)
 
 
 def test_interval_context_and_builder_protocol():

@@ -11,7 +11,10 @@ through the port's public entry points and the kernels over two
 full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
 denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
 latent [8, 256, 16]; step programs and the SEEDS and DPM-Solver++ rules
-over DiT-XL/2 (``programs_path``); the port's sampling entry point
+over DiT-XL/2 (``programs_path``); a class-conditional DiT-XL/2 under
+one-call classifier-free guidance (``guided_path``) and DeepCache feature
+caching over DiT-XL/2 (``feature_cache_path``); the port's sampling entry
+point
 (``launch.sample.main``)
 with no kernel flag, which must route DiT-XL/2 and the RWKV6 smoke config
 through their kernels on the card; and SA, SEEDS and DPM-Solver++ solves
@@ -63,6 +66,8 @@ SOURCES = {
 #: the kernels each main path must launch
 PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "programs": ("sa_update", "sa_fused", "flash_attention"),
+                "guided": ("sa_fused", "flash_attention"),
+                "feature_cache": ("sa_fused", "flash_attention"),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused")}
@@ -624,10 +629,10 @@ def phase_main_path(state: dict) -> dict:
     xis = [torch.randn(SHAPE, generator=g, device=dev)
            for _ in range(probe.spec.n_steps)]
     noise = lambda i: xis[i]
-    den_flash = Denoiser(tame_networks(model, params, mu), schedule,
+    den_flash = Denoiser(tame_networks(model, params, mu)[0], schedule,
                          prediction="x0")
-    den_plain = Denoiser(tame_networks(plain_model, params, mu), schedule,
-                         prediction="x0")
+    den_plain = Denoiser(tame_networks(plain_model, params, mu)[0],
+                         schedule, prediction="x0")
 
     def solve(combine, precision, den=den_flash, x=xT):
         s = sampler(combine, precision)
@@ -783,7 +788,7 @@ def phase_profile(state: dict) -> dict:
     model, params, mu, schedule = state["tame"]
     s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
                      schedule=schedule, prediction="x0")
-    net = tame_networks(model, params, mu)
+    net, _ = tame_networks(model, params, mu)
     den = Denoiser(net, schedule, prediction="x0")
     g = torch.Generator(dev).manual_seed(1)
     xT = s.init_noise(g, SHAPE)
@@ -796,11 +801,14 @@ def phase_profile(state: dict) -> dict:
             **split, "backbone_eval_ms": eval_ms}
 
 
-def build_tame_dit_xl2() -> dict:
+def build_tame_dit_xl2(denoiser_cond: int | None = None) -> dict:
     """The DiT phases' tame DiT-XL/2 on the card: seed 0, flash on, its
     adaLN damped until contractive on the x_T drawn from generator seed 1
     (the main path's x_T; ``g`` comes back advanced past the check), with
-    the seconds the weights took."""
+    the seconds the weights took. With ``denoiser_cond`` the DiT is
+    class-conditional (``y_proj``), and per-sample one-hot classes drawn
+    from ``g`` after x_T (``cond``, [8, denoiser_cond]) are in play while
+    the gain is checked."""
     import torch
     from repro_torch.core import get_schedule, make_sampler
     from repro_torch.models.tame import ensure_contractive, tame_dit
@@ -808,21 +816,29 @@ def build_tame_dit_xl2() -> dict:
     schedule = get_schedule("vp_linear")
     t0 = time.perf_counter()
     model, params, mu = tame_dit("dit-xl-2", smoke=False, seed=0,
-                                 use_flash=True, device=dev)
+                                 use_flash=True, denoiser_cond=denoiser_cond,
+                                 device=dev)
     torch.cuda.synchronize()
     weights_s = time.perf_counter() - t0
     g = torch.Generator(dev).manual_seed(1)
     xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
-    contract = ensure_contractive(model, params, mu, xT, g)
+    cond = None
+    if denoiser_cond is not None:
+        classes = torch.randint(0, denoiser_cond, (SHAPE[0],), generator=g,
+                                device=dev)
+        cond = torch.nn.functional.one_hot(classes, denoiser_cond).float()
+    contract = ensure_contractive(model, params, mu, xT, g, cond=cond)
     return {"model": model, "params": params, "mu": mu, "schedule": schedule,
-            "xT": xT, "g": g, "contract": contract, "weights_s": weights_s}
+            "xT": xT, "g": g, "contract": contract, "weights_s": weights_s,
+            "cond": cond}
 
 
-def _tame_dit_xl2(state: dict):
-    """The main path's tame DiT-XL/2 ``(model, params, mu, schedule)``, or
-    the same one anew when a phase runs without the main path."""
+def _tame_dit_xl2(state: dict, last_user: bool = False):
+    """The main path's tame DiT-XL/2 ``(model, params, mu, schedule)``
+    (dropped from ``state`` for the ``last_user``), or the same one anew
+    when a phase runs without the main path."""
     if "tame" in state:
-        return state.pop("tame")
+        return state.pop("tame") if last_user else state["tame"]
     t = build_tame_dit_xl2()
     return t["model"], t["params"], t["mu"], t["schedule"]
 
@@ -884,7 +900,7 @@ def phase_programs_path(state: dict) -> dict:
     dev = torch.device("cuda")
     model, params, mu, schedule = _tame_dit_xl2(state)
     per_eval = model.cfg.n_layers
-    den = Denoiser(tame_networks(model, params, mu), schedule,
+    den = Denoiser(tame_networks(model, params, mu)[0], schedule,
                    prediction="x0")
     g = torch.Generator(dev).manual_seed(31)
     xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
@@ -991,6 +1007,310 @@ def phase_programs_path(state: dict) -> dict:
             f"{held_bad}")
     require(set(held) == set(PATH_KERNELS["programs"]),
             f"programs: held calls missing: {held}")
+    return result
+
+
+@contextlib.contextmanager
+def flash_batches(record: dict):
+    """While active, ``record[B]`` counts the flash_attention calls through
+    ``kernels.ops`` at batch B (the wrapper's own count is untouched)."""
+    from repro_torch.kernels import ops
+    original = ops.flash_attention
+
+    def counted(q, *args, **kw):
+        record[q.shape[0]] = record.get(q.shape[0], 0) + 1
+        return original(q, *args, **kw)
+
+    ops.flash_attention = counted
+    try:
+        yield record
+    finally:
+        ops.flash_attention = original
+
+
+def _timed_solve(s, den, x, xis, **kw):
+    """(output, seconds, launches, flash calls by batch) of one solve."""
+    import torch
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    batches: dict = {}
+    with flash_batches(batches):
+        t = time.perf_counter()
+        out = s.sample(den, x, noise=lambda i: xis[i], **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    after = ops.launch_counts()
+    require(bool(torch.isfinite(out).all()) and tuple(out.shape) == SHAPE,
+            f"{s.spec}: bad output")
+    return out, secs, {k: after[k] - before[k] for k in after}, batches
+
+
+#: ImageNet's classes: with one-hot vectors ``c @ y_proj`` is DiT's
+#: label-embedding lookup
+N_CLASSES = 1000
+#: DiT's published FID guidance scale
+CFG_SCALE = 1.5
+
+
+def phase_guided_path(state: dict) -> dict:
+    """Class-conditional DiT-XL/2 (full width and depth, ``denoiser_cond``
+    1000, tame weights, contractive with its classes in play) under
+    classifier-free guidance: SA NFE 20 P3C3 PEC tau 1, fused f32, flash,
+    per-sample one-hot classes from the seed, scale 1.5, null = zeros.
+
+    The package's one-call CFG (one backbone call over the doubled batch:
+    560 flash launches at batch 16, 19 sa_fused) against a two-call
+    baseline built here (1,120 flash launches at batch 8) and the unguided
+    solve (560 at batch 8), cold and steady each. Gaps: one call vs two
+    (f32 GEMMs over M = 4,096 vs 2,048 rows may round differently), scale
+    1.0 vs unguided, and the guided kernel solve vs the all-plain one
+    (einsum combine, plain attention), beside an x_T-nudge yardstick at
+    the same scale; one guided solve with every kernel call held against
+    its plain version."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.kernels import ops
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    dit = build_tame_dit_xl2(denoiser_cond=N_CLASSES)
+    model, params, mu, schedule = (dit[k] for k in ("model", "params", "mu",
+                                                    "schedule"))
+    xT, g, cond = dit["xT"], dit["g"], dit["cond"]
+    cfg = model.cfg
+    L = cfg.n_layers
+    net, _ = tame_networks(model, params, mu)
+    plain_net, _ = tame_networks(
+        TransformerLM(dataclasses.replace(cfg, use_flash=False)), params, mu)
+
+    def sampler(guided, combine="fused"):
+        return make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                            corrector_order=3, mode="PEC", combine=combine,
+                            schedule=schedule, prediction="x0",
+                            guidance=guided)
+
+    s_u, s_g, s_gp = sampler(False), sampler(True), sampler(True, "einsum")
+    M = s_g.spec.n_steps
+    xis = [torch.randn(SHAPE, generator=g, device=dev) for _ in range(M)]
+    v = torch.randn(SHAPE, generator=g, device=dev)
+    x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
+    den_u = Denoiser(net, schedule, prediction="x0")
+    den_g = Denoiser(net, schedule, prediction="x0", guidance=True,
+                     cond_rank=1)
+    den_gp = Denoiser(plain_net, schedule, prediction="x0", guidance=True,
+                      cond_rank=1)
+    null = torch.zeros_like(cond)
+
+    def two_call(x, t):  # the baseline: each branch its own backbone call
+        return Denoiser._combine(net(x, t, cond), net(x, t, null), CFG_SCALE)
+
+    B = SHAPE[0]
+    want_sa = {"sa_fused": M, "sa_update": 0, "rwkv6_wkv": 0}
+    runs = {  # label -> (sampler, model, sample keywords, launches, batches)
+        "unguided": (s_u, den_u, {"cond": cond},
+                     {"flash_attention": L * NFE}, {B: L * NFE}),
+        "two_call": (s_u, two_call, {}, {"flash_attention": 2 * L * NFE},
+                     {B: 2 * L * NFE}),
+        "one_call": (s_g, den_g, {"cond": cond, "guidance_scale": CFG_SCALE},
+                     {"flash_attention": L * NFE}, {2 * B: L * NFE}),
+    }
+    ops.reset_launch_counts()  # the guided main-path window starts here
+    outs, res = {}, {}
+    for label, (s, den, kw, launches, batches) in runs.items():
+        out, cold, l1, b1 = _timed_solve(s, den, xT, xis, **kw)
+        out2, steady, l2, b2 = _timed_solve(s, den, xT, xis, **kw)
+        want = want_sa | launches
+        require(l1 == want and l2 == want and b1 == batches == b2,
+                f"guided: {label}: launches {l1} / {l2} at batches {b1} / "
+                f"{b2}, expected {want} at {batches}")
+        outs[label] = out
+        res[label] = {"cold_s": cold, "steady_s": steady,
+                      "repeat_bitwise": bool(torch.equal(out, out2)),
+                      "launches": l1, "flash_calls_by_batch": b1}
+    out_s1, _, _, _ = _timed_solve(s_g, den_g, xT, xis, cond=cond,
+                                   guidance_scale=1.0)
+    out_pert, _, _, _ = _timed_solve(s_g, den_g, x_pert, xis, cond=cond,
+                                     guidance_scale=CFG_SCALE)
+    out_plain, _, l_plain, _ = _timed_solve(s_gp, den_gp, xT, xis, cond=cond,
+                                            guidance_scale=CFG_SCALE)
+    require(not any(l_plain.values()), f"guided: plain solve launched "
+            f"{l_plain}")
+    held: dict = {}
+    with held_against_plain(held):
+        _timed_solve(s_g, den_g, xT, xis, cond=cond, guidance_scale=CFG_SCALE)
+    state["launches"]["guided"] = ops.launch_counts()  # window ends
+    state["held"]["guided"] = held
+    gaps = {"one_call_vs_two_call_f32": rel_gap(outs["one_call"],
+                                                outs["two_call"]),
+            "scale_1_vs_unguided_f32": rel_gap(out_s1, outs["unguided"]),
+            "kernel_vs_plain_f32": rel_gap(outs["one_call"], out_plain),
+            "perturbation_yardstick_f32": rel_gap(out_pert, outs["one_call"])}
+    info = {"guided_vs_unguided": rel_gap(outs["one_call"], outs["unguided"]),
+            "one_call_vs_two_call_bitwise": bool(torch.equal(
+                outs["one_call"], outs["two_call"]))}
+    bad = {k: g_ for k, g_ in gaps.items() if not g_ <= GAP_LIMIT}
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    result = {"phase": "guided_path", "arch": cfg.name, "layers": L,
+              "d_model": cfg.d_model, "denoiser_cond": cfg.denoiser_cond,
+              "latent": list(SHAPE), "weights": "tame",
+              "weights_s": dit["weights_s"], "contractive": dit["contract"],
+              "classes": cond.argmax(-1).tolist(), "guidance_scale":
+                  CFG_SCALE, "sampler": {"name": "sa", "nfe": NFE,
+                                         "tau": 1.0, "predictor_order": 3,
+                                         "corrector_order": 3, "mode": "PEC",
+                                         "combine": "fused"},
+              "runs": res, "rel_gap_final": gaps, "gap_limit_f32": GAP_LIMIT,
+              "information": info, "held_against_plain": held,
+              "ok": not bad and not held_bad}
+    emit(result)
+    require(not bad, f"guided: gaps above {GAP_LIMIT}: {bad}")
+    require(not held_bad, f"guided: kernel calls out of tolerance: {held_bad}")
+    require(set(held) == set(PATH_KERNELS["guided"]),
+            f"guided: held calls missing: {held}")
+    return result
+
+
+#: the feature cache's policies: interval 1 (every step refreshes), 2, 3,
+#: and the residual policy at the reference's threshold
+FC_POLICIES = {"interval_1": 1, "interval_2": 2, "interval_3": 3,
+               "residual_0.05": ("residual", 0.05)}
+#: a cached solve's relative deviation from the uncached one (the
+#: reference's bar, tests/test_e2e_dit.py)
+FC_DEVIATION_LIMIT = 0.05
+#: interval 1 against the uncached solve (the reference's bar)
+FC_EXACT_LIMIT = 1e-5
+
+
+def phase_feature_cache_path(state: dict) -> dict:
+    """DeepCache feature caching over the main path's unconditional
+    DiT-XL/2 (cache span (4, 24) of 28 layers): SA NFE 20 P3C3 PEC tau 1,
+    fused f32, flash, the phase's own x_T and noise. Each policy of
+    ``FC_POLICIES`` and the uncached solve, cold and steady; the refreshing
+    steps r counted by wrapping the cached network's call; flash launches
+    exactly 28 + 28 r + 8 (19 - r) per solve (the init evaluation always
+    refreshes). Interval 1 within 1e-5 of the uncached solve, the others
+    within 0.05 (both the reference's bars). One guided + cached solve
+    (interval 2, a shared (seq, dz) input-space prompt, scale 1.5: the
+    features carry the doubled batch) against the guided uncached solve;
+    one interval-2 solve held against the plain versions. The residual
+    policy reads its residual back to the host once a step: that read is
+    timed alone."""
+    import torch
+    from repro_torch.core import CachedNetwork, Denoiser, make_sampler
+    from repro_torch.core.samplers.multistep import _pc_residual
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = _tame_dit_xl2(state, last_user=True)
+    L = model.cfg.n_layers
+    a, b = model.cache_span()
+    net, cached = tame_networks(model, params, mu)
+    refreshes: list = []
+
+    def call(x, t, c, feats, refresh):
+        refreshes.append(bool(refresh))
+        return cached.call(x, t, c, feats, refresh)
+
+    counted = CachedNetwork(call=call, init=cached.init)
+    g = torch.Generator(dev).manual_seed(41)
+    s0 = make_sampler("sa", nfe=NFE, schedule=schedule)
+    xT = s0.init_noise(g, SHAPE)
+    xis = [torch.randn(SHAPE, generator=g, device=dev)
+           for _ in range(s0.spec.n_steps)]
+    prompt = 0.1 * torch.randn(SHAPE[1:], generator=g, device=dev)
+
+    def sampler(fc, guided=False):
+        return make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                            corrector_order=3, mode="PEC", combine="fused",
+                            schedule=schedule, prediction="x0",
+                            guidance=guided, feature_cache=fc)
+
+    def flash_per_solve(r, M):
+        return L + L * r + (L - (b - a)) * (M - r)
+
+    def solve(label, fc, guided=False):
+        s = sampler(fc, guided)
+        M = s.spec.n_steps
+        den = Denoiser(net, schedule, prediction="x0", guidance=guided,
+                       cached=counted if fc is not None else None)
+        kw = {"cond": prompt, "guidance_scale": CFG_SCALE} if guided else {}
+        rec, outs = {"steps": M}, []
+        for kind in ("cold", "steady"):
+            refreshes.clear()
+            out, secs, launches, batches = _timed_solve(s, den, xT, xis, **kw)
+            r = M if fc is None else sum(refreshes) - 1  # minus the init
+            if fc is not None and not isinstance(fc, tuple):
+                planned = sum(s.plan.arrays["fc_refresh"])
+                require(r == planned, f"fc: {label}: {r} refreshing steps, "
+                        f"planned {planned}")
+            want = {"sa_fused": M, "sa_update": 0, "rwkv6_wkv": 0,
+                    "flash_attention": flash_per_solve(r, M)}
+            batch = 2 * SHAPE[0] if guided else SHAPE[0]
+            require(launches == want and set(batches) == {batch},
+                    f"fc: {label}: launches {launches} at batches {batches}, "
+                    f"expected {want} at {batch}")
+            rec |= {f"{kind}_s": secs, "refreshing_steps": r,
+                    "launches": launches,
+                    "flash_calls_by_batch": batches}
+            outs.append(out)
+        rec["repeat_bitwise"] = bool(torch.equal(*outs))
+        return outs[0], rec
+
+    ops.reset_launch_counts()  # the feature-cache main-path window starts
+    runs, outs = {}, {}
+    for label, fc in {"uncached": None, **FC_POLICIES}.items():
+        outs[label], runs[label] = solve(label, fc)
+    outs["guided_uncached"], runs["guided_uncached"] = solve(
+        "guided_uncached", None, guided=True)
+    outs["guided_interval_2"], runs["guided_interval_2"] = solve(
+        "guided_interval_2", 2, guided=True)
+    held: dict = {}
+    with held_against_plain(held):
+        solve("held_interval_2", 2)
+    state["launches"]["feature_cache"] = ops.launch_counts()  # window ends
+    state["held"]["feature_cache"] = held
+
+    ref = outs["uncached"]
+    deviation = {label: rel_gap(outs[label], ref) for label in FC_POLICIES}
+    deviation["guided_interval_2"] = rel_gap(outs["guided_interval_2"],
+                                             outs["guided_uncached"])
+    bad = {k: d for k, d in deviation.items() if not d < FC_DEVIATION_LIMIT}
+    if not deviation["interval_1"] <= FC_EXACT_LIMIT:
+        bad["interval_1"] = deviation["interval_1"]
+    # the residual policy's host read: residual + float() on the latent,
+    # the device otherwise idle (the solve also loses the launch overlap
+    # of the step behind it)
+    x1, x2 = outs["uncached"], outs["interval_2"]
+    reads = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(_pc_residual(x1, x2))
+        reads.append((time.perf_counter() - t) * 1e3)
+    steady = runs["uncached"]["steady_s"]
+    layer_s = steady / flash_per_solve(NFE - 1, NFE - 1)
+    for label in FC_POLICIES:
+        r = runs[label]
+        r["layer_evaluations"] = r["launches"]["flash_attention"]
+        r["steady_vs_uncached"] = r["steady_s"] / steady
+        r["predicted_by_layers_s"] = r["layer_evaluations"] * layer_s
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    result = {"phase": "feature_cache_path", "arch": model.cfg.name,
+              "layers": L, "cache_span": [a, b], "latent": list(SHAPE),
+              "weights": "tame", "nfe": NFE, "policies": {
+                  k: repr(v) for k, v in FC_POLICIES.items()},
+              "runs": runs, "rel_deviation_from_uncached": deviation,
+              "deviation_limit": FC_DEVIATION_LIMIT,
+              "interval_1_limit": FC_EXACT_LIMIT,
+              "residual_read_ms": {"median": statistics.median(reads),
+                                   "max": max(reads)},
+              "held_against_plain": held,
+              "ok": not bad and not held_bad}
+    emit(result)
+    require(not bad, f"fc: deviations out of bounds: {bad}")
+    require(not held_bad, f"fc: kernel calls out of tolerance: {held_bad}")
+    require(set(held) == set(PATH_KERNELS["feature_cache"]),
+            f"fc: held calls missing: {held}")
     return result
 
 
@@ -1134,8 +1454,8 @@ def phase_rwkv6_path(state: dict) -> dict:
            for _ in range(s.spec.n_steps)]
 
     def solve(key, x=xT):
-        den = Denoiser(tame_networks(models[key], params, mu), schedule,
-                       prediction="x0")
+        den = Denoiser(tame_networks(models[key], params, mu)[0],
+                       schedule, prediction="x0")
         before = ops.launch_counts()
         t = time.perf_counter()
         out = s.sample(den, x, noise=lambda i: xis[i])
@@ -1216,7 +1536,7 @@ def phase_rwkv6_profile(state: dict) -> dict:
     model, params, mu, schedule, xT = state.pop("rwkv6")
     s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
                      schedule=schedule, prediction="x0")
-    net = tame_networks(model, params, mu)
+    net, _ = tame_networks(model, params, mu)
     den = Denoiser(net, schedule, prediction="x0")
     g = torch.Generator(dev).manual_seed(1)
     split = _profile_solve(lambda: s.sample(den, xT, g))
@@ -1253,6 +1573,8 @@ def main() -> int:
     phase_main_path(state)
     emit(phase_profile(state))
     phase_programs_path(state)
+    phase_guided_path(state)
+    phase_feature_cache_path(state)
     phase_sample_defaults(state)
     phase_gmm()
     phase_rwkv6_path(state)

@@ -33,13 +33,14 @@ def _flatten(tree, prefix=()) -> dict:
 
 _LM_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
               "head_dim", "d_ff", "vocab_size", "act", "gated_mlp",
-              "rope_type", "attn_logit_softcap", "denoiser_latent")
+              "rope_type", "attn_logit_softcap", "denoiser_latent",
+              "denoiser_cond")
 
 
 def _dit_from_config(config) -> TransformerLM:
     """The port's transformer for the reference's ``LMConfig``; raises
     ``NotImplementedError`` for what the port does not compute."""
-    absent = {k: getattr(config, k) for k in ("moe", "mla", "denoiser_cond")
+    absent = {k: getattr(config, k) for k in ("moe", "mla")
               if getattr(config, k, None) is not None}
     if absent:
         raise NotImplementedError(

@@ -7,7 +7,8 @@ Sampling entry point: ``make_sampler(name, nfe=..., ...)``.
 """
 
 from .coefficients import SolverTables, build_tables, exp_monomial_integrals
-from .denoiser import Denoiser, canonical_prediction, convert_prediction
+from .denoiser import (CachedNetwork, Denoiser, canonical_prediction,
+                       convert_prediction)
 from .oracle import GMM, gaussian_oracle
 from .programs import (StepProgram, list_presets, parse_program,
                        program_preset)
@@ -20,7 +21,8 @@ from .schedules import (EDMSchedule, NoiseSchedule, VESchedule,
 from .tau import BandedTau, ConstantTau, DDIMEtaTau, TauSchedule
 
 __all__ = [
-    "samplers", "Denoiser", "canonical_prediction", "convert_prediction",
+    "samplers", "CachedNetwork", "Denoiser", "canonical_prediction",
+    "convert_prediction",
     "Sampler", "SamplerPlan", "SamplerSpec", "make_sampler",
     "register_sampler", "list_samplers", "SolverTables", "build_tables",
     "exp_monomial_integrals", "NoiseSchedule", "VPLinearSchedule",

@@ -10,16 +10,18 @@ of any output convention:
   schedule's ``alpha_t``/``sigma_t`` at the evaluation time and the
   identities of ``x_t = alpha_t x_0 + sigma_t eps`` and
   ``v = alpha_t eps - sigma_t x_0``;
-- **classifier-free guidance**: the cond and uncond branches combine as
-  ``(1 - s) * uncond + s * cond``. That form, not ``uncond + s (cond -
-  uncond)``, makes scale 1.0 exactly the conditional branch
-  (``0 * u + c``), so a guided solve at s = 1 equals the unguided one.
-  The two branches run as two network calls here; the reference fuses
-  them into one doubled-lane call, which a later slice of the port takes
-  over with batched serving.
+- **classifier-free guidance**: the cond and uncond branches run as ONE
+  network call over a doubled batch ``[x; x]`` with ``[cond; null]``,
+  then combine as ``(1 - s) * uncond + s * cond``. That form, not
+  ``uncond + s (cond - uncond)``, makes scale 1.0 exactly the conditional
+  branch (``0 * u + c``) of that call.
+- **feature caching**: a :class:`CachedNetwork` companion evaluates the
+  network with the mid-segment of its block stack either recomputed or
+  replayed from the previous step (DeepCache); under guidance its
+  features carry the doubled batch.
 
 NFE accounting: one guided evaluation costs two network evaluations
-(``SamplerSpec.network_nfe``).
+(``SamplerSpec.network_nfe``), run as one call over twice the batch.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ import torch
 
 from .schedules import NoiseSchedule
 
-__all__ = ["PREDICTION_TYPES", "Denoiser", "canonical_prediction",
-           "convert_prediction"]
+__all__ = ["PREDICTION_TYPES", "CachedNetwork", "Denoiser",
+           "canonical_prediction", "convert_prediction"]
 
 #: canonical prediction-type names (aliases: "data"/"x0", "noise"/"eps")
 PREDICTION_TYPES = ("x0", "eps", "v")
@@ -87,29 +89,96 @@ def convert_prediction(pred: torch.Tensor, x: torch.Tensor, t, src: str,
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class CachedNetwork:
+    """Feature-cached companion of a :class:`Denoiser`'s network
+    (DeepCache-style step-to-step activation reuse).
+
+    Args:
+        call: ``(x, t, cond, feats, refresh) -> (prediction, new_feats)``.
+            With ``refresh`` (a Python bool) the deep feature segment is
+            recomputed and returned; otherwise the cached ``feats`` stand
+            in and come back unchanged. Predictions follow the owning
+            Denoiser's ``prediction`` convention; ``cond`` follows its
+            network's contract.
+        init: ``(x) -> feats``, the zero features for one network input
+            ``x`` (before the Denoiser doubles the batch under guidance).
+    """
+
+    call: Callable
+    init: Callable
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Denoiser:
     """A raw network wrapped into the solver-facing model contract.
 
     Args:
         network: ``(x, t, cond) -> prediction`` in ``prediction``'s
-            convention. Unconditional networks ignore ``cond``.
+            convention, for ``x`` of leading batch axis B. Unconditional
+            networks ignore ``cond``. Unguided, ``cond`` is passed as the
+            call gave it. Under guidance the network is called once with
+            ``x`` doubled to 2B and ``cond`` with a leading batch axis of
+            2B (the conditional rows, then the null rows), so it must
+            accept a batched ``cond``.
         schedule: the noise schedule whose ``alpha_t``/``sigma_t`` drive
             the prediction conversion. Must match the plan's.
         prediction: the network's output convention (``"eps"``/``"x0"``/
             ``"v"``; aliases ``"noise"``/``"data"`` accepted).
         guidance: enable classifier-free guidance with the per-call
-            ``guidance_scale``; the unconditional branch gets zeros like
+            ``guidance_scale``.
+        null_cond: the unconditional conditioning; None means zeros like
             the per-call cond (the null-embedding convention).
+        cond_rank: the rank of ONE sample's conditioning, which says how
+            guidance batches ``cond`` and ``null_cond``: a tensor of this
+            rank is shared by the whole batch and expanded to it, one of
+            rank ``cond_rank + 1`` already has the leading batch axis.
+            None: every cond is one sample's conditioning, shared by the
+            batch (a ``(seq, dz)`` prompt, a ``[d_cond]`` vector). The
+            layout is never read from the sizes, so a shared ``(seq, dz)``
+            prompt with ``seq == B`` stays shared.
+        cached: the feature-cached companion, required by a spec that sets
+            ``feature_cache``.
     """
 
     network: Callable[[torch.Tensor, Any, Any], torch.Tensor]
     schedule: NoiseSchedule
     prediction: str = "eps"
     guidance: bool = False
+    null_cond: Any = None
+    cond_rank: int | None = None
+    cached: CachedNetwork | None = None
 
     def __post_init__(self):
         object.__setattr__(
             self, "prediction", canonical_prediction(self.prediction))
+
+    def _batched(self, c: torch.Tensor, batch: int) -> torch.Tensor:
+        """``c`` with a leading batch axis of ``batch``: a shared cond is
+        expanded to it, a per-sample one checked against it."""
+        c = torch.as_tensor(c)
+        if self.cond_rank is None or c.dim() == self.cond_rank:
+            return c.expand((batch,) + tuple(c.shape))
+        if c.dim() != self.cond_rank + 1 or c.shape[0] != batch:
+            raise ValueError(
+                f"cond of shape {tuple(c.shape)} is neither one sample's "
+                f"conditioning (rank {self.cond_rank}) nor one per sample "
+                f"of a batch of {batch}")
+        return c
+
+    def _cfg_pair(self, x: torch.Tensor, cond):
+        """The doubled batch of one guided call: ``[x; x]`` and
+        ``[cond; null]``, each half expanded to the batch of ``x``."""
+        null = self.null_cond
+        if null is None and cond is not None:
+            null = torch.zeros_like(torch.as_tensor(cond))
+        if (cond is None) != (null is None):
+            raise ValueError("null_cond needs a per-call cond to pair with")
+        xx = torch.cat([x, x])
+        if cond is None:
+            return xx, None
+        B = x.shape[0]
+        return xx, torch.cat([self._batched(cond, B),
+                              self._batched(null, B)])
 
     @staticmethod
     def _combine(c_out, u_out, scale):
@@ -119,13 +188,34 @@ class Denoiser:
 
     def evaluate(self, x: torch.Tensor, t, cond, scale) -> torch.Tensor:
         """One guided (or plain) network evaluation, in ``self.prediction``
-        convention."""
+        convention. Under guidance both branches run as ONE network call
+        over the doubled batch."""
         if not self.guidance:
             return self.network(x, t, cond)
-        null = None if cond is None else torch.zeros_like(cond)
-        c_out = self.network(x, t, cond)
-        u_out = self.network(x, t, null)
-        return self._combine(c_out, u_out, scale)
+        xx, cc = self._cfg_pair(x, cond)
+        out = self.network(xx, t, cc)
+        B = x.shape[0]
+        return self._combine(out[:B], out[B:], scale)
+
+    def init_feats(self, x: torch.Tensor):
+        """Zero feature cache for one solver state ``x`` (under guidance
+        for the doubled batch, matching ``evaluate``'s call)."""
+        if self.cached is None:
+            raise ValueError("Denoiser built without cached=")
+        f = self.cached.init(x)
+        return torch.cat([f, f]) if self.guidance else f
+
+    def evaluate_cached(self, x, t, cond, scale, feats, refresh: bool):
+        """``evaluate`` through the feature-cached network. Returns
+        ``(prediction, new_feats)``."""
+        if self.cached is None:
+            raise ValueError("Denoiser built without cached=")
+        if not self.guidance:
+            return self.cached.call(x, t, cond, feats, refresh)
+        xx, cc = self._cfg_pair(x, cond)
+        out, new_feats = self.cached.call(xx, t, cc, feats, refresh)
+        B = x.shape[0]
+        return self._combine(out[:B], out[B:], scale), new_feats
 
     def as_model_fn(self, target: str, cond, scale) -> Callable:
         """Bind to a plan's parameterization and one call's conditioning
@@ -136,6 +226,19 @@ class Denoiser:
             raw = self.evaluate(x, t, cond, scale)
             return convert_prediction(raw, x, t, self.prediction, target,
                                       self.schedule)
+
+        return model_fn
+
+    def as_cached_model_fn(self, target: str, cond, scale) -> Callable:
+        """Feature-cached twin of :meth:`as_model_fn`:
+        ``model_fn(x, t, feats, refresh) -> (prediction, new_feats)``."""
+        target = canonical_prediction(target)
+
+        def model_fn(x, t, feats, refresh):
+            raw, new_feats = self.evaluate_cached(x, t, cond, scale, feats,
+                                                  refresh)
+            return (convert_prediction(raw, x, t, self.prediction, target,
+                                       self.schedule), new_feats)
 
         return model_fn
 

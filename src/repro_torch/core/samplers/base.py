@@ -13,8 +13,8 @@
 The model argument is a plain ``model_fn(x, t)`` already speaking the
 plan's parameterization, or a :class:`repro_torch.core.denoiser.Denoiser`
 wrapping a raw eps-/x0-/v-prediction network (optionally under
-classifier-free guidance), bound to the per-call ``cond`` and
-``guidance_scale``.
+classifier-free guidance, optionally with a feature-cached companion),
+bound to the per-call ``cond`` and ``guidance_scale``.
 
 The per-step Gaussian noise is injectable: ``noise`` is a callable
 ``step -> xi`` (float32, the shape of ``x_T``, on its device). By default
@@ -63,9 +63,7 @@ class SamplerSpec:
     Families read the subset of fields they understand. ``schedule`` is a
     registry name ("vp_linear") or a frozen :class:`NoiseSchedule`.
     ``ts`` overrides the (grid, n_steps) construction with an explicit
-    decreasing grid. ``feature_cache`` waits for a later slice of the
-    port; it is kept so specs read the same as the reference's, and
-    setting it raises.
+    decreasing grid.
     """
 
     name: str = "sa"
@@ -114,7 +112,10 @@ class SamplerSpec:
     prediction: str | None = None
     #: classifier-free guidance (requires a Denoiser)
     guidance: bool = False
-    #: step-to-step feature caching (a later slice of the port); must be None
+    #: step-to-step backbone feature caching (needs a Denoiser built with
+    #: ``cached=``): None, an int K (refresh every K-th step), or
+    #: ``("residual", threshold)`` (refresh when the previous step's
+    #: predictor-vs-corrector residual reaches the threshold)
     feature_cache: Any = None
 
     def resolve_schedule(self) -> NoiseSchedule:
@@ -263,6 +264,11 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
             raise ValueError(
                 "conditioning requires a Denoiser model; a plain "
                 "model_fn(x, t) has no cond input")
+    if spec.feature_cache is not None and not (
+            isinstance(model_fn, Denoiser) and model_fn.cached is not None):
+        raise ValueError(
+            "spec.feature_cache requires a Denoiser built with cached= (a "
+            "CachedNetwork exposing the split-segment evaluation)")
     guided = isinstance(model_fn, Denoiser) and model_fn.guidance
     if not guided and float(guidance_scale) != 1.0:
         raise ValueError(
@@ -274,10 +280,17 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
 def _bind_model(plan: SamplerPlan, model_fn, cond, scale) -> ModelFn:
     """The executor-facing ``model_fn(x, t)``: a Denoiser bound to the
     plan's convention and this call's cond/scale, or a plain model whose
-    output ``spec.prediction`` names, converted to the plan's convention."""
+    output ``spec.prediction`` names, converted to the plan's convention.
+    A Denoiser with a feature-cached companion also carries
+    ``cached_call(x, t, feats, refresh) -> (pred, feats)`` and
+    ``init_feats(x)`` for the feature-caching executor."""
     target = get_family(plan.spec.name).model_convention(plan.spec)
     if isinstance(model_fn, Denoiser):
-        return model_fn.as_model_fn(target, cond, scale)
+        fn = model_fn.as_model_fn(target, cond, scale)
+        if model_fn.cached is not None:
+            fn.cached_call = model_fn.as_cached_model_fn(target, cond, scale)
+            fn.init_feats = model_fn.init_feats
+        return fn
     pred = plan.spec.prediction
     if pred is not None and \
             canonical_prediction(pred) != canonical_prediction(target):

@@ -47,11 +47,22 @@ the kernel coefficients are packed) and the PECE re-evaluation follows a
 per-step flag kept on the host, so every such pattern at one step count
 shares one statics tuple.
 
-Feature caching and the step-granular adapter come with later slices of
-the port; a spec that asks for them raises.
+Feature caching (``spec.feature_cache``, ring history, no program):
+every evaluation goes through the Denoiser's cached companion, and step
+i refreshes the cached mid-stack features when ``fc_refresh[i]`` (a host
+tuple of the plan) says so or, under the ``residual`` policy, when the
+previous step's predictor-vs-corrector residual reached ``fc_thresh``.
+The interval policy reads host data only; the residual policy reads the
+residual back to the host once per step (one device sync). The init
+evaluation always refreshes; a PECE re-evaluation reuses its step's
+features.
+
+The step-granular adapter comes with a later slice of the port.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -62,9 +73,9 @@ from ..coefficients import SolverTables, TableBuilder, build_tables
 from ..programs import StepProgram
 from .base import SamplerFamily, SamplerSpec, carry_dtype, register_sampler
 
-__all__ = ["MAX_SCAN_SEGMENTS", "execute_multistep", "make_multistep_family",
-           "multistep_nfe", "multistep_statics", "multistep_steps_from_nfe",
-           "plan_multistep", "tables_to_arrays"]
+__all__ = ["MAX_SCAN_SEGMENTS", "execute_multistep", "fc_policy",
+           "make_multistep_family", "multistep_nfe", "multistep_statics",
+           "multistep_steps_from_nfe", "plan_multistep", "tables_to_arrays"]
 
 _COMBINES = ("einsum", "kernel", "fused")
 _HISTORIES = ("ring", "concat")
@@ -122,11 +133,43 @@ def _check_kernel_rows(spec: SamplerSpec, tables: SolverTables) -> None:
             "Use combine='einsum', or lower the orders or program width")
 
 
-def _unported(spec: SamplerSpec) -> None:
-    if spec.feature_cache is not None:
-        raise NotImplementedError(
-            "feature caching (spec.feature_cache) comes with the "
-            "feature-cache slice of the PyTorch port")
+def fc_policy(spec: SamplerSpec):
+    """Normalize ``spec.feature_cache`` to ``None``, ``("interval", k)``
+    or ``("residual", thresh)``; raises on anything else. The policy's
+    parameters are plan data; only on/off reaches the statics."""
+    fc = spec.feature_cache
+    if fc is None:
+        return None
+    if isinstance(fc, int) and not isinstance(fc, bool):
+        if fc < 1:
+            raise ValueError(f"feature_cache interval must be >= 1, got {fc}")
+        return ("interval", int(fc))
+    if isinstance(fc, tuple) and len(fc) == 2 and fc[0] == "residual":
+        return ("residual", float(fc[1]))
+    raise ValueError(
+        f"feature_cache={fc!r}; expected None, an int refresh interval, "
+        "or ('residual', threshold)")
+
+
+def _fc_plan(spec: SamplerSpec) -> dict:
+    """The feature cache's plan data, kept on the host: ``fc_refresh``,
+    one flag per step (the interval policy refreshes every k-th step; the
+    init evaluation always refreshes, so step 0 may reuse fresh features;
+    the residual policy plans step 0 only), and ``fc_thresh``, the
+    residual trigger (float32, as the reference's table; +inf for the
+    interval policy: it never fires)."""
+    fc = fc_policy(spec)
+    if fc is None:
+        return {}
+    M = spec.n_steps
+    if fc[0] == "interval":
+        refresh = (np.arange(M) + 1) % fc[1] == 0
+        thresh = math.inf
+    else:
+        refresh = np.arange(M) == 0
+        thresh = float(np.float32(fc[1]))
+    return {"fc_refresh": tuple(bool(r) for r in refresh),
+            "fc_thresh": thresh}
 
 
 def _rotated(a: dict, i: int, P: int, *rows) -> torch.Tensor:
@@ -193,7 +236,8 @@ def plan_multistep(spec: SamplerSpec, builder: TableBuilder):
     )
     _check_kernel_rows(spec, tables)
     if not _use_cond_fallback(program, spec.n_steps):
-        return tables_to_arrays(tables), {"ts": tables.ts, "tables": tables}
+        return (tables_to_arrays(tables) | _fc_plan(spec),
+                {"ts": tables.ts, "tables": tables})
     corr = np.array(tables.corr)
     p_only = tables.c_orders == 0
     corr[p_only] = tables.pred[p_only]
@@ -208,7 +252,9 @@ def multistep_statics(spec: SamplerSpec, convention: str) -> tuple:
     any planning). ``convention`` is the prediction convention of the
     family's tables. The mode structure is ``(use_corrector, pece)`` for
     a fixed spec or a mode-uniform program, ``("segments", segs)`` for a
-    program of 2..MAX_SCAN_SEGMENTS segments, ``("cond",)`` beyond."""
+    program of 2..MAX_SCAN_SEGMENTS segments, ``("cond",)`` beyond. The
+    last field says whether feature caching is on; its policy and
+    threshold are plan data."""
     if spec.combine not in _COMBINES:
         raise ValueError(
             f"combine={spec.combine!r}; expected one of {_COMBINES}")
@@ -221,8 +267,21 @@ def multistep_statics(spec: SamplerSpec, convention: str) -> tuple:
             "combine='fused' takes the ring-buffer layout (its rotated "
             "coefficient columns encode the ring head); use "
             "history='ring' or a non-fused combine")
-    _unported(spec)
     program = check_program(spec)
+    fc = fc_policy(spec)
+    if fc is not None:
+        if program is not None:
+            raise ValueError(
+                "feature_cache does not compose with step programs (the "
+                "per-step modes and the cached-eval dispatch would nest); "
+                "drop one of the two")
+        if spec.history != "ring":
+            raise ValueError("feature_cache requires history='ring'")
+        if fc[0] == "residual" and spec.corrector_order <= 0:
+            raise ValueError(
+                "the 'residual' feature-cache policy rides the free "
+                "predictor-vs-corrector residual: it needs "
+                "corrector_order > 0 (use an int interval otherwise)")
     if program is not None:
         segs = program.segments(spec.n_steps)
         if len(segs) == 1:
@@ -237,7 +296,7 @@ def multistep_statics(spec: SamplerSpec, convention: str) -> tuple:
         modes = (use_corrector, spec.mode == "PECE" and use_corrector)
     return (convention, modes, spec.combine,
             spec.denoise_final and convention == "data",
-            spec.history == "ring", spec.precision)
+            spec.history == "ring", spec.precision, fc is not None)
 
 
 def _step_modes(modes: tuple, dev: dict, M: int) -> list:
@@ -268,23 +327,49 @@ def _combine_rows(combine, cdt, decay_i, x_prev, packed, buf, noise_i, xi):
     return (decay_i * x_prev.to(f32) + acc + noise_i * xi.to(f32)).to(cdt)
 
 
+def _pc_residual(x_next, x_pred) -> torch.Tensor:
+    """Relative-RMS predictor-vs-corrector gap, the free step-change
+    signal a step with a corrector already computes both states for: it
+    drives the ``residual`` feature-cache refresh."""
+    f32 = torch.float32
+    diff = x_next.to(f32) - x_pred.to(f32)
+    return torch.sqrt(torch.mean(diff * diff)) / (
+        torch.sqrt(torch.mean(x_next.to(f32) ** 2)) + 1e-8)
+
+
 def execute_multistep(statics, dev, model_fn, x_T, noise):
     """The multistep solve as a Python loop over the M steps on the device
     of ``x_T``, each step in the mode its segment (or host flag) gives it.
-    ``noise(i)`` returns step i's float32 Gaussian draw."""
-    _, modes, combine, denoise, ring, precision = statics
+    ``noise(i)`` returns step i's float32 Gaussian draw.
+
+    Feature caching (``statics[-1]``): every evaluation goes through
+    ``model_fn.cached_call`` with the features carried from the last
+    refresh; step i refreshes when ``fc_refresh[i]`` or the previous
+    step's residual reached ``fc_thresh`` (read back only when the
+    threshold is finite, the residual policy)."""
+    _, modes, combine, denoise, ring, precision, fc = statics
     P = dev["pred"].shape[1]  # buffer rows = max(pred order, corr order)
     M = dev["decay"].shape[0]
     flags = _step_modes(modes, dev, M)
     cdt = carry_dtype(precision)
     f32 = torch.float32
 
-    def eval_model(x_in, t_in):
-        return model_fn(x_in, t_in).to(cdt)
-
     x = x_T.to(cdt)
+    if fc:
+        gated = dev["fc_thresh"] < math.inf
+        feats = model_fn.init_feats(x)
+
+        def eval_model(x_in, t_in, refresh):
+            nonlocal feats
+            e, feats = model_fn.cached_call(x_in, t_in, feats, refresh)
+            return e.to(cdt)
+    else:
+        def eval_model(x_in, t_in, refresh):
+            return model_fn(x_in, t_in).to(cdt)
+
     buf = torch.zeros((P,) + tuple(x.shape), dtype=cdt, device=x.device)
-    buf[0] = eval_model(x, dev["ts"][0])
+    buf[0] = eval_model(x, dev["ts"][0], True)
+    prev_err = 0.0
 
     for i, (use_corrector, pece) in enumerate(flags):
         xi = noise(i).to(cdt)
@@ -294,7 +379,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
         if not ring:
             x_pred = _combine_rows(combine, cdt, decay_i, x,
                                    dev["pred_packed"][i], buf, noise_i, xi)
-            e_new = eval_model(x_pred, t_next)
+            e_new = eval_model(x_pred, t_next, True)
             x_next = x_pred
             if use_corrector:
                 rows = torch.cat([e_new[None], buf], dim=0)
@@ -302,17 +387,20 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
                                        dev["corr_packed"][i], rows,
                                        noise_i, xi)
                 if pece:
-                    e_new = eval_model(x_next, t_next)
+                    e_new = eval_model(x_next, t_next, True)
             buf = torch.cat([e_new[None], buf[:-1]], dim=0)
             x = x_next
             continue
+        # refresh when the plan says so OR the last step moved enough
+        refresh = fc and (dev["fc_refresh"][i]
+                          or (gated and prev_err >= dev["fc_thresh"]))
         if combine == "fused":
             if use_corrector:
                 x_pred, corr_base = ops.sa_fused_update(
                     x, buf, xi, dev["fused_packed"][i])
             else:
                 x_pred = ops.sa_update(x, buf, xi, dev["fused_packed"][i, 0])
-            e_new = eval_model(x_pred, t_next)
+            e_new = eval_model(x_pred, t_next, refresh)
             x_next = x_pred
             if use_corrector:
                 # post-eval corrector: only e_new is touched; the history
@@ -324,15 +412,19 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
             x_pred = _combine_rows(combine, cdt, decay_i, x,
                                    dev["pred_packed"][i], torch.stack(rows),
                                    noise_i, xi)
-            e_new = eval_model(x_pred, t_next)
+            e_new = eval_model(x_pred, t_next, refresh)
             x_next = x_pred
             if use_corrector:
                 x_next = _combine_rows(combine, cdt, decay_i, x,
                                        dev["corr_packed"][i],
                                        torch.stack([e_new] + rows),
                                        noise_i, xi)
+        if fc and gated and use_corrector:
+            # the one device-to-host read of the residual policy
+            prev_err = float(_pc_residual(x_next, x_pred))
         if use_corrector and pece:
-            e_new = eval_model(x_next, t_next)
+            # under feature caching the re-eval reuses this step's features
+            e_new = eval_model(x_next, t_next, False)
         # the one history write, in place: e_new becomes age 0 of step
         # i+1 in slot (i+1) mod P, overwriting age P-1, which no combine
         # needs again
@@ -346,7 +438,6 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
 
 
 def multistep_nfe(spec: SamplerSpec) -> int:
-    _unported(spec)
     program = check_program(spec)
     if program is not None:
         # 1 init eval + 1 per step + 1 more per PECE step

@@ -102,8 +102,9 @@ def main(argv=None) -> dict:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
-    cfg, network = build_denoiser(args.arch, smoke=args.smoke, weights="tame",
-                                  flash=True, seed=args.seed, device=device)
+    cfg, network, _ = build_denoiser(args.arch, smoke=args.smoke,
+                                     weights="tame", flash=True,
+                                     seed=args.seed, device=device)
     schedule = get_schedule("vp_linear")
     sampler = Sampler(SamplerSpec.from_nfe(
         "sa", args.nfe, schedule=schedule, tau=1.0, predictor_order=3,

@@ -55,7 +55,10 @@ from repro_torch.models.tame import tame_networks
 model, params, mu, schedule = tame
 s = make_sampler("sa", nfe=c.NFE, tau=1.0, combine="fused",
                  schedule=schedule, prediction="x0")
-den = Denoiser(tame_networks(model, params, mu), schedule, prediction="x0")
+net = tame_networks(model, params, mu)
+# (network, cached) from the feature-cache slice on; the network before it
+net = net[0] if isinstance(net, tuple) else net
+den = Denoiser(net, schedule, prediction="x0")
 g = torch.Generator("cuda").manual_seed(1)
 xT = s.init_noise(g, c.SHAPE)
 s.sample(den, xT, g)

@@ -21,6 +21,19 @@ recurrence through the WKV kernel (the reference's ``use_pallas``);
 ``--flash`` / ``--wkv-kernel`` take the kernels' dispatch on the CPU too
 (their plain versions). ``--combine kernel|fused`` runs the solver combine
 through the sa_update / sa_fused kernels.
+
+``--prediction`` serves the backbone (natively x0) in another output
+convention (eps / x0 / v) through the Denoiser adapter, which converts it
+back to the plan's parameterization. ``--guidance-scale`` turns on
+classifier-free guidance: both branches run as one backbone call over
+twice the batch. ``--cond-file`` loads a ``.npy`` conditioning array,
+broadcastable to the latent ``(seq, dz)``, that the backbone takes as an
+input-space prompt added to the latent (the null branch gets zeros).
+``--feature-cache`` reuses the DiT's mid-stack features between solver
+steps (DeepCache): ``K`` refreshes them every K-th step, ``residual:T``
+when the previous step's predictor-vs-corrector residual reaches T (one
+device-to-host read a step). RWKV6 has no cached evaluation and refuses
+it.
 """
 
 from __future__ import annotations
@@ -29,10 +42,11 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, get_smoke
-from ..core import Denoiser, get_schedule
+from ..core import CachedNetwork, Denoiser, convert_prediction, get_schedule
 from ..core.programs import list_presets, parse_program
 from ..core.samplers import Sampler, SamplerSpec, get_family, list_samplers
 from ..device import resolve_device
@@ -41,7 +55,8 @@ from ..models import LMConfig, build_model, init_params
 from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
                            tame_rwkv6)
 
-__all__ = ["build_denoiser", "main"]
+__all__ = ["as_cached_network", "as_prediction_network", "build_denoiser",
+           "main", "parse_feature_cache"]
 
 
 def _kernel_options(cfg, flash: bool | None, wkv_kernel: bool | None) -> dict:
@@ -61,10 +76,12 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
                    flash: bool | None = None,
                    wkv_kernel: bool | None = None,
                    latent: int = 16, seed: int = 0, device="cuda"):
-    """``(cfg, network)`` for ``arch``: the x0-prediction network
-    ``(x, t, cond) -> x0`` with weights from ``seed``, on the card unless
-    ``device`` says otherwise. ``weights="tame"`` uses the contractive
-    construction and checks its Jacobian gain on the device. ``latent``
+    """``(cfg, network, cached)`` for ``arch``: the x0-prediction network
+    ``(x, t, cond) -> x0`` with weights from ``seed`` and its
+    feature-cached twin (None for RWKV6), on the card unless ``device``
+    says otherwise; ``cond`` is an input-space prompt added to the
+    latent. ``weights="tame"`` uses the contractive construction and
+    checks its Jacobian gain on the device. ``latent``
     is the latent width of an arch whose config leaves it unset.
     ``flash`` (DiT) and ``wkv_kernel`` (RWKV6) pick the kernel (True) or
     the plain version (False); None takes the kernel for CUDA tensors."""
@@ -86,7 +103,7 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
         if report["halvings"]:
             print(f"tame: {report['damped']} damped by {report['factor']} "
                   f"to reach Jacobian gain < 1: {report['gains']}")
-        return model.cfg, tame_networks(model, params, mu)
+        return (model.cfg, *tame_networks(model, params, mu))
     if weights != "init":
         raise ValueError(f"weights={weights!r}; expected 'init' or 'tame'")
     cfg = dataclasses.replace(
@@ -94,11 +111,41 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
     model = build_model(cfg)
     params = init_params(torch.Generator(device).manual_seed(seed),
                          model.param_defs(), torch.float32, device)
+    # the same networks without the tame construction's mean anchor
+    return (cfg, *tame_networks(model, params, lambda seq: 0.0))
 
-    def network(x, t, cond):
-        return model.denoise(params, x if cond is None else x + cond, t)
 
-    return cfg, network
+def as_prediction_network(network, schedule, prediction: str):
+    """An x0-prediction network ``(x, t, cond) -> x0`` re-expressed in
+    ``prediction``'s convention (eps / x0 / v): the contract a real eps-
+    or v-prediction checkpoint has, which the Denoiser converts back."""
+
+    def net(x, t, cond):
+        return convert_prediction(network(x, t, cond), x, t, "x0",
+                                  prediction, schedule)
+
+    return net
+
+
+def as_cached_network(cached: CachedNetwork, schedule, prediction: str):
+    """The feature-cached twin of :func:`as_prediction_network`."""
+
+    def call(x, t, cond, feats, refresh):
+        x0, new = cached.call(x, t, cond, feats, refresh)
+        return convert_prediction(x0, x, t, "x0", prediction,
+                                  schedule), new
+
+    return CachedNetwork(call=call, init=cached.init)
+
+
+def parse_feature_cache(text: str | None):
+    """``"K"`` -> interval K; ``"residual:T"`` -> residual-gated with
+    threshold T (the SamplerSpec.feature_cache encodings)."""
+    if text is None:
+        return None
+    if text.startswith("residual:"):
+        return ("residual", float(text.split(":", 1)[1]))
+    return int(text)
 
 
 def main(argv=None):
@@ -123,6 +170,21 @@ def main(argv=None):
     ap.add_argument("--grid", default="logsnr",
                     choices=["time", "logsnr", "karras"])
     ap.add_argument("--schedule", default="vp_linear")
+    ap.add_argument("--prediction", default="data",
+                    choices=["data", "x0", "noise", "eps", "v"],
+                    help="output convention the backbone is served as (the "
+                    "Denoiser converts it back)")
+    ap.add_argument("--guidance-scale", type=float, default=None,
+                    help="classifier-free guidance scale (both branches in "
+                    "one backbone call over twice the batch)")
+    ap.add_argument("--cond-file", default=None,
+                    help=".npy conditioning array, broadcastable to the "
+                    "latent (seq, dz)")
+    ap.add_argument("--feature-cache", default=None,
+                    help="DiT feature caching: an integer K (refresh the "
+                    "mid-stack features every K-th solver step) or "
+                    "residual:T (refresh when the previous step's "
+                    "predictor-vs-corrector residual reaches T)")
     ap.add_argument("--combine", default="einsum",
                     choices=["einsum", "kernel", "fused"],
                     help="solver combine: torch.einsum, the sa_update "
@@ -150,12 +212,17 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
-    cfg, network = build_denoiser(args.arch, smoke=args.smoke,
-                                  weights=args.weights, flash=args.flash,
-                                  wkv_kernel=args.wkv_kernel,
-                                  latent=args.latent, seed=args.seed,
-                                  device=device)
+    cfg, network, cached = build_denoiser(
+        args.arch, smoke=args.smoke, weights=args.weights, flash=args.flash,
+        wkv_kernel=args.wkv_kernel, latent=args.latent, seed=args.seed,
+        device=device)
+    fc = parse_feature_cache(args.feature_cache)
+    if fc is not None and cached is None:
+        raise SystemExit(f"--feature-cache needs a backbone with "
+                         f"denoise_cached(); {cfg.name} has none")
     schedule = get_schedule(args.schedule)
+    guidance = args.guidance_scale is not None
+    g_scale = 1.0 if args.guidance_scale is None else args.guidance_scale
     program = None
     if args.program is not None:
         if not get_family(args.sampler).full_programs:
@@ -176,15 +243,24 @@ def main(argv=None):
         corrector_order=args.corrector, mode=args.mode,
         program=program,  # shadows the four fields above when set
         combine=args.combine, history=args.history,
-        precision=args.precision, prediction="x0")
+        precision=args.precision, prediction=args.prediction,
+        guidance=guidance, feature_cache=fc)
     sampler = Sampler(spec)
-    model_fn = Denoiser(network, schedule, prediction="x0")
+    cond = None
+    if args.cond_file is not None:
+        cond = torch.from_numpy(np.load(args.cond_file)).float().to(device)
+    model_fn = Denoiser(
+        as_prediction_network(network, schedule, args.prediction), schedule,
+        prediction=args.prediction, guidance=guidance,
+        cached=(as_cached_network(cached, schedule, args.prediction)
+                if fc is not None else None))
     g = torch.Generator(device).manual_seed(args.seed + 1)
     xT = sampler.init_noise(g, (args.batch, args.seq, cfg.denoiser_latent))
 
     def run(seed: int):
         out = sampler.sample(model_fn, xT,
-                             torch.Generator(device).manual_seed(seed))
+                             torch.Generator(device).manual_seed(seed),
+                             cond=cond, guidance_scale=g_scale)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out
@@ -201,11 +277,15 @@ def main(argv=None):
     t2 = time.perf_counter()
     print(f"arch={cfg.name} latent={cfg.denoiser_latent} "
           f"sampler={args.sampler} "
-          f"NFE={sampler.nfe} (requested {args.nfe}) steps={spec.n_steps} "
+          f"NFE={sampler.nfe} (network NFE={spec.network_nfe}) "
+          f"(requested {args.nfe}) steps={spec.n_steps} "
           + (f"program={args.program}"  # the program shadows tau/P/C/mode
              if program is not None else
              f"tau={args.tau} P{args.predictor}C{args.corrector} "
              f"{args.mode}")
+          + f" prediction={args.prediction} "
+          f"guidance={g_scale if guidance else 'off'}"
+          + (f" feature_cache={fc}" if fc is not None else "")
           + f" combine={args.combine} history={args.history} "
           f"precision={args.precision} "
           f"flash={dit and routed} wkv_kernel={not dit and routed} "

@@ -17,7 +17,9 @@ roughly the data mean plus a small x-dependent correction.
   that, 32 random blocks amplify a 1e-7 nudge of x_T to ~1e-3 over a solve
   while a random-direction Jacobian gain still reads below 1;
 - ``out_proj`` drawn at ``1/out_div`` (a small x-dependent correction);
-- the t-conditioning MLP damped by ``t_damp`` so ``tcond`` stays O(1);
+- the t-conditioning MLP damped by ``t_damp`` so ``tcond`` stays O(1),
+  and a class-conditional DiT's ``y_proj`` (which adds its class/text
+  vector to the same signal) damped like ``t_mlp2``;
 - a fixed unit-scale anchor ``mu`` ("data mean") added to the output by
   :func:`tame_networks`, keeping ``|x|`` O(1) through the solve.
 
@@ -38,6 +40,7 @@ import math
 import torch
 
 from ..configs import get_config, get_smoke
+from ..core.denoiser import CachedNetwork
 from ..device import resolve_device
 from .common import init_params
 from .rwkv6 import RWKV6
@@ -71,6 +74,8 @@ def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
         dp["out_proj"].shape, generator=generator, device=dev)
     dp["t_mlp1"] = dp["t_mlp1"] * t_damp[0]
     dp["t_mlp2"] = dp["t_mlp2"] * t_damp[1]
+    if "y_proj" in dp:
+        dp["y_proj"] = dp["y_proj"] * t_damp[1]
     return params
 
 
@@ -99,7 +104,8 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
              n_layers: int | None = None, seed: int = 0,
              adaln_scale: float = 0.003, out_div: float = 50.0,
              t_damp: tuple[float, float] = (0.1, 0.3),
-             use_flash: bool | None = None, device="cuda"):
+             use_flash: bool | None = None,
+             denoiser_cond: int | None = None, device="cuda"):
     """Build a DiT (smoke or full config) whose denoise map is contractive.
 
     The residual stream is float32, as in the reference's construction.
@@ -107,13 +113,16 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
     unit-scale anchor (deterministic in ``seed``) that
     :func:`tame_networks` adds to the model's x0 output. Runs on the card
     unless ``device`` says otherwise; ``use_flash`` as on ``LMConfig``
-    (None: the flash kernel on the card, the plain attention on the CPU).
+    (None: the flash kernel on the card, the plain attention on the CPU);
+    ``denoiser_cond`` makes the DiT class-conditional with a conditioning
+    vector of that width (``y_proj``).
     """
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(
         cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
-        dtype=torch.float32, use_flash=use_flash)
+        dtype=torch.float32, use_flash=use_flash,
+        denoiser_cond=denoiser_cond)
     return _tame(TransformerLM(cfg), seed, device, adaln_scale=adaln_scale,
                  out_div=out_div, t_damp=t_damp)
 
@@ -142,47 +151,75 @@ def tame_rwkv6(arch: str = "rwkv6-3b", *, smoke: bool = True,
 
 
 def tame_networks(model, params, mu):
-    """The Denoiser network ``(x, t, cond) -> x0`` over a tame triple, with
-    the mean anchor applied. ``cond`` (when not None) is an input-space
-    prompt added to the latent. (The reference also returns the
-    feature-cached twin, which comes with the feature-cache slice.)"""
+    """``(network, cached)`` over a tame triple: the Denoiser network
+    ``(x, t, cond) -> x0`` with the mean anchor applied, and its
+    feature-cached twin (a :class:`CachedNetwork` over
+    ``denoise_cached``; None for a backbone without one, RWKV6). ``cond``
+    (when not None) is the model's conditioning input for a
+    class-conditional DiT (``denoiser_cond`` set: [d_cond] or
+    [B, d_cond]), and otherwise an input-space prompt added to the
+    latent."""
+    conditional = getattr(model.cfg, "denoiser_cond", None) is not None
+
+    def inputs(x, cond):
+        """(latent, model conditioning) of one call."""
+        if conditional or cond is None:
+            return x, cond
+        return x + cond, None
 
     def network(x, t, cond):
-        h = x if cond is None else x + cond
-        return model.denoise(params, h, t) + mu(x.shape[-2])
+        h, c = inputs(x, cond)
+        x0 = model.denoise(params, h, t, c) if conditional else \
+            model.denoise(params, h, t)
+        return x0 + mu(x.shape[-2])
 
-    return network
+    if not hasattr(model, "denoise_cached"):
+        return network, None
+
+    def call(x, t, cond, feats, refresh):
+        h, c = inputs(x, cond)
+        x0, new = model.denoise_cached(params, h, t, c, feats=feats,
+                                       refresh=refresh)
+        return x0 + mu(x.shape[-2]), new
+
+    def init(x):
+        shape, dtype = model.feature_shape(x.shape[0], x.shape[1])
+        return torch.zeros(shape, dtype=dtype, device=x.device)
+
+    return network, CachedNetwork(call=call, init=init)
 
 
 @torch.no_grad()
 def jacobian_gain(network, x: torch.Tensor, t: float, v: torch.Tensor,
-                  rel_step: float = 1e-3) -> float:
-    """``|J v| / |v|`` of ``network(., t)`` at ``x``, by a central finite
-    difference along ``v`` scaled to ``rel_step * |x|``."""
+                  rel_step: float = 1e-3, cond=None) -> float:
+    """``|J v| / |v|`` of ``network(., t, cond)`` at ``x``, by a central
+    finite difference along ``v`` scaled to ``rel_step * |x|``."""
     d = v * (rel_step * x.norm() / v.norm())
     tt = torch.tensor(t, dtype=torch.float32, device=x.device)
-    jv = network(x + d, tt, None) - network(x - d, tt, None)
+    jv = network(x + d, tt, cond) - network(x - d, tt, cond)
     return float(jv.norm() / (2 * d.norm()))
 
 
 @torch.no_grad()
 def ensure_contractive(model, params, mu, x: torch.Tensor,
                        generator: torch.Generator,
-                       ts=(0.95, 0.5, 0.1), max_halvings: int = 4) -> dict:
+                       ts=(0.95, 0.5, 0.1), max_halvings: int = 4,
+                       cond=None) -> dict:
     """Check that the tame network's Jacobian gain is below 1 at every
-    ``t`` in ``ts`` (at the state ``x``, along a random direction); halve
+    ``t`` in ``ts`` (at the state ``x`` and conditioning ``cond``, along a
+    random direction); halve
     the damped leaf in place until it is, at most ``max_halvings`` times.
     The damped leaf is the adaLN weights where the tree has them (the
     DiT), else ``denoiser/out_proj`` (RWKV6). Returns ``{"damped",
     "factor", "gains", "halvings"}``; raises if the gain stays at or
     above 1."""
-    network = tame_networks(model, params, mu)
+    network, _ = tame_networks(model, params, mu)
     v = torch.randn(x.shape, generator=generator, device=x.device)
     tree, leaf = ((params["blocks"], "adaln") if "adaln" in params["blocks"]
                   else (params["denoiser"], "out_proj"))
     factor = 1.0
     for halvings in range(max_halvings + 1):
-        gains = {t: jacobian_gain(network, x, t, v) for t in ts}
+        gains = {t: jacobian_gain(network, x, t, v, cond=cond) for t in ts}
         if max(gains.values()) < 1.0:
             return {"damped": leaf, "factor": factor, "gains": gains,
                     "halvings": halvings}

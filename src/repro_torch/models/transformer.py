@@ -1,15 +1,19 @@
 """Transformer backbone in denoiser mode (DiT): the part of the reference's
 ``models/transformer.py`` that SA-Solver samples through.
 
-    param_defs()                 -> ParamDef tree (block params stacked [L, ...])
-    denoise(params, z, t)        -> x0 prediction [B, S, dz]
+    param_defs()                    -> ParamDef tree (blocks stacked [L, ...])
+    denoise(params, z, t, cond)     -> x0 prediction [B, S, dz]
+    denoise_cached(params, z, t, cond, feats=, refresh=)
+                                    -> (x0 prediction, features)
 
 ``denoise`` embeds the continuous latent, runs the block stack with
-bidirectional attention and adaLN time conditioning (``_tcond``, float32
-end to end), and projects back. The layer loop walks the stacked [L, ...]
-block parameters; the reference scans over them. The LM entry points
-(forward, loss, prefill/decode), MoE/MLA blocks and ``denoise_cached``
-come with later slices of the port.
+bidirectional attention and adaLN conditioning on the time and, with
+``denoiser_cond`` set, a class/text vector (``_tcond``, float32 end to
+end), and projects back. The layer loop walks the stacked [L, ...] block
+parameters; the reference scans over them. ``denoise_cached`` replays the
+mid-segment of the stack from a cached residual (DeepCache). The LM entry
+points (forward, loss, prefill/decode) and MoE/MLA blocks come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     #: latent width of the denoiser's continuous input/output heads
     denoiser_latent: int | None = None
+    #: width of the denoiser's class/text conditioning vector (``y_proj``
+    #: maps it into the adaLN signal); None: unconditional
+    denoiser_cond: int | None = None
     #: run the blocks' attention through the flash kernel (True), through
     #: the plain attention (False), or by the tensors' device (None: the
     #: kernel for CUDA tensors); the reference carries this on
@@ -131,6 +138,9 @@ class TransformerLM:
             "t_mlp2": ParamDef((cfg.d_model, cfg.d_model), ("embed", None),
                                "scaled"),
         }
+        if cfg.denoiser_cond is not None:
+            out["denoiser"]["y_proj"] = ParamDef(
+                (cfg.denoiser_cond, cfg.d_model), (None, "embed"), "scaled")
         return out
 
     # ------------------------------------------------------------------
@@ -151,26 +161,83 @@ class TransformerLM:
         m = mlp_apply(p["mlp"], h)
         return x + g2[:, None, :].to(dt) * m.to(dt)
 
-    def _tcond(self, dp, t, batch: int):
+    def _tcond(self, dp, t, batch: int, cond=None):
         """adaLN conditioning signal, float32 end to end: the bf16 policy
-        narrows latents only; quantizing ``t`` to bf16 would collapse
-        adjacent solver timesteps."""
+        narrows latents only; quantizing ``t`` (or the class/text vector)
+        to bf16 would collapse adjacent solver timesteps. ``cond``
+        ([d_cond] or [batch, d_cond]) adds ``cond @ y_proj``."""
         t = torch.as_tensor(t, dtype=torch.float32,
                             device=dp["t_mlp1"].device).expand(batch)
         temb = timestep_embedding(t, 256)
-        return F.silu(temb @ dp["t_mlp1"].float()) @ dp["t_mlp2"].float()
+        tcond = F.silu(temb @ dp["t_mlp1"].float()) @ dp["t_mlp2"].float()
+        if cond is not None:
+            if self.cfg.denoiser_cond is None:
+                raise ValueError("a conditioning input needs denoiser_cond "
+                                 "in the config")
+            c = torch.atleast_2d(torch.as_tensor(cond, dtype=torch.float32,
+                                                 device=tcond.device))
+            c = c.expand(batch, c.shape[-1])
+            tcond = tcond + c @ dp["y_proj"].float()
+        return tcond
 
-    def denoise(self, params, z, t):
-        """z [B, S, dz], t scalar (or [B]) -> x0 prediction [B, S, dz]
-        (float32): bidirectional attention + adaLN time conditioning. (The
-        reference's class/text conditioning input ``denoiser_cond`` comes
-        with a later slice.)"""
-        cfg = self.cfg
-        dp = params["denoiser"]
-        x = z.to(cfg.dtype) @ dp["in_proj"].to(cfg.dtype)
-        tcond = self._tcond(dp, t, z.shape[0])
+    def _stack(self, params, x, tcond, lo: int, hi: int):
+        """Blocks ``[lo, hi)`` of the stack over the residual stream."""
         blocks = params["blocks"]
-        for l in range(cfg.n_layers):
+        for l in range(lo, hi):
             x = self._block(layer_of(blocks, l), x, tcond)
+        return x
+
+    def _embed(self, dp, z, t, cond):
+        cfg = self.cfg
+        x = z.to(cfg.dtype) @ dp["in_proj"].to(cfg.dtype)
+        return x, self._tcond(dp, t, z.shape[0], cond)
+
+    def _head(self, params, x):
         x = rms_norm(x, params["ln_f"])
-        return (x @ dp["out_proj"].to(cfg.dtype)).float()
+        return (x @ params["denoiser"]["out_proj"].to(self.cfg.dtype)).float()
+
+    def denoise(self, params, z, t, cond=None):
+        """z [B, S, dz], t scalar (or [B]) -> x0 prediction [B, S, dz]
+        (float32): bidirectional attention + adaLN conditioning; ``cond``
+        ([d_cond] or [B, d_cond]) joins ``t`` in the adaLN signal."""
+        x, tcond = self._embed(params["denoiser"], z, t, cond)
+        x = self._stack(params, x, tcond, 0, self.cfg.n_layers)
+        return self._head(params, x)
+
+    # ---- step-to-step feature caching (DeepCache-style) ---------------
+    def cache_span(self) -> tuple[int, int]:
+        """Default [a, b) mid-segment of the block stack to cache: the
+        deep interior whose activations drift slowest across adjacent
+        solver steps, one-sixth of the depth kept live on each side."""
+        L = self.cfg.n_layers
+        k = max(1, L // 6)
+        return (k, L - k)
+
+    def feature_shape(self, batch: int, seq: int):
+        """``(shape, dtype)`` of the cached mid-segment residual for one
+        [batch, seq, dz] latent: it lives in the d_model stream."""
+        return (batch, seq, self.cfg.d_model), self.cfg.dtype
+
+    def denoise_cached(self, params, z, t, cond=None, *, feats,
+                       refresh: bool, span=None):
+        """``denoise`` with the mid-segment ``[a, b)`` of the block stack
+        either recomputed (``refresh``) or replaced by the cached residual
+        ``feats`` (DeepCache). Returns ``(x0_prediction, new_feats)``. The
+        cached quantity is the residual ``y - x`` across [a, b), so a
+        refresh-every-step schedule reproduces ``denoise``; a reuse
+        passes ``feats`` back unchanged. ``span`` overrides
+        :meth:`cache_span`."""
+        L = self.cfg.n_layers
+        a, b = self.cache_span() if span is None else span
+        if not 0 <= a <= b <= L:
+            raise ValueError(f"bad cache span ({a}, {b}) for L={L}")
+        x, tcond = self._embed(params["denoiser"], z, t, cond)
+        x = self._stack(params, x, tcond, 0, a)
+        if refresh:
+            y = self._stack(params, x, tcond, a, b)
+            feats = (y - x).to(feats.dtype)
+            x = y
+        else:
+            x = x + feats.to(x.dtype)
+        x = self._stack(params, x, tcond, b, L)
+        return self._head(params, x), feats

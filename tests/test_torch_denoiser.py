@@ -34,7 +34,12 @@ T_MAKERS = {"x0": T_GMM.x0_prediction, "eps": T_GMM.eps_prediction,
 
 
 def t_net(kind):
-    return lambda x, t, cond: T_MAKERS[kind](TS, x, t, shift=cond)
+    """The oracle as a Denoiser network. ``cond`` shifts each sample's
+    components: one [d] shift for the batch, or one per sample with a
+    leading batch axis, which is how guidance passes it (one call over
+    the doubled batch)."""
+    return lambda x, t, cond: T_MAKERS[kind](
+        TS, x, t, shift=None if cond is None else cond[..., None, :])
 
 
 def _x(seed=0, shape=(64, 2)):

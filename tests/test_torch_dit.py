@@ -214,8 +214,8 @@ def test_transformer_refuses_block_options_it_does_not_compute(field, value):
 def test_tame_network_matches_reference(arch):
     jmodel, jparams, mu, tmodel, tparams = _pair_models(arch, "f32", False)
     jnet, _ = j_tame_networks(jmodel, jparams, mu)
-    tnet = tame_networks(tmodel, tparams,
-                         lambda seq: torch.from_numpy(np.array(mu(seq))))
+    tnet, _ = tame_networks(tmodel, tparams,
+                            lambda seq: torch.from_numpy(np.array(mu(seq))))
     z = np.random.default_rng(1).standard_normal((2, 16, 8)).astype(np.float32)
     for t in (0.95, 0.3):
         ref = np.asarray(jnet(jnp.asarray(z), jnp.float32(t), None))
@@ -231,7 +231,8 @@ def test_tame_solve_matches_reference():
                                            dtype=torch.float32, use_flash=True))
     tp = params_from_jax(jax.device_get(jparams), tm)
     jnet, _ = j_tame_networks(jmodel, jparams, mu)
-    tnet = tame_networks(tm, tp, lambda s: torch.from_numpy(np.array(mu(s))))
+    tnet, _ = tame_networks(tm, tp,
+                            lambda s: torch.from_numpy(np.array(mu(s))))
     kw = dict(nfe=10, tau=1.0, combine="fused")
     js = jsamplers.make_sampler("sa", **kw)
     ts = tsamplers.make_sampler("sa", **kw)
@@ -251,7 +252,7 @@ def test_tame_solve_matches_reference():
 def test_port_tame_dit_is_contractive():
     """The port's own construction (its own draws): Jacobian gain < 1."""
     model, params, mu = tame_dit("dit-s", n_layers=8, device="cpu")
-    net = tame_networks(model, params, mu)
+    net, _ = tame_networks(model, params, mu)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 16, 8, generator=g)
     v = torch.randn(x.shape, generator=g)

@@ -13,6 +13,7 @@
 """
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -97,7 +98,7 @@ def test_launch_sample_on_cpu_prints_nfe_accounting(capsys, extra):
                         *extra])
     out = capsys.readouterr().out
     steps = 8 if "PECE" not in extra else 4
-    assert f"NFE=9 (requested 9) steps={steps}" in out
+    assert f"NFE=9 (network NFE=9) (requested 9) steps={steps}" in out
     assert "finite=True" in out
 
 
@@ -111,8 +112,8 @@ def test_launch_sample_runs_a_family_under_a_program(capsys):
                         "--grid", "time", "--schedule", "vp_cosine",
                         "--history", "concat"])
     out = capsys.readouterr().out
-    assert "sampler=seeds NFE=9 (requested 9) steps=7 program=pece-head" \
-        in out
+    assert ("sampler=seeds NFE=9 (network NFE=9) (requested 9) steps=7 "
+            "program=pece-head") in out
     assert "history=concat" in out and "finite=True" in out
     assert " P3C3 " not in out and "tau=" not in out
 
@@ -273,8 +274,50 @@ def test_launch_sample_on_the_card(capsys):
                         "--seq", "16", "--nfe", "9", "--combine", "fused",
                         "--flash", "--weights", "tame"])
     out = capsys.readouterr().out
-    assert "NFE=9 (requested 9) steps=8" in out and "finite=True" in out
+    assert "NFE=9 (network NFE=9) (requested 9) steps=8" in out
+    assert "finite=True" in out
     assert "'sa_fused': 16" in out and "'flash_attention': 36" in out  # two runs
+
+
+@pytest.mark.gpu
+def test_guided_cached_solve_on_the_card_matches_plain():
+    """One-call CFG with feature caching on the card: flash runs at the
+    doubled batch on the partial stacks the refresh plan gives (a 6-layer
+    DiT, span (1, 5), 8 steps at interval 2: 6 + 6 * 4 + 2 * 4 launches),
+    and the solve agrees with the same solve through the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.kernels import ops
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.tame import tame_dit, tame_networks
+    dev = torch.device("cuda")
+    schedule = get_schedule("vp_linear")
+    model, params, mu = tame_dit("dit-s", n_layers=6, use_flash=True,
+                                 device=dev)
+    plain = TransformerLM(dataclasses.replace(model.cfg, use_flash=False))
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn((2, 16, 8), generator=g, device=dev)
+    prompt = 0.1 * torch.randn((16, 8), generator=g, device=dev)
+    xis = [torch.randn((2, 16, 8), generator=g, device=dev)
+           for _ in range(8)]
+    outs, counts = {}, {}
+    for name, m, combine in (("kernel", model, "fused"),
+                             ("plain", plain, "einsum")):
+        net, cached = tame_networks(m, params, mu)
+        s = make_sampler("sa", nfe=9, combine=combine, prediction="x0",
+                         schedule=schedule, guidance=True, feature_cache=2)
+        ops.reset_launch_counts()
+        outs[name] = s.sample(
+            Denoiser(net, schedule, prediction="x0", guidance=True,
+                     cached=cached), x, noise=lambda i: xis[i],
+            cond=prompt, guidance_scale=1.5)
+        counts[name] = ops.launch_counts()
+    assert counts["kernel"] == {"sa_update": 0, "sa_fused": 8,
+                                "flash_attention": 38, "rwkv6_wkv": 0}
+    assert not any(counts["plain"].values())
+    assert float((outs["kernel"] - outs["plain"]).norm()
+                 / outs["plain"].norm()) <= 1e-5
 
 
 @pytest.mark.gpu

@@ -280,7 +280,7 @@ def test_port_tame_rwkv6_is_contractive():
     model, params, mu = tame_rwkv6(n_layers=4, device="cpu")
     assert model.cfg.dtype == torch.float32 and model.cfg.denoiser_latent == 16
     assert float(params["denoiser"]["out_proj"].abs().max()) > 0
-    net = tame_networks(model, params, mu)
+    net, _ = tame_networks(model, params, mu)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(2, 64, 16, generator=g)
     v = torch.randn(x.shape, generator=g)
@@ -313,7 +313,7 @@ def test_tame_solve_matches_reference():
     jp = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
     j_mu = jnp.asarray(mu(64).numpy())
     jnet = lambda x, t, cond: jm.denoise(jp, x, t) + j_mu
-    tnet = tame_networks(model, params, mu)
+    tnet, _ = tame_networks(model, params, mu)
     kw = dict(nfe=8, tau=1.0, combine="fused")
     js = jsamplers.make_sampler("sa", **kw)
     ts = tsamplers.make_sampler("sa", **kw)
@@ -342,7 +342,8 @@ def test_launch_sample_rwkv6_on_cpu(capsys):
                         "fused"])
     out = capsys.readouterr().out
     assert "arch=rwkv6-smoke latent=16" in out
-    assert "NFE=6 (requested 6) steps=5" in out and "finite=True" in out
+    assert "NFE=6 (network NFE=6) (requested 6) steps=5" in out
+    assert "finite=True" in out
     assert "wkv_kernel=True" in out
 
 

@@ -180,7 +180,7 @@ def test_fused_coefficients_rotate_columns_not_data():
     (dict(history="tree"), ValueError, "history"),
     (dict(precision="fp8"), ValueError, "precision"),
     (dict(program=object()), TypeError, "StepProgram"),
-    (dict(feature_cache=2), NotImplementedError, "feature-cache slice"),
+    (dict(feature_cache=2, history="concat"), ValueError, "history='ring'"),
 ])
 def test_spec_validation(bad, exc, match):
     with pytest.raises(exc, match=match):

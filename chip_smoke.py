@@ -12,15 +12,17 @@ full-width backbones: DiT-XL/2 (28 layers, d_model 1152) and the RWKV6-3B
 denoiser (32 layers, d_model 2560, 40 heads of 64, d_ff 8960), each on a
 latent [8, 256, 16]; step programs and the SEEDS and DPM-Solver++ rules
 over DiT-XL/2 (``programs_path``); a class-conditional DiT-XL/2 under
-one-call classifier-free guidance (``guided_path``) and DeepCache feature
-caching over DiT-XL/2 (``feature_cache_path``); the port's sampling entry
-point
-(``launch.sample.main``)
-with no kernel flag, which must route DiT-XL/2 and the RWKV6 smoke config
-through their kernels on the card; and SA, SEEDS and DPM-Solver++ solves
-of the GMM oracle. Each
-main path runs with the launch counts set to 0 just before it and read
-just after.
+one-call classifier-free guidance (``guided_path``); the compiled
+executor's CUDA graphs against its eager solves over DiT-XL/2
+(``graph_path``); DeepCache feature caching over DiT-XL/2
+(``feature_cache_path``); the port's sampling entry point
+(``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
+and the RWKV6 smoke config through their kernels on the card; and SA,
+SEEDS and DPM-Solver++ solves of the GMM oracle. Each main path runs with
+the launch counts set to 0 just before it and read just after; a solve
+replays a CUDA graph of the compile cache after its entry's first call,
+and the held comparisons of kernel calls with their plain versions run
+eager.
 Each phase prints one JSON line; any failed check raises, and the script
 then exits non-zero without the success line. The last two lines are the
 ``kernels`` summary and ``{"ok": true, "device": {"platform": "gpu",
@@ -68,6 +70,7 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "programs": ("sa_update", "sa_fused", "flash_attention"),
                 "guided": ("sa_fused", "flash_attention"),
                 "feature_cache": ("sa_fused", "flash_attention"),
+                "graph": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused")}
@@ -567,7 +570,10 @@ def held_against_plain(record: dict):
     """While active, every kernel call through ``kernels.ops`` is followed
     by the plain version on the same inputs; ``record[name]`` keeps the
     call count, the max abs error and whether every call was in
-    tolerance. The plain calls launch no kernel and count nothing."""
+    tolerance. The plain calls launch no kernel and count nothing. Every
+    solve inside runs eager (``samplers.eager()``): a CUDA graph replay
+    would run no wrapper, and the comparison reads each call back."""
+    from repro_torch.core.samplers import eager
     from repro_torch.kernels import ops
     names = {"sa_update": "sa_update", "sa_fused_update": "sa_fused",
              "flash_attention": "flash_attention", "wkv": "rwkv6_wkv"}
@@ -595,7 +601,8 @@ def held_against_plain(record: dict):
     for n, f in originals.items():
         setattr(ops, n, wrap(n, f))
     try:
-        yield record
+        with eager():
+            yield record
     finally:
         for n, f in originals.items():
             setattr(ops, n, f)
@@ -797,7 +804,8 @@ def phase_profile(state: dict) -> dict:
     split = _profile_solve(lambda: s.sample(den, xT, g))
     tt = torch.tensor(0.5, device=dev)
     eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=10)
-    return {"phase": "profile", "ok": True, "solve": "fused f32, steady",
+    return {"phase": "profile", "ok": True,
+            "solve": "fused f32, steady (a CUDA graph replay)",
             **split, "backbone_eval_ms": eval_ms}
 
 
@@ -991,7 +999,10 @@ def phase_programs_path(state: dict) -> dict:
     bad = {k: g_ for k, g_ in gaps.items()
            if not g_ <= (GAP_LIMIT_BF16 if k.endswith("bf16") else GAP_LIMIT)}
     held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    live = sum(r.graph is not None for e in _cache_entries()
+               for r in e.runs.values())
     result = {"phase": "programs_path", "arch": model.cfg.name,
+              "live_graphs": live, "graph_pool_bytes": graph_pool_bytes(),
               "layers": model.cfg.n_layers, "d_model": model.cfg.d_model,
               "latent": list(SHAPE), "weights": "tame", "nfe_budget": NFE,
               "runs": runs, "bitwise_equal": bitwise, "rel_gap_final": gaps,
@@ -1013,12 +1024,17 @@ def phase_programs_path(state: dict) -> dict:
 @contextlib.contextmanager
 def flash_batches(record: dict):
     """While active, ``record[B]`` counts the flash_attention calls through
-    ``kernels.ops`` at batch B (the wrapper's own count is untouched)."""
+    ``kernels.ops`` at batch B (the wrapper's own count is untouched) that
+    an eager solve makes: not those recorded into a CUDA graph (its
+    capture follows an eager warm-up solve, which counts them) and none of
+    a replay (which runs no Python)."""
+    import torch
     from repro_torch.kernels import ops
     original = ops.flash_attention
 
     def counted(q, *args, **kw):
-        record[q.shape[0]] = record.get(q.shape[0], 0) + 1
+        if not torch.cuda.is_current_stream_capturing():
+            record[q.shape[0]] = record.get(q.shape[0], 0) + 1
         return original(q, *args, **kw)
 
     ops.flash_attention = counted
@@ -1029,20 +1045,35 @@ def flash_batches(record: dict):
 
 
 def _timed_solve(s, den, x, xis, **kw):
-    """(output, seconds, launches, flash calls by batch) of one solve."""
+    """(output, seconds, launches, flash calls by batch, whether an eager
+    solve ran) of one solve. An eager solve runs on an entry's first call
+    of a graph signature (the warm-up its capture follows), under the
+    residual feature-cache policy and inside ``eager()``; otherwise the
+    call replays a graph, and its flash calls by batch are those of the
+    eager solve it was captured after."""
     import torch
+    from repro_torch.core.samplers import compile_cache_stats
     from repro_torch.kernels import ops
-    before = ops.launch_counts()
+    before, stats = ops.launch_counts(), compile_cache_stats()
     batches: dict = {}
     with flash_batches(batches):
         t = time.perf_counter()
         out = s.sample(den, x, noise=lambda i: xis[i], **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-    after = ops.launch_counts()
+    after, stats2 = ops.launch_counts(), compile_cache_stats()
     require(bool(torch.isfinite(out).all()) and tuple(out.shape) == SHAPE,
             f"{s.spec}: bad output")
-    return out, secs, {k: after[k] - before[k] for k in after}, batches
+    ran_eager = (stats2["graphs"] > stats["graphs"]
+                 or stats2["aot_fallbacks"] > stats["aot_fallbacks"])
+    return (out, secs, {k: after[k] - before[k] for k in after}, batches,
+            ran_eager)
+
+
+def eager_batches(batches: dict, ran_eager: bool) -> dict:
+    """The flash calls by batch that ``flash_batches`` sees in one solve:
+    ``batches`` where an eager solve ran, none for a replay."""
+    return batches if ran_eager else {}
 
 
 #: ImageNet's classes: with one-hot vectors ``c @ y_proj`` is DiT's
@@ -1100,9 +1131,10 @@ def phase_guided_path(state: dict) -> dict:
     den_gp = Denoiser(plain_net, schedule, prediction="x0", guidance=True,
                       cond_rank=1)
     null = torch.zeros_like(cond)
+    scale = torch.tensor(CFG_SCALE, device=dev)
 
     def two_call(x, t):  # the baseline: each branch its own backbone call
-        return Denoiser._combine(net(x, t, cond), net(x, t, null), CFG_SCALE)
+        return Denoiser._combine(net(x, t, cond), net(x, t, null), scale)
 
     B = SHAPE[0]
     want_sa = {"sa_fused": M, "sa_update": 0, "rwkv6_wkv": 0}
@@ -1117,22 +1149,24 @@ def phase_guided_path(state: dict) -> dict:
     ops.reset_launch_counts()  # the guided main-path window starts here
     outs, res = {}, {}
     for label, (s, den, kw, launches, batches) in runs.items():
-        out, cold, l1, b1 = _timed_solve(s, den, xT, xis, **kw)
-        out2, steady, l2, b2 = _timed_solve(s, den, xT, xis, **kw)
+        out, cold, l1, b1, e1 = _timed_solve(s, den, xT, xis, **kw)
+        out2, steady, l2, b2, e2 = _timed_solve(s, den, xT, xis, **kw)
         want = want_sa | launches
-        require(l1 == want and l2 == want and b1 == batches == b2,
+        require(l1 == want and l2 == want and e1 and
+                b1 == eager_batches(batches, e1) and
+                b2 == eager_batches(batches, e2),
                 f"guided: {label}: launches {l1} / {l2} at batches {b1} / "
                 f"{b2}, expected {want} at {batches}")
         outs[label] = out
         res[label] = {"cold_s": cold, "steady_s": steady,
                       "repeat_bitwise": bool(torch.equal(out, out2)),
                       "launches": l1, "flash_calls_by_batch": b1}
-    out_s1, _, _, _ = _timed_solve(s_g, den_g, xT, xis, cond=cond,
-                                   guidance_scale=1.0)
-    out_pert, _, _, _ = _timed_solve(s_g, den_g, x_pert, xis, cond=cond,
-                                     guidance_scale=CFG_SCALE)
-    out_plain, _, l_plain, _ = _timed_solve(s_gp, den_gp, xT, xis, cond=cond,
-                                            guidance_scale=CFG_SCALE)
+    out_s1 = _timed_solve(s_g, den_g, xT, xis, cond=cond,
+                          guidance_scale=1.0)[0]
+    out_pert = _timed_solve(s_g, den_g, x_pert, xis, cond=cond,
+                            guidance_scale=CFG_SCALE)[0]
+    out_plain, _, l_plain, _, _ = _timed_solve(
+        s_gp, den_gp, xT, xis, cond=cond, guidance_scale=CFG_SCALE)
     require(not any(l_plain.values()), f"guided: plain solve launched "
             f"{l_plain}")
     held: dict = {}
@@ -1168,6 +1202,244 @@ def phase_guided_path(state: dict) -> dict:
     require(set(held) == set(PATH_KERNELS["guided"]),
             f"guided: held calls missing: {held}")
     return result
+
+
+#: steady solves of each kind (eager, replay) per ``graph_path``
+#: configuration, in turns
+GRAPH_REPEATS = 10
+#: the guidance scales ``graph_path`` sweeps through one entry
+GRAPH_SCALES = (1.0, 1.5, 4.0)
+
+
+def graph_pool_bytes():
+    """Bytes of device memory in the compile cache's shared CUDA graph
+    pool (its segments in the allocator's snapshot), or "not measured"
+    where the snapshot does not name pools."""
+    import torch
+    from repro_torch.core.samplers import base
+    pool = base._POOLS.get(torch.device("cuda", torch.cuda.current_device()))
+    if pool is None:
+        return 0
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return "not measured"
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(pool))
+
+
+def spread(xs) -> dict:
+    """p50, p90, min and max of ``xs`` (p90 interpolated)."""
+    xs = sorted(xs)
+    return {"n": len(xs), "p50": statistics.median(xs),
+            "p90": statistics.quantiles(xs, n=10, method="inclusive")[8],
+            "min": xs[0], "max": xs[-1]}
+
+
+def phase_graph_path(state: dict) -> dict:
+    """The compiled executor at DiT-XL/2 full width (the main path's tame
+    model, latent [8, 256, 16], SA NFE 20 P3C3 PEC tau 1, flash): fused
+    f32, kernel-combine bf16, one-call CFG at scale 1.5 (batch 16, a
+    shared (256, 16) input-space prompt) and feature caching at interval
+    2, each through its own compile-cache entry with the phase's x_T and
+    one [19, 8, 256, 16] noise buffer. For each:
+
+    - the first call (an eager warm-up solve, then the capture) is one
+      miss and one graph; the second call (a replay) and an ``eager()``
+      solve equal it bit for bit, each with the launches of one solve;
+    - a tau re-plan (0.5, same NFE) is a hit with no new graph and equals
+      a fresh entry's solve bit for bit;
+    - CFG: a scale sweep (1.0, 1.5, 4.0) adds no miss and no graph; 1.5
+      equals the replay, 4.0 its ``eager()`` solve;
+    - feature cache: the ``residual:0.05`` policy (a hit on another
+      signature) runs eager, counted in ``aot_fallbacks``, and equals its
+      ``eager()`` solve;
+    - GRAPH_REPEATS steady eager solves and replays in turns (p50/p90),
+      the shared graph pool's bytes before and after the capture, and the
+      capture's peak allocation above what was allocated before it."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.core.samplers import compile_cache_stats, eager
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = _tame_dit_xl2(state)
+    L = model.cfg.n_layers
+    a, b = model.cache_span()
+    net, cached = tame_networks(model, params, mu)
+    g = torch.Generator(dev).manual_seed(51)
+    xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
+    M = NFE - 1
+    xi = torch.randn((M,) + SHAPE, generator=g, device=dev)
+    prompt = 0.1 * torch.randn(SHAPE[1:], generator=g, device=dev)
+
+    def sampler(combine="fused", precision="f32", tau=1.0, guided=False,
+                fc=None):
+        return make_sampler("sa", nfe=NFE, tau=tau, predictor_order=3,
+                            corrector_order=3, mode="PEC", combine=combine,
+                            precision=precision, schedule=schedule,
+                            prediction="x0", guidance=guided,
+                            feature_cache=fc)
+
+    def denoiser(guided, fc):
+        return Denoiser(net, schedule, prediction="x0", guidance=guided,
+                        cached=cached if fc is not None else None)
+
+    def run(s, den, kw):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, xT, noise=xi, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        require(bool(torch.isfinite(out).all()) and tuple(out.shape) == SHAPE,
+                f"graph: {s.spec}: bad output")
+        return out, secs, {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+
+    def moved(before):
+        now = compile_cache_stats()
+        return {k: now[k] - before[k]
+                for k in ("hits", "misses", "graphs", "aot_fallbacks")}
+
+    configs = {  # label -> (sampler keywords, sample keywords)
+        "fused_f32": ({}, {}),
+        "kernel_bf16": ({"combine": "kernel", "precision": "bf16"}, {}),
+        "cfg_fused_f32": ({"guided": True},
+                          {"cond": prompt, "guidance_scale": CFG_SCALE}),
+        "fc2_fused_f32": ({"fc": 2}, {}),
+    }
+    ops.reset_launch_counts()  # the graph main-path window starts here
+    results = {}
+    for label, (skw, kw) in configs.items():
+        s = sampler(**skw)
+        guided, fc = skw.get("guided", False), skw.get("fc")
+        den = denoiser(guided, fc)
+        refreshing = sum(s.plan.arrays["fc_refresh"]) if fc else M
+        want = {"flash_attention": L + L * refreshing
+                + (L - (b - a)) * (M - refreshing)}
+        if skw.get("combine") == "kernel":
+            want["sa_update"] = 2 * M
+        else:
+            want["sa_fused"] = M
+        rec: dict = {"sampler": repr(s.spec), "want_launches": want}
+
+        st = compile_cache_stats()
+        pool0 = graph_pool_bytes()
+        alloc0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first, rec["cold_s"], l_first = run(s, den, kw)
+        rec["capture_peak_bytes_above_allocated"] = \
+            torch.cuda.max_memory_allocated() - alloc0
+        rec["pool_bytes_before_after_capture"] = [pool0, graph_pool_bytes()]
+        rec["first_call_stats"] = moved(st)
+        replay, _, l_replay = run(s, den, kw)
+        with eager():
+            ref, _, l_eager = run(s, den, kw)
+        rec["replay_equals_eager_bitwise"] = bool(torch.equal(replay, ref))
+        rec["first_equals_eager_bitwise"] = bool(torch.equal(first, ref))
+        rec["launches"] = {"first": l_first, "replay": l_replay,
+                           "eager": l_eager}
+        emit({"phase": "graph_path", "progress": label, **rec})
+        require(rec["first_call_stats"] == {"hits": 0, "misses": 1,
+                                            "graphs": 1, "aot_fallbacks": 0},
+                f"graph: {label}: first call {rec['first_call_stats']}")
+        require(rec["replay_equals_eager_bitwise"] and
+                rec["first_equals_eager_bitwise"],
+                f"graph: {label}: replay or first call not bitwise eager: "
+                f"{rel_gap(replay, ref)}")
+        require(l_first == l_replay == l_eager == want,
+                f"graph: {label}: launches {rec['launches']}, expected {want}")
+
+        # a tau re-plan at the same NFE: a hit that replays the same graph
+        st = compile_cache_stats()
+        replanned, _, l_rp = run(sampler(**skw, tau=0.5), den, kw)
+        rec["replan_stats"] = moved(st)
+        fresh_den = denoiser(guided, fc)
+        fresh = run(sampler(**skw, tau=0.5), fresh_den, kw)[0]
+        del fresh_den  # its entry and graph go with it
+        rec["replan_equals_fresh_bitwise"] = bool(torch.equal(replanned,
+                                                              fresh))
+        require(rec["replan_stats"] == {"hits": 1, "misses": 0, "graphs": 0,
+                                        "aot_fallbacks": 0} and l_rp == want,
+                f"graph: {label}: re-plan {rec['replan_stats']}, {l_rp}")
+        require(rec["replan_equals_fresh_bitwise"],
+                f"graph: {label}: re-plan not bitwise a fresh entry's solve: "
+                f"{rel_gap(replanned, fresh)}")
+        require(not torch.equal(replanned, replay),
+                f"graph: {label}: the re-plan solved the old plan")
+
+        if guided:
+            st = compile_cache_stats()
+            sweep = {sc: run(s, den, dict(kw, guidance_scale=sc))
+                     for sc in GRAPH_SCALES}
+            rec["scale_sweep_stats"] = moved(st)
+            with eager():
+                ref4 = run(s, den, dict(kw, guidance_scale=4.0))[0]
+            rec["scale_sweep"] = {
+                "scale_1.5_equals_replay": bool(torch.equal(
+                    sweep[CFG_SCALE][0], replay)),
+                "scale_4_equals_eager": bool(torch.equal(sweep[4.0][0],
+                                                         ref4)),
+                "scale_4_vs_1.5": rel_gap(sweep[4.0][0], replay),
+                "scale_1_vs_1.5": rel_gap(sweep[1.0][0], replay)}
+            require(rec["scale_sweep_stats"] == {"hits": 3, "misses": 0,
+                                                 "graphs": 0,
+                                                 "aot_fallbacks": 0},
+                    f"graph: scale sweep {rec['scale_sweep_stats']}")
+            require(rec["scale_sweep"]["scale_1.5_equals_replay"] and
+                    rec["scale_sweep"]["scale_4_equals_eager"] and
+                    rec["scale_sweep"]["scale_4_vs_1.5"] > 0 and
+                    all(l == want for _, _, l in sweep.values()),
+                    f"graph: scale sweep {rec['scale_sweep']}")
+
+        if fc is not None:
+            s_res = sampler(fc=("residual", 0.05))
+            st = compile_cache_stats()
+            r1 = run(s_res, den, kw)[0]
+            r2 = run(s_res, den, kw)[0]
+            with eager():
+                r3 = run(s_res, den, kw)[0]
+            rec["residual_stats"] = moved(st)
+            rec["residual_equals_eager_bitwise"] = bool(
+                torch.equal(r1, r3) and torch.equal(r2, r3))
+            require(rec["residual_stats"] == {"hits": 3, "misses": 0,
+                                              "graphs": 0,
+                                              "aot_fallbacks": 3},
+                    f"graph: residual {rec['residual_stats']}")
+            require(rec["residual_equals_eager_bitwise"],
+                    "graph: residual solves differ from eager")
+
+        eager_s, replay_s = [], []
+        for _ in range(GRAPH_REPEATS):
+            with eager():
+                _, secs, l_e = run(s, den, kw)
+            eager_s.append(secs)
+            _, secs, l_r = run(s, den, kw)
+            replay_s.append(secs)
+            require(l_e == l_r == want, f"graph: {label}: steady launches "
+                    f"{l_e} / {l_r}, expected {want}")
+        rec["eager_s"], rec["replay_s"] = spread(eager_s), spread(replay_s)
+        rec["replay_over_eager_p50"] = (rec["replay_s"]["p50"]
+                                        / rec["eager_s"]["p50"])
+        results[label] = rec
+    state["launches"]["graph"] = ops.launch_counts()  # window ends
+    live = sum(r.graph is not None for e in _cache_entries()
+               for r in e.runs.values())
+    res = {"phase": "graph_path", "arch": model.cfg.name, "layers": L,
+           "latent": list(SHAPE), "weights": "tame", "nfe": NFE,
+           "repeats": GRAPH_REPEATS, "configs": results,
+           "cache": compile_cache_stats(), "live_graphs": live,
+           "pool_bytes": graph_pool_bytes(),
+           "memory_stats": {k: torch.cuda.memory_stats()[k] for k in (
+               "reserved_bytes.all.current", "allocated_bytes.all.current")},
+           "ok": True}
+    emit(res)
+    return res
+
+
+def _cache_entries():
+    from repro_torch.core.samplers import base
+    return list(base._COMPILE_CACHE.values())
 
 
 #: the feature cache's policies: interval 1 (every step refreshes), 2, 3,
@@ -1208,7 +1480,8 @@ def phase_feature_cache_path(state: dict) -> dict:
     refreshes: list = []
 
     def call(x, t, c, feats, refresh):
-        refreshes.append(bool(refresh))
+        if not torch.cuda.is_current_stream_capturing():
+            refreshes.append(bool(refresh))
         return cached.call(x, t, c, feats, refresh)
 
     counted = CachedNetwork(call=call, init=cached.init)
@@ -1237,8 +1510,12 @@ def phase_feature_cache_path(state: dict) -> dict:
         rec, outs = {"steps": M}, []
         for kind in ("cold", "steady"):
             refreshes.clear()
-            out, secs, launches, batches = _timed_solve(s, den, xT, xis, **kw)
-            r = M if fc is None else sum(refreshes) - 1  # minus the init
+            out, secs, launches, batches, ran_eager = _timed_solve(
+                s, den, xT, xis, **kw)
+            require(ran_eager or not refreshes,
+                    f"fc: {label}: a replay ran the cached network's Python")
+            if ran_eager:  # a replay refreshes as its warm-up solve did
+                r = M if fc is None else sum(refreshes) - 1  # minus the init
             if fc is not None and not isinstance(fc, tuple):
                 planned = sum(s.plan.arrays["fc_refresh"])
                 require(r == planned, f"fc: {label}: {r} refreshing steps, "
@@ -1246,7 +1523,8 @@ def phase_feature_cache_path(state: dict) -> dict:
             want = {"sa_fused": M, "sa_update": 0, "rwkv6_wkv": 0,
                     "flash_attention": flash_per_solve(r, M)}
             batch = 2 * SHAPE[0] if guided else SHAPE[0]
-            require(launches == want and set(batches) == {batch},
+            require(launches == want and set(batches) == (
+                        {batch} if ran_eager else set()),
                     f"fc: {label}: launches {launches} at batches {batches}, "
                     f"expected {want} at {batch}")
             rec |= {f"{kind}_s": secs, "refreshing_steps": r,
@@ -1453,9 +1731,13 @@ def phase_rwkv6_path(state: dict) -> dict:
     xis = [torch.randn(SHAPE, generator=g, device=dev)
            for _ in range(s.spec.n_steps)]
 
+    # one Denoiser per backbone variant, so that each is one compile-cache
+    # entry whose graph later solves replay
+    dens = {key: Denoiser(tame_networks(m, params, mu)[0], schedule,
+                          prediction="x0") for key, m in models.items()}
+
     def solve(key, x=xT):
-        den = Denoiser(tame_networks(models[key], params, mu)[0],
-                       schedule, prediction="x0")
+        den = dens[key]
         before = ops.launch_counts()
         t = time.perf_counter()
         out = s.sample(den, x, noise=lambda i: xis[i])
@@ -1481,7 +1763,8 @@ def phase_rwkv6_path(state: dict) -> dict:
     state["held"]["rwkv6"] = held
     peak = torch.cuda.max_memory_allocated()
 
-    out_k32, steady_f32, _ = solve(("float32", True))
+    # first calls of their entries: an eager solve, then the capture
+    out_k32, first_f32, _ = solve(("float32", True))
     out_p32, plain_f32_s, l_plain = solve(("float32", False))
     require(l_plain["rwkv6_wkv"] == 0, "plain-WKV solve launched the kernel")
     v = torch.randn(SHAPE, generator=g, device=dev)
@@ -1493,7 +1776,7 @@ def phase_rwkv6_path(state: dict) -> dict:
             "kernel_vs_plain_wkv_bf16": rel_gap(out_bf, out_pbf)}
     info = {"bf16_vs_f32_stream": rel_gap(out_bf, out_k32),
             "x0_minus_anchor_std": float((out_k32 - mu(SHAPE[1])).std())}
-    state["rwkv6"] = (models["bfloat16", True], params, mu, schedule, xT)
+    state["rwkv6"] = (dens["bfloat16", True], schedule, xT)
     result = {"phase": "rwkv6_path", "arch": cfg.name,
               "layers": cfg.n_layers, "d_model": cfg.d_model,
               "heads": cfg.n_heads, "head_dim": cfg.head_dim,
@@ -1505,8 +1788,9 @@ def phase_rwkv6_path(state: dict) -> dict:
                           "predictor_order": 3, "corrector_order": 3,
                           "mode": "PEC", "combine": "fused"},
               "stream": "bfloat16 (published)", "cold_s": cold,
-              "steady_s": steady, "steady_f32_stream_s": steady_f32,
-              "plain_wkv_f32_stream_s": plain_f32_s,
+              "steady_s": steady, "first_call_f32_stream_s": first_f32,
+              "first_call_plain_wkv_f32_stream_s": plain_f32_s,
+              "graph_pool_bytes": graph_pool_bytes(),
               "repeat_bitwise": bool(torch.equal(out_bf, out_bf2)),
               "launches_per_solve": l_steady,
               "max_memory_allocated": peak,
@@ -1527,23 +1811,21 @@ def phase_rwkv6_path(state: dict) -> dict:
 
 def phase_rwkv6_profile(state: dict) -> dict:
     """Where one steady RWKV6-3B solve (bf16 stream, WKV kernel, fused
-    combine) spends device time; plus one backbone evaluation timed with
-    CUDA events."""
+    combine: a replay of the graph ``rwkv6_path`` captured) spends device
+    time; plus one backbone evaluation timed with CUDA events."""
     import torch
-    from repro_torch.core import Denoiser, make_sampler
-    from repro_torch.models.tame import tame_networks
+    from repro_torch.core import make_sampler
     dev = torch.device("cuda")
-    model, params, mu, schedule, xT = state.pop("rwkv6")
+    den, schedule, xT = state.pop("rwkv6")
     s = make_sampler("sa", nfe=NFE, tau=1.0, combine="fused",
                      schedule=schedule, prediction="x0")
-    net, _ = tame_networks(model, params, mu)
-    den = Denoiser(net, schedule, prediction="x0")
     g = torch.Generator(dev).manual_seed(1)
     split = _profile_solve(lambda: s.sample(den, xT, g))
     tt = torch.tensor(0.5, device=dev)
-    eval_ms = time_ms(lambda: net(xT, tt, None), inner=1, samples=5)
+    eval_ms = time_ms(lambda: den.network(xT, tt, None), inner=1, samples=5)
     return {"phase": "rwkv6_profile", "ok": True,
-            "solve": "fused f32 solver, bf16 stream, steady", **split,
+            "solve": "fused f32 solver, bf16 stream, steady (a CUDA graph "
+                     "replay)", **split,
             "backbone_eval_ms": eval_ms}
 
 
@@ -1574,6 +1856,7 @@ def main() -> int:
     emit(phase_profile(state))
     phase_programs_path(state)
     phase_guided_path(state)
+    phase_graph_path(state)
     phase_feature_cache_path(state)
     phase_sample_defaults(state)
     phase_gmm()

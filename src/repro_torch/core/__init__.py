@@ -13,8 +13,9 @@ from .oracle import GMM, gaussian_oracle
 from .programs import (StepProgram, list_presets, parse_program,
                        program_preset)
 from . import samplers
-from .samplers import (Sampler, SamplerPlan, SamplerSpec, list_samplers,
-                       make_sampler, register_sampler)
+from .samplers import (Sampler, SamplerPlan, SamplerSpec,
+                       clear_compile_cache, compile_cache_stats,
+                       list_samplers, make_sampler, register_sampler, warmup)
 from .schedules import (EDMSchedule, NoiseSchedule, VESchedule,
                         VPCosineSchedule, VPLinearSchedule, get_schedule,
                         timestep_grid)
@@ -24,7 +25,8 @@ __all__ = [
     "samplers", "CachedNetwork", "Denoiser", "canonical_prediction",
     "convert_prediction",
     "Sampler", "SamplerPlan", "SamplerSpec", "make_sampler",
-    "register_sampler", "list_samplers", "SolverTables", "build_tables",
+    "register_sampler", "list_samplers", "warmup", "compile_cache_stats",
+    "clear_compile_cache", "SolverTables", "build_tables",
     "exp_monomial_integrals", "NoiseSchedule", "VPLinearSchedule",
     "VPCosineSchedule", "VESchedule", "EDMSchedule", "get_schedule",
     "timestep_grid", "TauSchedule", "ConstantTau", "BandedTau", "DDIMEtaTau",

@@ -180,8 +180,18 @@ class Denoiser:
         return xx, torch.cat([self._batched(cond, B),
                               self._batched(null, B)])
 
+    def statics(self, target: str) -> tuple:
+        """What the binding to ``target`` computes, for the compile-cache
+        key: everything but the network itself (keyed separately, by weak
+        identity) and the per-call cond and scale (data)."""
+        return ("denoiser", self.prediction, bool(self.guidance),
+                canonical_prediction(target), self.schedule)
+
     @staticmethod
     def _combine(c_out, u_out, scale):
+        # the sampler hands the scale over as a 0-d float32 tensor on the
+        # device (its compile-cache entry's buffer), so this reads device
+        # data and copies nothing from the host
         s = torch.as_tensor(scale, dtype=c_out.dtype, device=c_out.device)
         # (1-s)*u + s*c: at s == 1.0 this is exactly the cond branch
         return (1.0 - s) * u_out + s * c_out

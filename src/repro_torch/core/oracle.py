@@ -22,11 +22,15 @@ __all__ = ["GMM", "gaussian_oracle"]
 @dataclasses.dataclass(frozen=True)
 class GMM:
     """Gaussian mixture in R^d with diagonal covariances (numpy f64 on the
-    host; evaluated in float32 on the device of the input)."""
+    host; evaluated in float32 on the device of the input, from one copy
+    per device made at the first evaluation there, so a later one copies
+    nothing from the host and can be captured in a CUDA graph)."""
 
     weights: np.ndarray  # [K]
     means: np.ndarray    # [K, d]
     stds: np.ndarray     # [K, d]
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
 
     @staticmethod
     def default_2d() -> "GMM":
@@ -49,16 +53,23 @@ class GMM:
     def dim(self) -> int:
         return self.means.shape[1]
 
-    def _t(self, a, device) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=device)
+    def _t(self, name: str, device) -> torch.Tensor:
+        """Field ``name`` as float32 on ``device`` (copied once)."""
+        device = torch.device(device)
+        key = (name, device)
+        t = self._on_device.get(key)
+        if t is None:
+            t = self._on_device[key] = torch.as_tensor(
+                getattr(self, name), dtype=torch.float32, device=device)
+        return t
 
     def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
         """n exact draws on ``generator``'s device."""
         dev = generator.device
-        comp = torch.multinomial(self._t(self.weights, dev), n,
+        comp = torch.multinomial(self._t("weights", dev), n,
                                  replacement=True, generator=generator)
         z = torch.randn((n, self.dim), generator=generator, device=dev)
-        return self._t(self.means, dev)[comp] + self._t(self.stds, dev)[comp] * z
+        return self._t("means", dev)[comp] + self._t("stds", dev)[comp] * z
 
     # ---- exact posteriors under the diffusion ---------------------------
     def x0_prediction(self, schedule: NoiseSchedule, x: torch.Tensor, t,
@@ -69,12 +80,12 @@ class GMM:
         a = schedule.alpha_d(t)
         s = schedule.sigma_d(t)
         dev = x.device
-        mu = self._t(self.means, dev)               # [K, d]
+        mu = self._t("means", dev)               # [K, d]
         if shift is not None:
             mu = mu + shift
-        stds = self._t(self.stds, dev)
+        stds = self._t("stds", dev)
         var_k = (a * stds) ** 2 + s ** 2            # [K, d]
-        logw = torch.log(self._t(self.weights, dev))
+        logw = torch.log(self._t("weights", dev))
         diff = x[..., None, :] - a * mu             # [..., K, d]
         logp = logw - 0.5 * torch.sum(
             diff ** 2 / var_k + torch.log(2 * math.pi * var_k), dim=-1)

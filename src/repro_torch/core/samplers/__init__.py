@@ -21,11 +21,15 @@ from .base import (
     SamplerSpec,
     build_plan,
     carry_dtype,
+    clear_compile_cache,
+    compile_cache_stats,
+    eager,
     get_family,
     list_samplers,
     make_sampler,
     register_sampler,
     sample,
+    warmup,
 )
 
 # importing the family module registers it
@@ -39,5 +43,6 @@ __all__ = [
     "convert_prediction", "Sampler", "SamplerFamily", "SamplerPlan",
     "SamplerSpec", "build_plan", "carry_dtype", "get_family",
     "list_samplers", "make_sampler", "register_sampler", "sample",
+    "warmup", "compile_cache_stats", "clear_compile_cache", "eager",
     "make_multistep_family", "tables_to_arrays",
 ]

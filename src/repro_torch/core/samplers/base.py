@@ -7,39 +7,62 @@
    precompute (timestep grid, coefficient tables) and packages it as a
    :class:`SamplerPlan` whose ``arrays`` are f32 tensors, copied once to
    each device a solve runs on.
-3. **Execute**: :func:`sample` runs the family's executor eagerly: a
-   Python loop over the steps on the device of ``x_T``.
+3. **Execute**: :func:`sample` runs the family's executor through the
+   compile cache: an LRU of entries keyed on the family, its statics, the
+   latent's shape, dtype and device, a weak identity of the model, the
+   model adapter's statics and the shape of ``cond``. An entry holds the
+   solve's inputs as device buffers (the plan's tables, ``x_T``, the
+   noise, ``cond`` and the guidance scale), which each call copies into.
+   On a CUDA device it captures the solve as a CUDA graph, one per graph
+   signature (the tables' shapes and the host flags the executor's loop
+   branches on), and replays it; so a re-plan at one step count (another
+   tau, program or grid) replays the same graph. On the CPU the entry
+   runs the eager executor over the same buffers. :func:`warmup` builds
+   an entry (and its graph) ahead of the first call;
+   :func:`compile_cache_stats` counts hits, misses, evictions, eager
+   calls (``aot_fallbacks``) and captured graphs.
 
 The model argument is a plain ``model_fn(x, t)`` already speaking the
 plan's parameterization, or a :class:`repro_torch.core.denoiser.Denoiser`
 wrapping a raw eps-/x0-/v-prediction network (optionally under
 classifier-free guidance, optionally with a feature-cached companion),
-bound to the per-call ``cond`` and ``guidance_scale``.
+bound to the entry's ``cond`` and guidance-scale buffers.
 
-The per-step Gaussian noise is injectable: ``noise`` is a callable
-``step -> xi`` (float32, the shape of ``x_T``, on its device). By default
-it draws from a :class:`torch.Generator` on ``x_T``'s device.
+The per-step Gaussian noise is one float32 ``[M, *x_T.shape]`` buffer,
+row i for step i (the reference draws ``split(key, M)`` and one normal per
+step). By default it is drawn at once from a :class:`torch.Generator` on
+``x_T``'s device; ``noise=`` gives it as such a tensor, or as a callable
+``step -> xi`` called for every step before the solve.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import types
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ...device import resolve_device
+from ...kernels import ops
 from ..denoiser import Denoiser, canonical_prediction, convert_prediction
 from ..schedules import NoiseSchedule, get_schedule, timestep_grid
 
 __all__ = [
     "PRECISIONS", "carry_dtype", "SamplerSpec", "SamplerPlan",
     "SamplerFamily", "Sampler", "register_sampler", "get_family",
-    "make_sampler", "list_samplers", "build_plan", "sample",
+    "make_sampler", "list_samplers", "build_plan", "sample", "warmup",
+    "compile_cache_stats", "clear_compile_cache", "eager",
 ]
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-NoiseFn = Callable[[int], torch.Tensor]
+#: a float32 [M, *x_T.shape] tensor, or a callable ``step -> xi``
+Noise = Any
 
 #: legal values of ``SamplerSpec.precision``
 PRECISIONS = ("f32", "bf16")
@@ -206,6 +229,11 @@ class SamplerFamily:
     #: whether tau is definitionally inert for this family (a
     #: deterministic family maps every tau to 0)
     tau_inert: bool = False
+    #: plan arrays -> whether the executor reads a device value back to
+    #: the host on them (to branch on it): such a solve cannot be
+    #: captured as a CUDA graph and runs eager, counted in
+    #: ``aot_fallbacks``
+    reads_back: Callable[[dict], bool] = lambda arrays: False
 
 
 _REGISTRY: dict[str, SamplerFamily] = {}
@@ -270,55 +298,397 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
             "spec.feature_cache requires a Denoiser built with cached= (a "
             "CachedNetwork exposing the split-segment evaluation)")
     guided = isinstance(model_fn, Denoiser) and model_fn.guidance
-    if not guided and float(guidance_scale) != 1.0:
+    if not guided and not isinstance(guidance_scale, torch.Tensor) and \
+            float(guidance_scale) != 1.0:
+        # a host-side check only: a tensor scale is not read back (a
+        # non-unity tensor scale without a guided Denoiser is inert)
         raise ValueError(
             "guidance_scale has no effect without a guidance-enabled "
             "Denoiser; wrap the network in Denoiser(..., guidance=True) "
             "and set spec.guidance")
 
 
-def _bind_model(plan: SamplerPlan, model_fn, cond, scale) -> ModelFn:
-    """The executor-facing ``model_fn(x, t)``: a Denoiser bound to the
-    plan's convention and this call's cond/scale, or a plain model whose
-    output ``spec.prediction`` names, converted to the plan's convention.
-    A Denoiser with a feature-cached companion also carries
-    ``cached_call(x, t, feats, refresh) -> (pred, feats)`` and
-    ``init_feats(x)`` for the feature-caching executor."""
+def _adapter_statics(plan: SamplerPlan, model_fn) -> tuple | None:
+    """What the model's binding computes, for the cache key: None for a
+    model already speaking the plan's convention, a tuple for a Denoiser
+    binding or a plain model's prediction-type conversion."""
     target = get_family(plan.spec.name).model_convention(plan.spec)
     if isinstance(model_fn, Denoiser):
-        fn = model_fn.as_model_fn(target, cond, scale)
-        if model_fn.cached is not None:
-            fn.cached_call = model_fn.as_cached_model_fn(target, cond, scale)
-            fn.init_feats = model_fn.init_feats
-        return fn
+        return model_fn.statics(target)
     pred = plan.spec.prediction
     if pred is not None and \
             canonical_prediction(pred) != canonical_prediction(target):
-        schedule = plan.spec.resolve_schedule()
-        return lambda x, t: convert_prediction(model_fn(x, t), x, t, pred,
-                                               target, schedule)
-    return model_fn
+        return ("convert", canonical_prediction(pred),
+                canonical_prediction(target), plan.spec.resolve_schedule())
+    return None
 
 
-def gaussian_noise(shape, generator: torch.Generator) -> NoiseFn:
-    """The default noise source: one float32 standard normal of ``shape``
-    per step, drawn on ``generator``'s device."""
-    return lambda step: torch.randn(shape, generator=generator,
-                                    device=generator.device,
-                                    dtype=torch.float32)
+def _bind_model(m, adapter, cond, scale) -> ModelFn:
+    """The executor-facing ``model_fn(x, t)``: a Denoiser bound to the
+    plan's convention and the entry's cond and scale buffers, or a plain
+    model whose output the adapter converts. A Denoiser with a
+    feature-cached companion also carries ``cached_call(x, t, feats,
+    refresh) -> (pred, feats)`` and ``init_feats(x)`` for the
+    feature-caching executor."""
+    if adapter is None:
+        return m
+    if adapter[0] == "denoiser":
+        fn = m.as_model_fn(adapter[3], cond, scale)
+        if m.cached is not None:
+            fn.cached_call = m.as_cached_model_fn(adapter[3], cond, scale)
+            fn.init_feats = m.init_feats
+        return fn
+    _, src, dst, schedule = adapter  # a plain model, its output converted
+    return lambda x, t: convert_prediction(m(x, t), x, t, src, dst, schedule)
+
+
+def _cond_struct(cond):
+    """The part of ``cond`` that keys an entry: its shape and dtype (its
+    values are data, copied into the entry's buffer)."""
+    if cond is None:
+        return None
+    return (tuple(cond.shape), str(cond.dtype))
+
+
+# ------------------------------------------------------------ compile cache
+_COMPILE_CACHE: OrderedDict = OrderedDict()
+_COMPILE_CACHE_MAX = 64
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0, "aot_fallbacks": 0,
+                "graphs": 0}
+_MODEL_TOKEN_IDX = 4  # position of the model token inside a cache key
+#: depth of nested :func:`eager` contexts
+_EAGER_DEPTH = 0
+#: per CUDA device: the side stream that warms and captures every graph,
+#: and the memory pool all of the cache's graphs share
+_STREAMS: dict = {}
+_POOLS: dict = {}
+
+
+def compile_cache_stats() -> dict:
+    """``hits``/``misses``/``evictions`` as the reference counts them;
+    ``aot_fallbacks``: calls that did not run the entry's CUDA graph (the
+    residual feature-cache policy, and calls inside :func:`eager`), on any
+    device; ``graphs``: CUDA graphs captured; ``size``: live entries."""
+    return dict(_CACHE_STATS, size=len(_COMPILE_CACHE))
+
+
+def clear_compile_cache() -> None:
+    _COMPILE_CACHE.clear()
+    for k in _CACHE_STATS:
+        _CACHE_STATS[k] = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside this context every :func:`sample` runs the eager executor
+    over its entry's buffers (counted in ``aot_fallbacks``) and nothing is
+    captured: the analog of ``jax.disable_jit()``, for code that must see
+    each kernel call run (a check that reads a call's result back)."""
+    global _EAGER_DEPTH
+    _EAGER_DEPTH += 1
+    try:
+        yield
+    finally:
+        _EAGER_DEPTH -= 1
+
+
+class _Run:
+    """One graph signature of an entry: the plan's tables as device
+    buffers (host flags kept as they are), the noise buffer, and on a CUDA
+    device the captured graph, its output buffer and the kernel launches
+    one replay makes."""
+
+    __slots__ = ("arrays", "noise", "plan", "graph", "out", "launches")
+
+    def __init__(self, plan: SamplerPlan, x: torch.Tensor):
+        self.arrays = {k: torch.empty_like(v, device=x.device)
+                       if isinstance(v, torch.Tensor) else v
+                       for k, v in plan.arrays.items()}
+        self.noise = torch.zeros((plan.spec.n_steps,) + tuple(x.shape),
+                                 dtype=torch.float32, device=x.device)
+        self.plan = None  # weak reference to the plan last copied in
+        self.graph = None
+        self.out = None
+        self.launches: dict = {}
+
+    def load_plan(self, plan: SamplerPlan) -> None:
+        if self.plan is not None and self.plan() is plan:
+            return
+        src = plan.arrays_on(self.noise.device)
+        for k, v in self.arrays.items():
+            if isinstance(v, torch.Tensor):
+                v.copy_(src[k])
+        self.plan = weakref.ref(plan)
+
+
+def _signature(plan: SamplerPlan) -> tuple:
+    """What one CUDA graph of an entry is captured for: the shapes of the
+    plan's tensors (the step count and table width) and its host values
+    (the flags the executor's loop branches on)."""
+    return tuple((k, tuple(v.shape)) if isinstance(v, torch.Tensor)
+                 else (k, v) for k, v in sorted(plan.arrays.items()))
+
+
+class _CacheEntry:
+    """One compiled executor: the family's executor bound to its statics
+    and model adapter, the solve's input buffers on the latent's device
+    (``x``, ``cond``, the 0-d float32 guidance ``scale``), one
+    :class:`_Run` per graph signature, and a weak reference to the model
+    (weak so the cache never pins model parameters; a graph reads them by
+    address, so the entry is evicted when the model dies)."""
+
+    __slots__ = ("family", "statics", "adapter", "model", "x", "cond",
+                 "scale", "runs")
+
+    def __init__(self, family, statics, adapter, model, x, cond):
+        self.family = family
+        self.statics = statics
+        self.adapter = adapter
+        self.model = model
+        self.x = x
+        self.cond = cond
+        self.scale = torch.ones((), dtype=torch.float32, device=x.device)
+        self.runs: dict = {}
+
+    def run_for(self, plan: SamplerPlan) -> _Run:
+        sig = _signature(plan)
+        run = self.runs.get(sig)
+        if run is None:
+            run = self.runs[sig] = _Run(plan, self.x)
+        return run
+
+    def execute(self, run: _Run) -> torch.Tensor:
+        """The eager solve over the entry's buffers."""
+        model = _bind_model(_deref_model(self.model), self.adapter,
+                            self.cond, self.scale)
+        return self.family.execute(self.statics, run.arrays, model, self.x,
+                                   run.noise)
+
+    def capture(self, run: _Run) -> torch.Tensor:
+        """One eager solve on the side stream (it builds the kernels, loads
+        their libraries and sets up cuBLAS and the kernels' attributes,
+        none of which may run in a capture), then the capture of the same
+        solve into ``run.graph``. Returns the eager solve's output."""
+        device = self.x.device
+        stream = _STREAMS.get(device)
+        if stream is None:
+            stream = _STREAMS[device] = torch.cuda.Stream(device)
+            _POOLS[device] = torch.cuda.graph_pool_handle()
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = self.execute(run)
+        current.wait_stream(stream)
+        out.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        collecting = gc.isenabled()
+        gc.disable()  # no weakref eviction frees a graph mid-capture
+        try:
+            with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
+                run.out = self.execute(run)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the {self.family.name!r} solve "
+                f"(statics {self.statics}) failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
+            after = ops.launch_counts()
+            # the capture ran the wrappers but launched nothing: take the
+            # counts back; each replay adds them
+            run.launches = {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}
+            ops.add_launches({k: -n for k, n in run.launches.items()})
+        run.graph = graph
+        _CACHE_STATS["graphs"] += 1
+        return out
+
+    def replay(self, run: _Run) -> torch.Tensor:
+        run.graph.replay()
+        ops.add_launches(run.launches)
+        return run.out
+
+
+class _WeakIdToken:
+    """Weak *identity* of a model for the cache key.
+
+    Hashes by ``id`` and compares equal only to tokens of the same live
+    object, so unhashable callables work, value-equal but distinct
+    models never share an executor, and the token holds no strong
+    reference. A dead token equals nothing (and its entry is evicted by
+    the death callback before the id can be recycled under a live key).
+    """
+
+    __slots__ = ("ref", "oid")
+
+    def __init__(self, obj, callback=None):
+        self.ref = weakref.ref(obj, callback)
+        self.oid = id(obj)
+
+    def __hash__(self):
+        return self.oid
+
+    def __eq__(self, other):
+        if not isinstance(other, _WeakIdToken):
+            return NotImplemented
+        a = self.ref()
+        return a is not None and a is other.ref()
+
+
+def _model_token(model_fn, callback=None):
+    """Weak identity token for the cache key; None -> strong fallback.
+    Bound methods go through :class:`weakref.WeakMethod` (equality by
+    instance and function, surviving the transient method object); other
+    callables get a :class:`_WeakIdToken`."""
+    if isinstance(model_fn, types.MethodType):
+        try:
+            tok = weakref.WeakMethod(model_fn, callback)
+            hash(tok)  # hashes the method -> needs a hashable instance
+            return tok
+        except TypeError:
+            return None
+    try:
+        return _WeakIdToken(model_fn, callback)
+    except TypeError:
+        return None
+
+
+def _token_matches(token, ref) -> bool:
+    if token is ref:  # WeakMethod
+        return True
+    return isinstance(token, _WeakIdToken) and token.ref is ref
+
+
+def _on_model_death(ref) -> None:
+    """Weakref callback: the model behind ``ref`` was garbage-collected, so
+    its entries (whose graphs read the model's parameters by address) are
+    dead weight; evict them, graphs and buffers with them."""
+    for key in [k for k in _COMPILE_CACHE
+                if _token_matches(k[_MODEL_TOKEN_IDX], ref)]:
+        if _COMPILE_CACHE.pop(key, None) is not None:
+            _CACHE_STATS["evictions"] += 1
+
+
+def _deref_model(ref):
+    """The model behind an entry's reference (a weak one, or the model
+    itself where it cannot be weakly referenced)."""
+    m = ref() if isinstance(ref, weakref.ref) else ref
+    if m is None:
+        raise RuntimeError(
+            "the model_fn behind this cached executor was garbage-"
+            "collected; call sample() with a live model_fn")
+    return m
+
+
+def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
+              cond=None) -> _CacheEntry:
+    """LRU-cached executor entry.
+
+    Keyed on (family name, executor statics, latent shape, dtype, model
+    token, model-adapter statics, cond shape and dtype, device), as the
+    reference keys its jitted executors (less the trajectory, batch and
+    mesh of its serving paths). The model token is a weak identity of
+    ``model_fn``: the cache holds no strong reference to the model, and an
+    entry is evicted when its model is garbage-collected. ``plan.arrays``,
+    the cond values and the guidance scale are data copied into the
+    entry's buffers, so another plan of the same statics and step count
+    (tau, grid, coefficient values), a new cond of the same shape or a new
+    scale reuse the entry and its graph; a new step count is a hit that
+    captures one more graph in the same entry.
+    """
+    token = _model_token(model_fn)
+    if token is None:
+        # not weakly keyable: identity, and a strong reference in the
+        # entry, which pins the object so its id cannot recycle
+        token = ("strong", id(model_fn))
+    adapter = _adapter_statics(plan, model_fn)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (plan.spec.name, plan.statics, tuple(shape), str(dtype), token,
+           adapter, _cond_struct(cond), device)
+    entry = _COMPILE_CACHE.get(key)
+    if entry is not None:
+        _COMPILE_CACHE.move_to_end(key)
+        _CACHE_STATS["hits"] += 1
+        return entry
+    _CACHE_STATS["misses"] += 1
+    model = model_fn
+    if not isinstance(token, tuple):
+        # storage token: equal/same-hash as the lookup token while the
+        # model lives, plus an eviction callback when it dies
+        token = _model_token(model_fn, _on_model_death)
+        key = key[:_MODEL_TOKEN_IDX] + (token,) + key[_MODEL_TOKEN_IDX + 1:]
+        model = token.ref if isinstance(token, _WeakIdToken) else token
+    x = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    cond_buf = None if cond is None else torch.zeros(
+        tuple(cond.shape), dtype=cond.dtype, device=device)
+    entry = _CacheEntry(get_family(plan.spec.name), plan.statics, adapter,
+                        model, x, cond_buf)
+    _COMPILE_CACHE[key] = entry
+    while len(_COMPILE_CACHE) > _COMPILE_CACHE_MAX:
+        _COMPILE_CACHE.popitem(last=False)
+    return entry
+
+
+def _load_noise(run: _Run, noise, generator, device) -> None:
+    """Fill the run's [M, *shape] noise buffer: from ``noise`` (such a
+    tensor, or a callable called once per step, here, before the solve)
+    or, by default, one draw from ``generator``."""
+    buf = run.noise
+    if noise is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        buf.normal_(generator=generator)
+    elif isinstance(noise, torch.Tensor):
+        if tuple(noise.shape) != tuple(buf.shape):
+            raise ValueError(
+                f"noise of shape {tuple(noise.shape)}; the solve takes "
+                f"[M, *x_T.shape] = {tuple(buf.shape)}")
+        buf.copy_(noise)
+    else:
+        for i in range(buf.shape[0]):
+            buf[i].copy_(noise(i))
+
+
+def _load_scale(entry: _CacheEntry, guidance_scale) -> None:
+    if isinstance(guidance_scale, torch.Tensor):
+        entry.scale.copy_(guidance_scale.reshape(()))
+    else:
+        entry.scale.fill_(float(guidance_scale))
+
+
+def _solve(entry: _CacheEntry, run: _Run) -> torch.Tensor:
+    """Run one solve over the entry's loaded buffers and return a fresh
+    tensor: the graph's replay on a CUDA device once captured, else the
+    eager executor (on a CUDA device, the warm-up that the capture
+    follows)."""
+    if _EAGER_DEPTH or entry.family.reads_back(run.arrays):
+        _CACHE_STATS["aot_fallbacks"] += 1
+        return entry.execute(run).clone()
+    if entry.x.device.type != "cuda":
+        return entry.execute(run).clone()
+    if run.graph is None:
+        return entry.capture(run).clone()
+    return entry.replay(run).clone()
 
 
 # -------------------------------------------------------------- entrypoint
+@torch.no_grad()
 def sample(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
            generator: torch.Generator | None = None, *,
-           noise: NoiseFn | None = None, cond=None, guidance_scale=1.0,
+           noise: Noise = None, cond=None, guidance_scale=1.0,
            trajectory: bool = False) -> torch.Tensor:
-    """Run one sampler end to end, ``x_T -> x_0``, on ``x_T``'s device.
+    """Run one sampler end to end, ``x_T -> x_0``, on ``x_T``'s device,
+    through the compile cache (no autograd).
 
-    ``noise`` (``step -> xi``) replaces the default per-step Gaussian
-    draws from ``generator`` (a fresh generator seeded 0 on ``x_T``'s
-    device when None). ``cond`` and ``guidance_scale`` are forwarded to a
-    :class:`Denoiser` model.
+    ``noise`` replaces the default draw from ``generator`` (a fresh
+    generator seeded 0 on ``x_T``'s device when None): a float32
+    ``[M, *x_T.shape]`` tensor, or a callable ``step -> xi`` called for
+    every step before the solve. ``cond`` and ``guidance_scale`` are
+    forwarded to a :class:`Denoiser` model as the entry's device buffers.
+    The result is a new tensor, never one of the entry's buffers.
     """
     if trajectory:
         raise NotImplementedError(
@@ -326,14 +696,44 @@ def sample(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
             "PyTorch port (stepwise/serve); call sample() without "
             "trajectory=True")
     _check_model(plan, model_fn, cond, guidance_scale)
-    if noise is None:
-        if generator is None:
-            generator = torch.Generator(device=x_T.device).manual_seed(0)
-        noise = gaussian_noise(x_T.shape, generator)
-    family = get_family(plan.spec.name)
-    return family.execute(plan.statics, plan.arrays_on(x_T.device),
-                          _bind_model(plan, model_fn, cond, guidance_scale),
-                          x_T, noise)
+    if cond is not None:
+        cond = torch.as_tensor(cond)
+    entry = _compiled(plan, model_fn, x_T.shape, x_T.dtype, x_T.device,
+                      cond)
+    run = entry.run_for(plan)
+    run.load_plan(plan)
+    entry.x.copy_(x_T)
+    _load_noise(run, noise, generator, x_T.device)
+    if cond is not None:
+        entry.cond.copy_(cond)
+    _load_scale(entry, guidance_scale)
+    return _solve(entry, run)
+
+
+@torch.no_grad()
+def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
+           cond=None, guidance_scale=None, device="cuda") -> None:
+    """Build the entry that :func:`sample` of this plan, model, latent
+    ``shape``/``dtype`` and ``cond`` structure on ``device`` will use and,
+    on a CUDA device, capture its graph for the plan's signature. ``cond``
+    is a prototype of the per-call conditioning (its shape and dtype key
+    the entry; its values feed the warm-up solve). Idempotent: a later
+    warmup or sample of the same key is a hit, and adds no graph."""
+    scale = 1.0 if guidance_scale is None else guidance_scale
+    device = resolve_device(device)
+    _check_model(plan, model_fn, cond, scale)
+    if cond is not None:
+        cond = torch.as_tensor(cond)
+    entry = _compiled(plan, model_fn, shape, dtype, device, cond)
+    run = entry.run_for(plan)
+    if run.graph is not None or entry.x.device.type != "cuda" or \
+            _EAGER_DEPTH or entry.family.reads_back(run.arrays):
+        return
+    run.load_plan(plan)
+    if cond is not None:
+        entry.cond.copy_(cond)
+    _load_scale(entry, scale)
+    entry.capture(run)
 
 
 # ------------------------------------------------------------ bound sampler
@@ -352,7 +752,7 @@ class Sampler:
 
     def sample(self, model_fn, x_T: torch.Tensor,
                generator: torch.Generator | None = None, *,
-               noise: NoiseFn | None = None, cond=None, guidance_scale=1.0,
+               noise: Noise = None, cond=None, guidance_scale=1.0,
                trajectory: bool = False) -> torch.Tensor:
         return sample(self.plan, model_fn, x_T, generator, noise=noise,
                       cond=cond, guidance_scale=guidance_scale,

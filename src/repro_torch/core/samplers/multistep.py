@@ -172,6 +172,12 @@ def _fc_plan(spec: SamplerSpec) -> dict:
             "fc_thresh": thresh}
 
 
+def _reads_residual(arrays: dict) -> bool:
+    """Whether the plan's feature cache is the residual policy, whose
+    steps read the residual back to the host (a finite threshold)."""
+    return arrays.get("fc_thresh", math.inf) < math.inf
+
+
 def _rotated(a: dict, i: int, P: int, *rows) -> torch.Tensor:
     """[len(rows), P+2] packed-coefficient matrix with the b-columns
     rotated to ring positions (age j sits in slot (i - j) mod P), so the
@@ -340,7 +346,10 @@ def _pc_residual(x_next, x_pred) -> torch.Tensor:
 def execute_multistep(statics, dev, model_fn, x_T, noise):
     """The multistep solve as a Python loop over the M steps on the device
     of ``x_T``, each step in the mode its segment (or host flag) gives it.
-    ``noise(i)`` returns step i's float32 Gaussian draw.
+    ``noise`` is the float32 [M, *x_T.shape] buffer of the steps' Gaussian
+    draws (row i is step i's), read on the device: the loop reads no host
+    value but the plan's host flags, so it can be captured as a CUDA graph
+    (all but the residual policy's per-step read).
 
     Feature caching (``statics[-1]``): every evaluation goes through
     ``model_fn.cached_call`` with the features carried from the last
@@ -372,7 +381,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
     prev_err = 0.0
 
     for i, (use_corrector, pece) in enumerate(flags):
-        xi = noise(i).to(cdt)
+        xi = noise[i].to(cdt)
         decay_i = dev["decay"][i]
         noise_i = dev["noise"][i]
         t_next = dev["ts"][i + 1]
@@ -482,5 +491,6 @@ def make_multistep_family(name: str, builder_of, *,
     family = SamplerFamily(
         name=name, plan=plan, execute=execute_multistep, statics=statics,
         nfe_of=multistep_nfe, steps_from_nfe=multistep_steps_from_nfe,
-        model_convention=convention, full_programs=True, tau_inert=tau_inert)
+        model_convention=convention, full_programs=True, tau_inert=tau_inert,
+        reads_back=_reads_residual)
     return register_sampler(family)

@@ -15,7 +15,7 @@ from . import sa_fused as _fused
 from . import sa_update as _update
 
 __all__ = ["sa_update", "sa_fused_update", "flash_attention", "wkv",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "add_launches"]
 
 _MODES = ("auto", "plain")
 _KERNELS = {"sa_update": _update, "sa_fused": _fused,
@@ -65,3 +65,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the wrappers' counts: a
+    CUDA graph replay launches its captured kernels without running the
+    wrappers, so the replay adds the launches its capture recorded."""
+    for name, n in counts.items():
+        _KERNELS[name].launches += n

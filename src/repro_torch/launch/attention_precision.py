@@ -25,7 +25,7 @@ import torch
 
 from ..configs import ARCHS
 from ..core import Denoiser, get_schedule
-from ..core.samplers import Sampler, SamplerSpec
+from ..core.samplers import Sampler, SamplerSpec, eager
 from ..device import resolve_device
 from ..kernels import ops
 from .sample import build_denoiser
@@ -114,7 +114,9 @@ def main(argv=None) -> dict:
     xT = sampler.init_noise(g, (args.batch, args.seq, cfg.denoiser_latent))
     record: dict = {"arch": cfg.name, "latent": list(xT.shape),
                     "nfe": sampler.nfe, "device": str(device)}
-    with recording(record):
+    # eager: the recording reads every flash call back, which a CUDA graph
+    # capture cannot hold
+    with recording(record), eager():
         out = sampler.sample(Denoiser(network, schedule, prediction="x0"),
                              xT, g)
     record["finite"] = bool(torch.isfinite(out).all())

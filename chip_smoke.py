@@ -14,7 +14,10 @@ latent [8, 256, 16]; step programs and the SEEDS and DPM-Solver++ rules
 over DiT-XL/2 (``programs_path``); a class-conditional DiT-XL/2 under
 one-call classifier-free guidance (``guided_path``); the compiled
 executor's CUDA graphs against its eager solves over DiT-XL/2
-(``graph_path``); DeepCache feature caching over DiT-XL/2
+(``graph_path``); the serve engine under both schedulers (solve-granular
+microbatches and the step protocol's lane-batched ticks, through the
+lane-batched combine kernel) over a class-conditional DiT-XL/2, one
+(256, 16) latent a request (``serve_path``); DeepCache feature caching over DiT-XL/2
 (``feature_cache_path``); the port's sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -67,6 +70,7 @@ SOURCES = {
 }
 #: the kernels each main path must launch
 PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
+                "serve": ("sa_fused", "flash_attention"),
                 "programs": ("sa_update", "sa_fused", "flash_attention"),
                 "guided": ("sa_fused", "flash_attention"),
                 "feature_cache": ("sa_fused", "flash_attention"),
@@ -102,6 +106,11 @@ WKV_CHUNK = 64
 #: one held to the HBM bound; last, it sizes the copy_ stream)
 SWEEP_N = (32768, 131072, 1000003, 1048576, 8388608)
 L2_BYTES = 50e6  # H100 SXM
+#: one served request: a DiT-XL/2 image latent (256 tokens of dim 16)
+REQ_SHAPE = SHAPE[1:]
+#: lanes of the step scheduler's running batch (and the lane entries'
+#: timing)
+SERVE_LANES = 8
 
 
 def emit(obj) -> None:
@@ -292,6 +301,20 @@ def _combine_inputs(shape, P, dtype, seed):
     return x, buf, xi, coeffs
 
 
+def _lane_inputs(L, shape, P, dtype, seed):
+    """Operands of one lane-batched combine: x and xi [L, *shape], buf
+    [L, P, *shape] and per-lane coefficients [L, 2, P+2] (each lane's
+    predictor and corrector rows scaled apart)."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn(s, generator=g, device="cuda").to(dtype)
+    x, xi = rnd((L,) + tuple(shape)), rnd((L,) + tuple(shape))
+    buf = rnd((L, P) + tuple(shape))
+    _, _, _, c = _combine_inputs((1,), P, torch.float32, seed)
+    lanes = 1.0 + 0.1 * torch.arange(L, device="cuda", dtype=torch.float32)
+    return x, buf, xi, (c[None] * lanes[:, None, None]).contiguous()
+
+
 def _offset_view(t, offset: int):
     """``t``'s values as a contiguous view that starts ``offset`` elements
     into a larger flat tensor (so its data pointer is not 16-byte aligned
@@ -387,7 +410,43 @@ def combine_times(timings: dict) -> dict:
             del x, buf, xi, c
     return {"launch_floor_ms": floor_ms,
             "launch_floor_call": "zero_() of a one-element CUDA tensor",
-            "copy_yardsticks": copies, "combine_sweep": sweep}
+            "copy_yardsticks": copies, "combine_sweep": sweep,
+            "lane_entries": lane_times(floor_ms)}
+
+
+def lane_times(floor_ms: float) -> dict:
+    """The lane-batched entries at the serve path's tick: SERVE_LANES
+    lanes of one (256, 16) request each (4,096 f32 elements), P = 3: ms
+    beside the plain loop, the library yardstick (one ``torch.bmm`` of the
+    per-lane coefficients over each lane's operands stacked as
+    [L, P+2, n]), the byte bound and the launch floor."""
+    import torch
+    from repro_torch.kernels import ops
+    L, n, P = SERVE_LANES, math.prod(REQ_SHAPE), 3
+    x, buf, xi, c = _lane_inputs(L, REQ_SHAPE, P, torch.float32, seed=13)
+    stacked = torch.cat([x.reshape(L, 1, n), xi.reshape(L, 1, n),
+                         buf.reshape(L, P, n)], dim=1)
+    c0 = c[:, 0].contiguous()
+    fns = {"sa_update_lanes": (
+               1, lambda: ops.sa_update_lanes(x, buf, xi, c0),
+               lambda: ops.sa_update_lanes(x, buf, xi, c0, mode="plain"),
+               lambda: torch.bmm(c0[:, None], stacked)),
+           "sa_fused_lanes": (
+               2, lambda: ops.sa_fused_update_lanes(x, buf, xi, c),
+               lambda: ops.sa_fused_update_lanes(x, buf, xi, c, mode="plain"),
+               lambda: torch.bmm(c, stacked))}
+    out = {}
+    for name, (rows, fn, plain, lib) in fns.items():
+        n_bytes = (P + 2 + rows) * L * n * 4 + L * rows * (P + 2) * 4
+        b_ms, by = bound(n_bytes, rows * (2 * P + 3) * L * n)
+        out[name] = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(lib),
+                     "library_call": f"torch.bmm(coeffs [L, {rows}, P+2], "
+                                     "stacked [L, P+2, n])",
+                     "bound_ms": b_ms, "bound_by": by, "bytes": n_bytes,
+                     "launch_floor_ms": floor_ms, "lanes": L,
+                     "n_per_lane": n, "P": P, "dtype": "float32"}
+    return out
 
 
 def _attn_inputs(B, H, K, S, T, hd, dtype, seed):
@@ -513,6 +572,36 @@ def phase_kernels(timings: dict) -> dict:
                       "logw_dtype": str(logw_dtype).replace("torch.", ""),
                       "decay_shift": shift, "logw_floor": floor,
                       "y_err": errs[0], "S_err": errs[1], "ok": ok})
+    # the lane-batched entries: held against the plain loop and, lane by
+    # lane, against a solo launch on that lane's operands (bitwise)
+    for (L, shape) in ((SERVE_LANES, REQ_SHAPE), (3, (1000003,)),
+                       (5, (4, 100, 7))):
+        for P in (1, 3, 5):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, buf, xi, c = _lane_inputs(L, shape, P, dtype, seed=P + L)
+                c0 = c[:, 0].contiguous()
+                up = ops.sa_update_lanes(x, buf, xi, c0)
+                fp, fc = ops.sa_fused_update_lanes(x, buf, xi, c)
+                e1, ok1 = compare(up, ops.sa_update_lanes(
+                    x, buf, xi, c0, mode="plain"), "combine")
+                pp, pc = ops.sa_fused_update_lanes(x, buf, xi, c, mode="plain")
+                e2, ok2 = compare(fp, pp, "combine")
+                e3, ok3 = compare(fc, pc, "combine")
+                solo = all(
+                    torch.equal(up[l], ops.sa_update(x[l], buf[l], xi[l],
+                                                     c0[l]))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        (fp[l], fc[l]),
+                        ops.sa_fused_update(x[l], buf[l], xi[l], c[l])))
+                    for l in range(L))
+                torch.cuda.synchronize()
+                cases.append({"kernel": "sa_update_lanes+sa_fused_lanes",
+                              "lanes": L, "shape": list(shape), "P": P,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "sa_update_lanes_err": e1,
+                              "sa_fused_lanes_err": max(e2, e3),
+                              "lanes_equal_solo_launches": solo,
+                              "ok": ok1 and ok2 and ok3 and solo})
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
           "cases": cases})
@@ -576,6 +665,8 @@ def held_against_plain(record: dict):
     from repro_torch.core.samplers import eager
     from repro_torch.kernels import ops
     names = {"sa_update": "sa_update", "sa_fused_update": "sa_fused",
+             "sa_update_lanes": "sa_update",
+             "sa_fused_update_lanes": "sa_fused",
              "flash_attention": "flash_attention", "wkv": "rwkv6_wkv"}
     kinds = {"flash_attention": "attention", "wkv": "wkv"}
     originals = {n: getattr(ops, n) for n in names}
@@ -591,6 +682,8 @@ def held_against_plain(record: dict):
             rec = record.setdefault(names[fn_name], {
                 "calls": 0, "max_abs_err": 0.0, "ok": True})
             rec["calls"] += 1
+            if fn_name.endswith("_lanes"):
+                rec["lane_calls"] = rec.get("lane_calls", 0) + 1
             for o, r in zip(outs, refs):
                 e, ok = compare(o, r, kind)
                 rec["max_abs_err"] = max(rec["max_abs_err"], e)
@@ -1437,6 +1530,364 @@ def phase_graph_path(state: dict) -> dict:
     return res
 
 
+#: the serve phase's generator seeds (the engine's defaults)
+SERVE_SEEDS = (7, 8)
+#: guided requests' scales: DiT's FID setting and a strong one
+SERVE_SCALES = (CFG_SCALE, 4.0)
+
+
+def phase_serve_path(state: dict) -> dict:
+    """The port's serving entry points at DiT-XL/2 full width:
+    ``ServeEngine`` over the class-conditional tame DiT-XL/2
+    (``denoiser_cond`` 1000; 28 layers, d_model 1152, 16 heads of 72),
+    requests of one (256, 16) f32 latent each, SA NFE 20 P3C3 PEC tau 1,
+    fused, flash. Every request draws its x_T and step noise from the
+    engine's per-rid generators (``request_draws``), so each one can be
+    solved again alone.
+
+    - Solve scheduler, buckets (1, 2, 4, 8): 11 requests (a bucket of 8,
+      a ragged 3 padded to 4), then 4 at tau 0.5 (new buckets that hit the
+      warmed entry: no miss). Each result against a solo ``sample()`` of
+      its request at batch 1 (gate 1e-4 relative, beside an x_T-nudge
+      yardstick), and one streamed request's M previews.
+    - Step scheduler, 8 lanes: 16 requests; 8 fill the batch (two exit
+      early), 8 more join as lanes free (submitted from ``on_result``),
+      one of them in a second batch that a merge migrates. Full-length
+      results against the solve scheduler's (buckets of 8, the same GEMM
+      shapes: bitwise expected, gated at 1e-4); the migrated request
+      against its own unmigrated run (bitwise); no step-cache miss after
+      the first tick.
+    - Guided: 4 class-conditional requests at scales 1.5 and 4.0 in one
+      bucket of 8 (one flash call at batch 16 per evaluation), each
+      against its solo guided ``sample()``.
+    - Fault: a NaN into one lane of 8 under the numerical guard: that
+      request ends ``failed_numerics``, every other lane equals its
+      fault-free run bit for bit.
+
+    Launches are exact per run: 28 flash per evaluation, one sa_fused per
+    solve step (solo, solve scheduler) or per tick (lane-batched, step
+    scheduler), eager warm-up solves and ticks included. One eager run of
+    each scheduler holds every kernel call against its plain version."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.core.samplers import (compile_cache_stats,
+                                           stepwise_cache_stats)
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    from repro_torch.serve import (Fault, FaultInjector, FaultPlan,
+                                   ServeEngine, request_draws)
+    dev = torch.device("cuda")
+    dit = build_tame_dit_xl2(denoiser_cond=N_CLASSES)
+    model, params, mu, schedule = (dit[k] for k in ("model", "params", "mu",
+                                                    "schedule"))
+    L = model.cfg.n_layers
+    net, _ = tame_networks(model, params, mu)
+    den = Denoiser(net, schedule, prediction="x0")
+    den_g = Denoiser(net, schedule, prediction="x0", guidance=True,
+                     cond_rank=1)
+
+    def sampler(tau=1.0, guided=False):
+        return make_sampler("sa", nfe=NFE, tau=tau, predictor_order=3,
+                            corrector_order=3, mode="PEC", combine="fused",
+                            schedule=schedule, prediction="x0",
+                            guidance=guided)
+
+    s, s_half, s_g = sampler(), sampler(tau=0.5), sampler(guided=True)
+    M = s.spec.n_steps
+    prior = schedule.prior_scale(float(s.plan.ts[0]))
+    per_solve = {"flash_attention": L * NFE, "sa_fused": M}
+
+    def draws(rid):
+        z, noise = request_draws(*SERVE_SEEDS, rid, 0, REQ_SHAPE, M, dev)
+        return prior * z, noise
+
+    def solo(sam, model_, rid, **kw):
+        x, noise = draws(rid)
+        return sam.sample(model_, x[None], noise=noise[:, None], **kw)[0]
+
+    def window(fn):
+        """(result, seconds, launches, compile-cache and step-cache
+        deltas) of ``fn()``, synchronized."""
+        before, c0, s0 = (ops.launch_counts(), compile_cache_stats(),
+                          stepwise_cache_stats())
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after, c1, s1 = (ops.launch_counts(), compile_cache_stats(),
+                         stepwise_cache_stats())
+        return (out, secs, {k: after[k] - before[k] for k in after},
+                {k: c1[k] - c0[k] for k in ("hits", "misses", "graphs")},
+                {k: s1[k] - s0[k] for k in ("hits", "misses", "graphs")})
+
+    def want(solves=0, ticks=0):
+        return dict.fromkeys(ops.launch_counts(), 0) | {
+            "flash_attention": L * (NFE * solves + ticks),
+            "sa_fused": M * solves + ticks}
+
+    def check_launches(label, got, expected):
+        require(got == expected, f"serve: {label}: launches {got}, "
+                f"expected {expected}")
+
+    def results_of(eng):
+        return {r.rid: r for r in eng.run()}
+
+    res: dict = {}
+    ops.reset_launch_counts()  # the serve main-path window starts here
+
+    # ---- solve scheduler: 11 requests, then 4 at tau 0.5
+    first_solve = []
+    eng = ServeEngine(den, bucket_sizes=(1, 2, 4, 8),
+                      on_result=lambda r: first_solve.append(
+                          time.perf_counter() - t_solve))
+    for rid in range(11):
+        eng.submit(s.spec, REQ_SHAPE, rid=rid)
+    t_solve = time.perf_counter()
+    out, secs, l1, c1, _ = window(lambda: results_of(eng))
+    first_s = first_solve[0]
+    st = eng.stats()
+    check_launches("solve", l1, want(solves=st["microbatches"]
+                                     + c1["graphs"]))
+    require(st["microbatches"] == 2 and st["padded_slots"] == 1
+            and c1["misses"] == 2 and c1["graphs"] == 2,
+            f"serve: solve buckets {st}, cache {c1}")
+    for rid in range(11, 15):
+        eng.submit(s_half.spec, REQ_SHAPE, rid=rid)
+    out2, secs2, l2, c2, _ = window(lambda: results_of(eng))
+    check_launches("solve tau 0.5", l2, want(solves=1))
+    require(c2["misses"] == 0 and c2["graphs"] == 0,
+            f"serve: tau 0.5 buckets missed the warmed entry: {c2}")
+    out.update(out2)
+    gaps, l_solo = {}, {}
+    for rid, r in sorted(out.items()):
+        ref, _, ls, _, _ = window(lambda: solo(s if rid < 11 else s_half,
+                                               den, rid))
+        require(r.status == "ok" and tuple(r.x0.shape) == REQ_SHAPE and
+                bool(torch.isfinite(r.x0).all()), f"serve: rid {rid}: {r}")
+        check_launches(f"solo {rid}", ls, want(solves=1))
+        gaps[rid] = rel_gap(r.x0, ref)
+    x0, n0 = draws(0)
+    v = torch.randn(REQ_SHAPE, generator=torch.Generator(dev).manual_seed(5),
+                    device=dev)
+    x_pert = x0 + 1e-7 * x0.norm() / v.norm() * v
+    pert = s.sample(den, x_pert[None], noise=n0[:, None])[0]
+    yardstick = rel_gap(pert, solo(s, den, 0))
+    eng_stream = ServeEngine(den, bucket_sizes=(1,), stream=True)
+    eng_stream.submit(s.spec, REQ_SHAPE, rid=0)
+    streamed, _, l3, c3, _ = window(lambda: results_of(eng_stream))
+    require(streamed[0].status == "ok", f"serve: stream {streamed}")
+    check_launches("stream", l3, want(solves=1 + c3["graphs"]))
+    pv = streamed[0].previews
+    require(tuple(pv.shape) == (M,) + REQ_SHAPE and
+            bool(torch.isfinite(pv).all()) and
+            torch.equal(pv[-1], streamed[0].x0),
+            f"serve: stream previews {tuple(pv.shape)}")
+    res["solve"] = {
+        "requests": 15, "buckets": {"first": [8, 4], "tau_0.5": [4]},
+        "seconds": secs + secs2, "first_run_s": secs,
+        "time_to_first_result_s": first_s,
+        "requests_per_s": eng.stats()["requests_per_s"],
+        "stats": {k: eng.stats()[k] for k in (
+            "microbatches", "padded_slots", "warmups", "model_evals",
+            "network_evals")},
+        "cache_first_run": c1, "cache_tau_0.5": c2,
+        "vs_solo_rel_gap": {"max": max(gaps.values()), "by_rid": gaps},
+        "solo_bitwise": {rid: bool(torch.equal(out[rid].x0, solo(
+            s if rid < 11 else s_half, den, rid))) for rid in (0, 8, 11)},
+        "perturbation_yardstick_f32": yardstick,
+        "stream": {"previews": list(pv.shape),
+                   "x0_vs_solo_rel_gap": rel_gap(streamed[0].x0,
+                                                 solo(s, den, 0))}}
+    require(max(gaps.values()) <= GAP_LIMIT and yardstick <= GAP_LIMIT,
+            f"serve: solve results vs solo: {gaps}, yardstick {yardstick}")
+
+    # ---- step scheduler: 16 requests over 8 lanes with churn
+    rids = list(range(100, 116))
+    joiners = rids[8:]
+    per_result = [2, 1] + [1] * 6  # joiners submitted by each result
+    step_out: dict = {}
+    first_step = []
+
+    def on_result(r):
+        if not first_step:
+            first_step.append(time.perf_counter() - t_start)
+        step_out[r.rid] = r
+        k = per_result.pop(0) if per_result else 0
+        for _ in range(min(k, len(joiners))):
+            eng.submit(s.spec, REQ_SHAPE, rid=joiners.pop(0))
+
+    eng = ServeEngine(den, scheduler="step", lanes=SERVE_LANES,
+                      on_result=on_result)
+    for rid in rids[:8]:
+        early = rid in (100, 101)
+        eng.submit(s.spec, REQ_SHAPE, rid=rid,
+                   early_exit_tol=1e3 if early else 0.0,
+                   min_steps=4 if early else None)
+    home: dict = {}
+    migrated = set()
+    tick_s = []
+    s_churn0 = None
+
+    def drive():
+        nonlocal s_churn0
+        while eng.pending() or eng._batcher._batches:
+            t = time.perf_counter()
+            eng.step()
+            tick_s.append(time.perf_counter() - t)
+            if s_churn0 is None:
+                s_churn0 = stepwise_cache_stats()
+            for b, batch in enumerate(eng._batcher._batches):
+                for req in batch.requests:
+                    if req is None:
+                        continue
+                    if home.get(req.rid, id(batch)) != id(batch):
+                        migrated.add(req.rid)
+                    home[req.rid] = id(batch)
+
+    t_start = time.perf_counter()
+    _, secs, l4, c4, s4 = window(drive)
+    st = eng.stats()
+    s_end = stepwise_cache_stats()
+    check_launches("step", l4, want(ticks=st["ticks"] + s4["graphs"]))
+    full = [r for r in rids if step_out[r].n_steps == M]
+    require(set(step_out) == set(rids) and
+            all(step_out[r].status == "ok" for r in rids) and
+            [step_out[r].n_steps for r in (100, 101)] == [4, 4] and
+            len(full) == 14 and st["migrations"] >= 1 and migrated,
+            f"serve: step churn: {sorted(step_out)}, migrations "
+            f"{st['migrations']} {sorted(migrated)}")
+    require(s_end["misses"] == s_churn0["misses"],
+            f"serve: step-cache misses after warmup: {s_churn0} -> {s_end}")
+    ref_eng = ServeEngine(den, bucket_sizes=(SERVE_LANES,))
+    for rid in rids:
+        ref_eng.submit(s.spec, REQ_SHAPE, rid=rid)
+    ref_out, _, l5, c5, _ = window(lambda: results_of(ref_eng))
+    check_launches("step reference", l5, want(solves=2 + c5["graphs"]))
+    step_gaps = {r: rel_gap(step_out[r].x0, ref_out[r].x0) for r in full}
+    step_bitwise = {r: bool(torch.equal(step_out[r].x0, ref_out[r].x0))
+                    for r in full}
+    mig = min(migrated)
+    alone = ServeEngine(den, scheduler="step", lanes=SERVE_LANES)
+    alone.submit(s.spec, REQ_SHAPE, rid=mig)
+    alone_out, _, l6, _, s6 = window(lambda: results_of(alone))
+    st6 = alone.stats()
+    check_launches("step alone", l6, want(ticks=st6["ticks"] + s6["graphs"]))
+    mig_bitwise = bool(torch.equal(alone_out[mig].x0, step_out[mig].x0))
+    res["step"] = {
+        "requests": 16, "lanes": SERVE_LANES, "seconds": secs,
+        "ticks": st["ticks"], "tick_ms": spread([1e3 * t for t in tick_s]),
+        "time_to_first_result_s": first_step[0],
+        "requests_per_s": st["requests_per_s"],
+        "joins": st["joins"], "migrations": st["migrations"],
+        "migrated_rids": sorted(migrated),
+        "early_exit_steps": {r: step_out[r].n_steps for r in (100, 101)},
+        "buckets": st["buckets"], "step_cache": s_end,
+        "step_cache_after_first_tick": s_churn0,
+        "vs_solve_scheduler": {"rel_gap_max": max(step_gaps.values()),
+                               "all_bitwise": all(step_bitwise.values()),
+                               "bitwise_by_rid": step_bitwise},
+        "migrated_equals_unmigrated_bitwise": mig_bitwise}
+    require(max(step_gaps.values()) <= GAP_LIMIT,
+            f"serve: step vs solve scheduler gaps {step_gaps}")
+    require(mig_bitwise, f"serve: migrated rid {mig} moved: "
+            f"{rel_gap(alone_out[mig].x0, step_out[mig].x0)}")
+
+    # ---- guided: 4 class-conditional requests, one bucket of 8
+    gen = torch.Generator(dev).manual_seed(9)
+    classes = torch.randint(0, N_CLASSES, (4,), generator=gen, device=dev)
+    conds = torch.nn.functional.one_hot(classes, N_CLASSES).float()
+    scales = [SERVE_SCALES[i % 2] for i in range(4)]
+    eng_g = ServeEngine(den_g, bucket_sizes=(SERVE_LANES,))
+    for i in range(4):
+        eng_g.submit(s_g.spec, REQ_SHAPE, rid=200 + i, cond=conds[i],
+                     guidance_scale=scales[i])
+    batches: dict = {}
+    with flash_batches(batches):
+        g_out, secs_g, l7, c7, _ = window(lambda: results_of(eng_g))
+    require(sorted(g_out) == [200, 201, 202, 203] and
+            all(r.status == "ok" for r in g_out.values()),
+            f"serve: guided results {g_out}")
+    check_launches("guided", l7, want(solves=1 + c7["graphs"]))
+    require(batches == {2 * SERVE_LANES: L * NFE},
+            f"serve: guided flash calls by batch {batches}")
+    g_gaps = {}
+    for i in range(4):
+        ref = solo(s_g, den_g, 200 + i, cond=conds[i][None],
+                   guidance_scale=scales[i])
+        g_gaps[200 + i] = rel_gap(g_out[200 + i].x0, ref)
+    res["guided"] = {"requests": 4, "bucket": SERVE_LANES,
+                     "classes": classes.tolist(), "scales": scales,
+                     "seconds": secs_g,
+                     "flash_calls_by_batch_eager_warmup": batches,
+                     "vs_solo_rel_gap": g_gaps,
+                     "scale_4_vs_1.5_rel_gap": rel_gap(g_out[201].x0,
+                                                       g_out[200].x0)}
+    require(max(g_gaps.values()) <= GAP_LIMIT,
+            f"serve: guided vs solo gaps {g_gaps}")
+
+    # ---- fault: a NaN into one lane under the guard
+    f_rids = list(range(300, 300 + SERVE_LANES))
+
+    def fault_run(plan):
+        e = ServeEngine(den, scheduler="step", lanes=SERVE_LANES,
+                        guard_interval=2,
+                        fault_injector=FaultInjector(plan) if plan else None)
+        for rid in f_rids:
+            e.submit(s.spec, REQ_SHAPE, rid=rid)
+        return e, {r.rid: r for r in e.run()}
+
+    clean_eng, clean = fault_run(None)
+    inj_plan = FaultPlan((Fault("nan", tick=5, rid=302),))
+    f_eng, faulted = fault_run(inj_plan)
+    neighbours = [r for r in f_rids if r != 302]
+    res["fault"] = {
+        "plan": [dataclasses.asdict(f) for f in inj_plan.faults],
+        "status": {r: faulted[r].status for r in f_rids},
+        "neighbours_bitwise": all(torch.equal(faulted[r].x0, clean[r].x0)
+                                  for r in neighbours),
+        "health": f_eng.health()}
+    require(faulted[302].status == "failed_numerics" and
+            all(faulted[r].status == "ok" for r in neighbours) and
+            res["fault"]["neighbours_bitwise"],
+            f"serve: fault run {res['fault']}")
+
+    # ---- every kernel call held against its plain version (eager)
+    held: dict = {}
+    with held_against_plain(held):
+        e = ServeEngine(den, scheduler="step", lanes=SERVE_LANES)
+        for rid in range(400, 400 + SERVE_LANES):
+            e.submit(s.spec, REQ_SHAPE, rid=rid)
+        e.run()
+        ticks_held = e.stats()["ticks"]
+        e = ServeEngine(den, bucket_sizes=(4,))
+        for rid in range(410, 413):
+            e.submit(s.spec, REQ_SHAPE, rid=rid)
+        e.run()
+    state["launches"]["serve"] = ops.launch_counts()  # window ends
+    state["held"]["serve"] = held
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    require(held.get("sa_fused", {}).get("lane_calls") == ticks_held,
+            f"serve: lane-batched calls held {held}, ticks {ticks_held}")
+    result = {"phase": "serve_path", "arch": model.cfg.name, "layers": L,
+              "d_model": model.cfg.d_model,
+              "denoiser_cond": model.cfg.denoiser_cond,
+              "request_latent": list(REQ_SHAPE), "weights": "tame",
+              "weights_s": dit["weights_s"], "contractive": dit["contract"],
+              "sampler": {"name": "sa", "nfe": NFE, "tau": 1.0,
+                          "predictor_order": 3, "corrector_order": 3,
+                          "mode": "PEC", "combine": "fused"},
+              "gap_limit_f32": GAP_LIMIT, **res,
+              "compile_cache": compile_cache_stats(),
+              "step_cache": stepwise_cache_stats(),
+              "pool_bytes": graph_pool_bytes(),
+              "held_against_plain": held, "ok": not held_bad}
+    emit(result)
+    require(not held_bad, f"serve: kernel calls out of tolerance: {held_bad}")
+    require(set(held) == set(PATH_KERNELS["serve"]),
+            f"serve: held calls missing: {held}")
+    return result
+
+
 def _cache_entries():
     from repro_torch.core.samplers import base
     return list(base._COMPILE_CACHE.values())
@@ -1857,6 +2308,7 @@ def main() -> int:
     phase_programs_path(state)
     phase_guided_path(state)
     phase_graph_path(state)
+    phase_serve_path(state)
     phase_feature_cache_path(state)
     phase_sample_defaults(state)
     phase_gmm()

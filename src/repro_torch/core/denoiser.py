@@ -22,6 +22,13 @@ of any output convention:
 
 NFE accounting: one guided evaluation costs two network evaluations
 (``SamplerSpec.network_nfe``), run as one call over twice the batch.
+
+Lane-batched evaluation (serving): the lane-batched executors
+(``sample_batched``, the step protocol) call ``model_fn(x, t)`` with ``x``
+[L, *shape] and ``t`` [L], one time per lane, and a per-lane guidance
+scale [L]; a lane's output depends on that lane's input only. Every
+per-lane value here broadcasts over the lane axis (:func:`lane_view`),
+and a 0-d ``t`` or scale keeps the one-solve contract unchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from .schedules import NoiseSchedule
 
 __all__ = ["PREDICTION_TYPES", "CachedNetwork", "Denoiser",
-           "canonical_prediction", "convert_prediction"]
+           "canonical_prediction", "convert_prediction", "lane_view"]
 
 #: canonical prediction-type names (aliases: "data"/"x0", "noise"/"eps")
 PREDICTION_TYPES = ("x0", "eps", "v")
@@ -56,6 +63,14 @@ def canonical_prediction(name: str) -> str:
             f"{sorted(set(_ALIASES))}")
 
 
+def lane_view(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-lane ``v`` [L] as [L, 1, ...], broadcasting over the lane axis
+    of ``x`` [L, *shape]; a 0-d ``v`` as it is."""
+    if v.dim() == 0:
+        return v
+    return v.reshape(tuple(v.shape) + (1,) * (x.dim() - v.dim()))
+
+
 def convert_prediction(pred: torch.Tensor, x: torch.Tensor, t, src: str,
                        dst: str, schedule: NoiseSchedule) -> torch.Tensor:
     """Convert a network output between prediction types.
@@ -66,12 +81,14 @@ def convert_prediction(pred: torch.Tensor, x: torch.Tensor, t, src: str,
     converts in float32 as in the reference (PyTorch would otherwise keep
     bfloat16 when a 0-d float32 tensor meets it). The v inversions use the
     general ``1/(a^2 + s^2)`` normalizer so non-VP schedules stay exact.
+    A per-lane ``t`` [L] converts each lane of ``x`` [L, *shape] at its
+    own time.
     """
     src, dst = canonical_prediction(src), canonical_prediction(dst)
     if src == dst:
         return pred
-    a = schedule.alpha_d(t)
-    s = schedule.sigma_d(t)
+    a = lane_view(schedule.alpha_d(t), x)
+    s = lane_view(schedule.sigma_d(t), x)
     dt = torch.promote_types(torch.promote_types(pred.dtype, x.dtype), a.dtype)
     pred, x = pred.to(dt), x.to(dt)
     if dst == "x0":
@@ -86,6 +103,14 @@ def convert_prediction(pred: torch.Tensor, x: torch.Tensor, t, src: str,
     if src == "x0":
         return a * (x - a * pred) / s - s * pred
     return a * pred - s * (x - s * pred) / a             # src == "eps"
+
+
+def _doubled(t):
+    """The time of a guided call's doubled batch: a per-lane ``t`` [L]
+    twice over, a 0-d one as it is."""
+    if isinstance(t, torch.Tensor) and t.dim() == 1:
+        return torch.cat([t, t])
+    return t
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -189,10 +214,11 @@ class Denoiser:
 
     @staticmethod
     def _combine(c_out, u_out, scale):
-        # the sampler hands the scale over as a 0-d float32 tensor on the
-        # device (its compile-cache entry's buffer), so this reads device
-        # data and copies nothing from the host
-        s = torch.as_tensor(scale, dtype=c_out.dtype, device=c_out.device)
+        # the sampler hands the scale over as a float32 tensor on the
+        # device (its compile-cache entry's buffer: 0-d, or [L] per lane),
+        # so this reads device data and copies nothing from the host
+        s = lane_view(torch.as_tensor(scale, dtype=c_out.dtype,
+                                      device=c_out.device), c_out)
         # (1-s)*u + s*c: at s == 1.0 this is exactly the cond branch
         return (1.0 - s) * u_out + s * c_out
 
@@ -203,7 +229,7 @@ class Denoiser:
         if not self.guidance:
             return self.network(x, t, cond)
         xx, cc = self._cfg_pair(x, cond)
-        out = self.network(xx, t, cc)
+        out = self.network(xx, _doubled(t), cc)
         B = x.shape[0]
         return self._combine(out[:B], out[B:], scale)
 
@@ -223,7 +249,7 @@ class Denoiser:
         if not self.guidance:
             return self.cached.call(x, t, cond, feats, refresh)
         xx, cc = self._cfg_pair(x, cond)
-        out, new_feats = self.cached.call(xx, t, cc, feats, refresh)
+        out, new_feats = self.cached.call(xx, _doubled(t), cc, feats, refresh)
         B = x.shape[0]
         return self._combine(out[:B], out[B:], scale), new_feats
 

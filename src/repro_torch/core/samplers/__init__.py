@@ -8,8 +8,9 @@
 
 The three multistep-core families are registered: "sa", "seeds" and
 "dpmpp_multistep" (see ``multistep`` for the shared executor and
-``coefficients.TableBuilder`` for adding another); the baselines follow
-in a later slice.
+``coefficients.TableBuilder`` for adding another), each with its
+step-granular adapter (``stepwise``: the tick the step scheduler serves);
+the baselines follow in a later slice.
 """
 
 from ..denoiser import (PREDICTION_TYPES, Denoiser, canonical_prediction,
@@ -23,13 +24,25 @@ from .base import (
     carry_dtype,
     clear_compile_cache,
     compile_cache_stats,
+    cond_struct,
     eager,
     get_family,
     list_samplers,
     make_sampler,
     register_sampler,
     sample,
+    sample_batched,
     warmup,
+)
+from .stepwise import (
+    StepAdapter,
+    StepFns,
+    clear_stepwise_cache,
+    fresh_carry,
+    make_stepfns,
+    stepwise_adapter,
+    stepwise_cache_stats,
+    stepwise_supported,
 )
 
 # importing the family module registers it
@@ -44,5 +57,8 @@ __all__ = [
     "SamplerSpec", "build_plan", "carry_dtype", "get_family",
     "list_samplers", "make_sampler", "register_sampler", "sample",
     "warmup", "compile_cache_stats", "clear_compile_cache", "eager",
-    "make_multistep_family", "tables_to_arrays",
+    "make_multistep_family", "tables_to_arrays", "sample_batched",
+    "cond_struct", "StepAdapter", "StepFns", "clear_stepwise_cache",
+    "fresh_carry", "make_stepfns", "stepwise_adapter",
+    "stepwise_cache_stats", "stepwise_supported",
 ]

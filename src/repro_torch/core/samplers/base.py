@@ -33,6 +33,17 @@ row i for step i (the reference draws ``split(key, M)`` and one normal per
 step). By default it is drawn at once from a :class:`torch.Generator` on
 ``x_T``'s device; ``noise=`` gives it as such a tensor, or as a callable
 ``step -> xi`` called for every step before the solve.
+
+Serving entry points: ``sample(trajectory=True)`` also returns the
+per-step states and denoised previews (``{"x", "x0"}``, each
+``[M, *x_T.shape]``), written into per-step buffers of the entry (so a
+replayed graph reads nothing back). :func:`sample_batched` solves K
+requests, each with its own ``x_T``, noise, ``cond`` and guidance scale,
+as ONE solve over the stacked lanes: every lane is at the same step with
+the same tables, so the one-coefficient combine kernels apply, and the
+model is called lane-batched (``x`` [K, *shape], ``t`` [K]; see
+:mod:`repro_torch.core.denoiser`). The trajectory flag and the lane count
+join the cache key, as in the reference.
 """
 
 from __future__ import annotations
@@ -57,7 +68,8 @@ __all__ = [
     "PRECISIONS", "carry_dtype", "SamplerSpec", "SamplerPlan",
     "SamplerFamily", "Sampler", "register_sampler", "get_family",
     "make_sampler", "list_samplers", "build_plan", "sample", "warmup",
-    "compile_cache_stats", "clear_compile_cache", "eager",
+    "sample_batched", "compile_cache_stats", "clear_compile_cache", "eager",
+    "cond_struct",
 ]
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -159,6 +171,9 @@ class SamplerSpec:
             self.resolve_schedule(), self.n_steps, kind=self.grid,
             t_start=self.t_start, t_end=self.t_end, rho=self.rho)
 
+    def replace(self, **kw) -> "SamplerSpec":
+        return dataclasses.replace(self, **kw)
+
     @property
     def nfe(self) -> int:
         """Guided (solver-level) model evaluations this spec spends."""
@@ -214,14 +229,19 @@ class SamplerFamily:
     name: str
     #: spec -> (arrays: dict[str, torch.Tensor], host: dict)
     plan: Callable[[SamplerSpec], tuple]
-    #: (statics, arrays, model_fn, x_T, noise) -> x0
+    #: (statics, arrays, model_fn, x_T, noise, traj) -> x0; ``traj`` is
+    #: None or the ``{"x", "x0"}`` per-step buffers the solve writes
     execute: Callable
     #: spec -> hashable tuple of the fields the executor branches on
     statics: Callable[[SamplerSpec], tuple]
     nfe_of: Callable[[SamplerSpec], int]
     steps_from_nfe: Callable[[int, dict], int]
     #: spec -> the prediction convention the executor consumes
-    model_convention: Callable[[SamplerSpec], str]
+    model_convention: Callable[[SamplerSpec], str] = lambda spec: "data"
+    #: spec -> :class:`repro_torch.core.samplers.stepwise.StepAdapter`, or
+    #: None when the family has no step-granular executor (whole solves
+    #: only; the step scheduler refuses it)
+    stepwise: Callable | None = None
     #: whether the family consumes FULL step programs (per-interval order
     #: and mode tracks, not just the tau track): the multistep core's
     #: families do
@@ -299,7 +319,7 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
             "CachedNetwork exposing the split-segment evaluation)")
     guided = isinstance(model_fn, Denoiser) and model_fn.guidance
     if not guided and not isinstance(guidance_scale, torch.Tensor) and \
-            float(guidance_scale) != 1.0:
+            bool((np.asarray(guidance_scale, dtype=np.float64) != 1.0).any()):
         # a host-side check only: a tensor scale is not read back (a
         # non-unity tensor scale without a guided Denoiser is inert)
         raise ValueError(
@@ -323,13 +343,31 @@ def _adapter_statics(plan: SamplerPlan, model_fn) -> tuple | None:
     return None
 
 
-def _bind_model(m, adapter, cond, scale) -> ModelFn:
+def _bind_model(m, adapter, cond, scale, lanes: bool = False) -> ModelFn:
     """The executor-facing ``model_fn(x, t)``: a Denoiser bound to the
     plan's convention and the entry's cond and scale buffers, or a plain
     model whose output the adapter converts. A Denoiser with a
     feature-cached companion also carries ``cached_call(x, t, feats,
     refresh) -> (pred, feats)`` and ``init_feats(x)`` for the
-    feature-caching executor."""
+    feature-caching executor. ``lanes``: the executor passes the one 0-d
+    time of a solve over stacked lanes, and the lane-batched model gets it
+    as [L], one per lane."""
+    fn = _bind_plain(m, adapter, cond, scale)
+    if not lanes:
+        return fn
+
+    def lane_fn(x, t):
+        return fn(x, t.expand(x.shape[0]))
+
+    if hasattr(fn, "cached_call"):
+        cached = fn.cached_call
+        lane_fn.cached_call = lambda x, t, feats, refresh: cached(
+            x, t.expand(x.shape[0]), feats, refresh)
+        lane_fn.init_feats = fn.init_feats
+    return lane_fn
+
+
+def _bind_plain(m, adapter, cond, scale) -> ModelFn:
     if adapter is None:
         return m
     if adapter[0] == "denoiser":
@@ -342,20 +380,45 @@ def _bind_model(m, adapter, cond, scale) -> ModelFn:
     return lambda x, t: convert_prediction(m(x, t), x, t, src, dst, schedule)
 
 
-def _cond_struct(cond):
-    """The part of ``cond`` that keys an entry: its shape and dtype (its
-    values are data, copied into the entry's buffer)."""
+def cond_struct(cond):
+    """The part of ``cond`` that keys an entry (and a serving bucket): its
+    shape and dtype; its values are data, copied into the entry's buffer.
+    The one definition both layers share, so the compile-cache key and the
+    bucket key never hash a cond differently."""
     if cond is None:
         return None
     return (tuple(cond.shape), str(cond.dtype))
 
 
+def _check_lanes(plan: SamplerPlan, model_fn, cond, lanes: int) -> None:
+    """Refuse what a lane-batched solve cannot run: the residual
+    feature-cache policy (its refresh decision is per lane), and a
+    per-lane cond that a Denoiser would not read per lane."""
+    fc = plan.spec.feature_cache
+    if isinstance(fc, tuple) and fc[:1] == ("residual",):
+        raise NotImplementedError(
+            "the 'residual' feature-cache policy decides its refresh per "
+            "lane; under sample_batched and the step scheduler it is a "
+            "later slice of the port (ROADMAP A9, what is left). Serve it "
+            "with an int refresh interval or through sample()")
+    if cond is None:
+        return
+    if cond.dim() < 1 or cond.shape[0] != lanes:
+        raise ValueError(
+            f"cond of shape {tuple(cond.shape)}: a lane-batched solve takes "
+            f"one cond per lane, [{lanes}, ...]")
+    if isinstance(model_fn, Denoiser) and model_fn.guidance and \
+            model_fn.cond_rank is None:
+        raise ValueError(
+            "a per-lane cond under guidance needs Denoiser(cond_rank=...): "
+            "without it the guided pair would share the whole [L, ...] "
+            "cond across the batch")
+
+
 # ------------------------------------------------------------ compile cache
-_COMPILE_CACHE: OrderedDict = OrderedDict()
 _COMPILE_CACHE_MAX = 64
 _CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0, "aot_fallbacks": 0,
                 "graphs": 0}
-_MODEL_TOKEN_IDX = 4  # position of the model token inside a cache key
 #: depth of nested :func:`eager` contexts
 _EAGER_DEPTH = 0
 #: per CUDA device: the side stream that warms and captures every graph,
@@ -373,9 +436,7 @@ def compile_cache_stats() -> dict:
 
 
 def clear_compile_cache() -> None:
-    _COMPILE_CACHE.clear()
-    for k in _CACHE_STATS:
-        _CACHE_STATS[k] = 0
+    _CACHE.clear()
 
 
 @contextlib.contextmanager
@@ -392,20 +453,84 @@ def eager():
         _EAGER_DEPTH -= 1
 
 
+def graph_stream(device) -> torch.cuda.Stream:
+    """The side stream that warms and captures every CUDA graph on
+    ``device`` (the compile cache's and the step protocol's), whose
+    shared memory pool is ``_POOLS[device]``."""
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    return stream
+
+
+def drop_graph_stream(device) -> None:
+    """After a failed capture: the capture never ended cleanly, so the
+    caching allocator still records into the shared pool and every later
+    capture into it would fail ("already recording to mempool_id"). The
+    next capture gets a fresh side stream and pool; graphs captured
+    before keep the old pool alive."""
+    _STREAMS.pop(device, None)
+    _POOLS.pop(device, None)
+
+
+def capture_graph(fn, device, what: str):
+    """One eager call of ``fn`` on ``device``'s side stream (it builds the
+    kernels, loads their libraries and sets up cuBLAS and the kernels'
+    attributes, none of which may run in a capture), then the capture of a
+    second call into a CUDA graph in the shared pool. Returns ``(eager
+    result, graph, the captured call's result, launches)``: ``launches``
+    are the kernel launches the capture recorded, taken back from the
+    counts (the capture launched nothing; each replay adds them), while
+    the eager call's stay counted. A failed capture raises, naming
+    ``what``, and gives the next capture a fresh stream and pool."""
+    stream = graph_stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        first = fn()
+    current.wait_stream(stream)
+    if isinstance(first, torch.Tensor):
+        first.record_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    collecting = gc.isenabled()
+    gc.disable()  # no weakref eviction frees a graph mid-capture
+    try:
+        with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
+            out = fn()
+    except RuntimeError as e:
+        drop_graph_stream(device)
+        raise RuntimeError(f"CUDA graph capture of {what} failed: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        ops.add_launches({k: -n for k, n in launches.items()})
+    return first, graph, out, launches
+
+
 class _Run:
     """One graph signature of an entry: the plan's tables as device
-    buffers (host flags kept as they are), the noise buffer, and on a CUDA
-    device the captured graph, its output buffer and the kernel launches
-    one replay makes."""
+    buffers (host flags kept as they are), the noise buffer, the per-step
+    trajectory buffers of a ``trajectory`` entry, and on a CUDA device the
+    captured graph, its output buffer and the kernel launches one replay
+    makes."""
 
-    __slots__ = ("arrays", "noise", "plan", "graph", "out", "launches")
+    __slots__ = ("arrays", "noise", "traj", "plan", "graph", "out",
+                 "launches")
 
-    def __init__(self, plan: SamplerPlan, x: torch.Tensor):
+    def __init__(self, plan: SamplerPlan, x: torch.Tensor, trajectory: bool):
         self.arrays = {k: torch.empty_like(v, device=x.device)
                        if isinstance(v, torch.Tensor) else v
                        for k, v in plan.arrays.items()}
-        self.noise = torch.zeros((plan.spec.n_steps,) + tuple(x.shape),
-                                 dtype=torch.float32, device=x.device)
+        rows = (plan.spec.n_steps,) + tuple(x.shape)
+        self.noise = torch.zeros(rows, dtype=torch.float32, device=x.device)
+        cdt = carry_dtype(plan.spec.precision)
+        self.traj = {k: torch.zeros(rows, dtype=cdt, device=x.device)
+                     for k in ("x", "x0")} if trajectory else None
         self.plan = None  # weak reference to the plan last copied in
         self.graph = None
         self.out = None
@@ -432,75 +557,51 @@ def _signature(plan: SamplerPlan) -> tuple:
 class _CacheEntry:
     """One compiled executor: the family's executor bound to its statics
     and model adapter, the solve's input buffers on the latent's device
-    (``x``, ``cond``, the 0-d float32 guidance ``scale``), one
-    :class:`_Run` per graph signature, and a weak reference to the model
-    (weak so the cache never pins model parameters; a graph reads them by
-    address, so the entry is evicted when the model dies)."""
+    (``x``, ``cond``, the float32 guidance ``scale``: 0-d, or [K] for a
+    batched entry), one :class:`_Run` per graph signature, and a weak
+    reference to the model (weak so the cache never pins model
+    parameters; a graph reads them by address, so the entry is evicted
+    when the model dies)."""
 
     __slots__ = ("family", "statics", "adapter", "model", "x", "cond",
-                 "scale", "runs")
+                 "scale", "runs", "trajectory", "batch")
 
-    def __init__(self, family, statics, adapter, model, x, cond):
+    def __init__(self, family, statics, adapter, model, x, cond,
+                 trajectory: bool = False, batch: int | None = None):
         self.family = family
         self.statics = statics
         self.adapter = adapter
         self.model = model
         self.x = x
         self.cond = cond
-        self.scale = torch.ones((), dtype=torch.float32, device=x.device)
+        self.trajectory = trajectory
+        self.batch = batch
+        self.scale = torch.ones(() if batch is None else (batch,),
+                                dtype=torch.float32, device=x.device)
         self.runs: dict = {}
 
     def run_for(self, plan: SamplerPlan) -> _Run:
         sig = _signature(plan)
         run = self.runs.get(sig)
         if run is None:
-            run = self.runs[sig] = _Run(plan, self.x)
+            run = self.runs[sig] = _Run(plan, self.x, self.trajectory)
         return run
 
     def execute(self, run: _Run) -> torch.Tensor:
         """The eager solve over the entry's buffers."""
         model = _bind_model(_deref_model(self.model), self.adapter,
-                            self.cond, self.scale)
+                            self.cond, self.scale,
+                            lanes=self.batch is not None)
         return self.family.execute(self.statics, run.arrays, model, self.x,
-                                   run.noise)
+                                   run.noise, run.traj)
 
     def capture(self, run: _Run) -> torch.Tensor:
-        """One eager solve on the side stream (it builds the kernels, loads
-        their libraries and sets up cuBLAS and the kernels' attributes,
-        none of which may run in a capture), then the capture of the same
-        solve into ``run.graph``. Returns the eager solve's output."""
-        device = self.x.device
-        stream = _STREAMS.get(device)
-        if stream is None:
-            stream = _STREAMS[device] = torch.cuda.Stream(device)
-            _POOLS[device] = torch.cuda.graph_pool_handle()
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            out = self.execute(run)
-        current.wait_stream(stream)
-        out.record_stream(current)
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
-        collecting = gc.isenabled()
-        gc.disable()  # no weakref eviction frees a graph mid-capture
-        try:
-            with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
-                run.out = self.execute(run)
-        except RuntimeError as e:
-            raise RuntimeError(
-                f"CUDA graph capture of the {self.family.name!r} solve "
-                f"(statics {self.statics}) failed: {e}") from e
-        finally:
-            if collecting:
-                gc.enable()
-            after = ops.launch_counts()
-            # the capture ran the wrappers but launched nothing: take the
-            # counts back; each replay adds them
-            run.launches = {k: after[k] - before[k] for k in after
-                            if after[k] != before[k]}
-            ops.add_launches({k: -n for k, n in run.launches.items()})
-        run.graph = graph
+        """The warm-up solve and the capture of the same solve into
+        ``run.graph`` (:func:`capture_graph`). Returns the warm-up solve's
+        output."""
+        out, run.graph, run.out, run.launches = capture_graph(
+            lambda: self.execute(run), self.x.device,
+            f"the {self.family.name!r} solve (statics {self.statics})")
         _CACHE_STATS["graphs"] += 1
         return out
 
@@ -557,17 +658,81 @@ def _model_token(model_fn, callback=None):
 def _token_matches(token, ref) -> bool:
     if token is ref:  # WeakMethod
         return True
-    return isinstance(token, _WeakIdToken) and token.ref is ref
+    # no class lookup: a callback may run while the interpreter tears
+    # the module's globals down
+    return getattr(token, "ref", None) is ref
 
 
-def _on_model_death(ref) -> None:
-    """Weakref callback: the model behind ``ref`` was garbage-collected, so
-    its entries (whose graphs read the model's parameters by address) are
-    dead weight; evict them, graphs and buffers with them."""
-    for key in [k for k in _COMPILE_CACHE
-                if _token_matches(k[_MODEL_TOKEN_IDX], ref)]:
-        if _COMPILE_CACHE.pop(key, None) is not None:
-            _CACHE_STATS["evictions"] += 1
+class _ModelCache:
+    """An LRU cache of entries keyed on tuples that hold a weak model token
+    at ``token_idx`` (the compile cache and the step cache): hits, misses
+    and evictions counted into ``stats`` as the reference counts them (its
+    step cache counts an LRU drop as an eviction, its compile cache does
+    not: ``count_lru``), and a model's entries evicted when the model dies
+    (their graphs read its parameters by address)."""
+
+    def __init__(self, stats: dict, token_idx: int, count_lru: bool):
+        self.entries: OrderedDict = OrderedDict()
+        self.stats = stats
+        self.token_idx = token_idx
+        self.count_lru = count_lru
+
+    @staticmethod
+    def lookup_token(model_fn):
+        """The model's token for a lookup key: weak, or where the model
+        cannot be weakly keyed its identity (the entry then holds a strong
+        reference, which pins the object so its id cannot recycle)."""
+        token = _model_token(model_fn)
+        return ("strong", id(model_fn)) if token is None else token
+
+    def get(self, key):
+        """The entry under ``key`` (a hit, made most recent), or None (a
+        miss)."""
+        entry = self.entries.get(key)
+        if entry is None:
+            self.stats["misses"] += 1
+        else:
+            self.entries.move_to_end(key)
+            self.stats["hits"] += 1
+        return entry
+
+    def put(self, key, model_fn, make, maxsize: int):
+        """Store ``make(model)`` under ``key`` and return it. ``model`` is
+        a weak reference to ``model_fn`` whose storage token (equal to the
+        lookup token while the model lives, with the eviction callback)
+        replaces the lookup token in the key; or ``model_fn`` itself where
+        it cannot be weakly referenced. The least recent entries past
+        ``maxsize`` go."""
+        model, token = model_fn, key[self.token_idx]
+        if not isinstance(token, tuple):
+            token = _model_token(model_fn, self._on_model_death)
+            i = self.token_idx
+            key = key[:i] + (token,) + key[i + 1:]
+            model = token.ref if isinstance(token, _WeakIdToken) else token
+        entry = self.entries[key] = make(model)
+        while len(self.entries) > maxsize:
+            self.entries.popitem(last=False)
+            if self.count_lru:
+                self.stats["evictions"] += 1
+        return entry
+
+    def _on_model_death(self, ref) -> None:
+        """Weakref callback: the model behind ``ref`` was garbage-collected;
+        evict its entries, graphs and buffers with them."""
+        for key in [k for k in self.entries
+                    if _token_matches(k[self.token_idx], ref)]:
+            if self.entries.pop(key, None) is not None:
+                self.stats["evictions"] += 1
+
+    def clear(self) -> None:
+        self.entries.clear()
+        for k in self.stats:
+            self.stats[k] = 0
+
+
+#: the compile cache (the model token is the key's fifth field)
+_CACHE = _ModelCache(_CACHE_STATS, token_idx=4, count_lru=False)
+_COMPILE_CACHE = _CACHE.entries
 
 
 def _deref_model(ref):
@@ -582,13 +747,15 @@ def _deref_model(ref):
 
 
 def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
-              cond=None) -> _CacheEntry:
+              cond=None, *, trajectory: bool = False,
+              batch: int | None = None) -> _CacheEntry:
     """LRU-cached executor entry.
 
-    Keyed on (family name, executor statics, latent shape, dtype, model
-    token, model-adapter statics, cond shape and dtype, device), as the
-    reference keys its jitted executors (less the trajectory, batch and
-    mesh of its serving paths). The model token is a weak identity of
+    Keyed on (family name, executor statics, per-request latent shape,
+    dtype, model token, model-adapter statics, cond shape and dtype,
+    device, trajectory, lane count (None: unbatched)), as the reference
+    keys its jitted executors (less the mesh of its sharded path). The
+    model token is a weak identity of
     ``model_fn``: the cache holds no strong reference to the model, and an
     entry is evicted when its model is garbage-collected. ``plan.arrays``,
     the cond values and the guidance scale are data copied into the
@@ -597,39 +764,23 @@ def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
     scale reuse the entry and its graph; a new step count is a hit that
     captures one more graph in the same entry.
     """
-    token = _model_token(model_fn)
-    if token is None:
-        # not weakly keyable: identity, and a strong reference in the
-        # entry, which pins the object so its id cannot recycle
-        token = ("strong", id(model_fn))
     adapter = _adapter_statics(plan, model_fn)
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (plan.spec.name, plan.statics, tuple(shape), str(dtype), token,
-           adapter, _cond_struct(cond), device)
-    entry = _COMPILE_CACHE.get(key)
+    key = (plan.spec.name, plan.statics, tuple(shape), str(dtype),
+           _CACHE.lookup_token(model_fn), adapter, cond_struct(cond), device,
+           bool(trajectory), batch)
+    entry = _CACHE.get(key)
     if entry is not None:
-        _COMPILE_CACHE.move_to_end(key)
-        _CACHE_STATS["hits"] += 1
         return entry
-    _CACHE_STATS["misses"] += 1
-    model = model_fn
-    if not isinstance(token, tuple):
-        # storage token: equal/same-hash as the lookup token while the
-        # model lives, plus an eviction callback when it dies
-        token = _model_token(model_fn, _on_model_death)
-        key = key[:_MODEL_TOKEN_IDX] + (token,) + key[_MODEL_TOKEN_IDX + 1:]
-        model = token.ref if isinstance(token, _WeakIdToken) else token
-    x = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    lanes = () if batch is None else (batch,)
+    x = torch.zeros(lanes + tuple(shape), dtype=dtype, device=device)
     cond_buf = None if cond is None else torch.zeros(
         tuple(cond.shape), dtype=cond.dtype, device=device)
-    entry = _CacheEntry(get_family(plan.spec.name), plan.statics, adapter,
-                        model, x, cond_buf)
-    _COMPILE_CACHE[key] = entry
-    while len(_COMPILE_CACHE) > _COMPILE_CACHE_MAX:
-        _COMPILE_CACHE.popitem(last=False)
-    return entry
+    return _CACHE.put(key, model_fn, lambda model: _CacheEntry(
+        get_family(plan.spec.name), plan.statics, adapter, model, x, cond_buf,
+        bool(trajectory), batch), _COMPILE_CACHE_MAX)
 
 
 def _load_noise(run: _Run, noise, generator, device) -> None:
@@ -653,25 +804,32 @@ def _load_noise(run: _Run, noise, generator, device) -> None:
 
 
 def _load_scale(entry: _CacheEntry, guidance_scale) -> None:
-    if isinstance(guidance_scale, torch.Tensor):
-        entry.scale.copy_(guidance_scale.reshape(()))
-    else:
-        entry.scale.fill_(float(guidance_scale))
+    """Copy the guidance scale (a number, a tensor, or for a batched
+    entry one per lane) into the entry's buffer."""
+    if not isinstance(guidance_scale, torch.Tensor):
+        guidance_scale = torch.as_tensor(guidance_scale, dtype=torch.float32)
+    entry.scale.copy_(guidance_scale.reshape(
+        () if entry.batch is None or guidance_scale.numel() == 1
+        else (entry.batch,)).expand(entry.scale.shape))
 
 
-def _solve(entry: _CacheEntry, run: _Run) -> torch.Tensor:
-    """Run one solve over the entry's loaded buffers and return a fresh
-    tensor: the graph's replay on a CUDA device once captured, else the
+def _solve(entry: _CacheEntry, run: _Run):
+    """Run one solve over the entry's loaded buffers and return fresh
+    tensors: the graph's replay on a CUDA device once captured, else the
     eager executor (on a CUDA device, the warm-up that the capture
-    follows)."""
+    follows). With a trajectory, ``(x0, {"x", "x0"})``."""
     if _EAGER_DEPTH or entry.family.reads_back(run.arrays):
         _CACHE_STATS["aot_fallbacks"] += 1
-        return entry.execute(run).clone()
-    if entry.x.device.type != "cuda":
-        return entry.execute(run).clone()
-    if run.graph is None:
-        return entry.capture(run).clone()
-    return entry.replay(run).clone()
+        out = entry.execute(run)
+    elif entry.x.device.type != "cuda":
+        out = entry.execute(run)
+    elif run.graph is None:
+        out = entry.capture(run)
+    else:
+        out = entry.replay(run)
+    if run.traj is None:
+        return out.clone()
+    return out.clone(), {k: v.clone() for k, v in run.traj.items()}
 
 
 # -------------------------------------------------------------- entrypoint
@@ -688,18 +846,16 @@ def sample(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
     ``[M, *x_T.shape]`` tensor, or a callable ``step -> xi`` called for
     every step before the solve. ``cond`` and ``guidance_scale`` are
     forwarded to a :class:`Denoiser` model as the entry's device buffers.
-    The result is a new tensor, never one of the entry's buffers.
+    The result is a new tensor, never one of the entry's buffers. With
+    ``trajectory=True`` it is ``(x0, traj)``: ``traj["x"]`` the state after
+    each step and ``traj["x0"]`` the step's denoised preview, each
+    ``[M, *x_T.shape]``.
     """
-    if trajectory:
-        raise NotImplementedError(
-            "trajectory previews come with the serving slice of the "
-            "PyTorch port (stepwise/serve); call sample() without "
-            "trajectory=True")
     _check_model(plan, model_fn, cond, guidance_scale)
     if cond is not None:
         cond = torch.as_tensor(cond)
     entry = _compiled(plan, model_fn, x_T.shape, x_T.dtype, x_T.device,
-                      cond)
+                      cond, trajectory=trajectory)
     run = entry.run_for(plan)
     run.load_plan(plan)
     entry.x.copy_(x_T)
@@ -710,21 +866,92 @@ def sample(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
     return _solve(entry, run)
 
 
+def _load_lane_noise(run: _Run, noise, generators) -> None:
+    """Fill a batched run's [M, K, *shape] noise buffer from ``noise``
+    (float32 [K, M, *shape], the reference's lane-first layout), or lane k
+    from one [M, *shape] draw of ``generators[k]``."""
+    buf = run.noise
+    K = buf.shape[1]
+    if noise is not None:
+        want = (K, buf.shape[0]) + tuple(buf.shape[2:])
+        if tuple(noise.shape) != want:
+            raise ValueError(
+                f"noise of shape {tuple(noise.shape)}; the solve takes "
+                f"[K, M, *shape] = {want}")
+        buf.copy_(noise.transpose(0, 1))
+        return
+    if generators is None or len(generators) != K:
+        raise ValueError(
+            f"sample_batched needs noise= or one generator per lane ({K})")
+    for k, g in enumerate(generators):
+        buf[:, k].copy_(torch.randn(buf[:, k].shape, generator=g,
+                                    device=buf.device))
+
+
+@torch.no_grad()
+def sample_batched(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
+                   generators=None, *, noise: torch.Tensor | None = None,
+                   cond=None, guidance_scale=1.0, trajectory: bool = False):
+    """Solve K requests at once: ``x_T`` [K, *shape], one request per
+    lane, each with its own noise (``noise`` float32 [K, M, *shape], or a
+    sequence of K generators, lane k drawing its [M, *shape] steps from
+    ``generators[k]``), ``cond`` (leading axis K) and guidance scale (a
+    number or K of them).
+
+    The reference vmaps its executor over the request axis. Here it is
+    ONE solve over the stacked lanes, which is the same computation: every
+    lane is at the same step with the same tables, so the combines take
+    one coefficient vector, and the model is called lane-batched (``x``
+    [K, *shape], ``t`` [K]). The lane count joins the cache key. Returns
+    ``x0`` [K, *shape], with ``trajectory=True`` ``(x0, traj)`` whose
+    leaves are [K, M, *shape] (the reference's vmapped layout). The
+    residual feature-cache policy raises (its refresh is per lane).
+    """
+    K = int(x_T.shape[0])
+    _check_model(plan, model_fn, cond, guidance_scale)
+    if cond is not None:
+        cond = torch.as_tensor(cond)
+    _check_lanes(plan, model_fn, cond, K)
+    entry = _compiled(plan, model_fn, x_T.shape[1:], x_T.dtype, x_T.device,
+                      cond, trajectory=trajectory, batch=K)
+    run = entry.run_for(plan)
+    run.load_plan(plan)
+    entry.x.copy_(x_T)
+    _load_lane_noise(run, noise, generators)
+    if cond is not None:
+        entry.cond.copy_(cond)
+    _load_scale(entry, guidance_scale)
+    out = _solve(entry, run)
+    if not trajectory:
+        return out
+    x0, traj = out
+    return x0, {k: v.transpose(0, 1).contiguous() for k, v in traj.items()}
+
+
 @torch.no_grad()
 def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
-           cond=None, guidance_scale=None, device="cuda") -> None:
-    """Build the entry that :func:`sample` of this plan, model, latent
-    ``shape``/``dtype`` and ``cond`` structure on ``device`` will use and,
-    on a CUDA device, capture its graph for the plan's signature. ``cond``
-    is a prototype of the per-call conditioning (its shape and dtype key
-    the entry; its values feed the warm-up solve). Idempotent: a later
-    warmup or sample of the same key is a hit, and adds no graph."""
+           cond=None, guidance_scale=None, device="cuda",
+           batch: int | None = None, trajectory: bool = False) -> None:
+    """Build the entry that :func:`sample` (or, with ``batch``,
+    :func:`sample_batched` of that many lanes) of this plan, model,
+    per-request latent ``shape``/``dtype``, ``cond`` structure and
+    ``trajectory`` flag on ``device`` will use and, on a CUDA device,
+    capture its graph for the plan's signature. ``cond`` is a prototype
+    of one call's (with ``batch``: one request's) conditioning; its shape
+    and dtype key the entry, its values feed the warm-up solve.
+    Idempotent: a later warmup or sample of the same key is a hit, and
+    adds no graph."""
     scale = 1.0 if guidance_scale is None else guidance_scale
     device = resolve_device(device)
     _check_model(plan, model_fn, cond, scale)
     if cond is not None:
         cond = torch.as_tensor(cond)
-    entry = _compiled(plan, model_fn, shape, dtype, device, cond)
+        if batch is not None:
+            cond = cond.expand((batch,) + tuple(cond.shape))
+    if batch is not None:
+        _check_lanes(plan, model_fn, cond, batch)
+    entry = _compiled(plan, model_fn, shape, dtype, device, cond,
+                      trajectory=trajectory, batch=batch)
     run = entry.run_for(plan)
     if run.graph is not None or entry.x.device.type != "cuda" or \
             _EAGER_DEPTH or entry.family.reads_back(run.arrays):
@@ -753,10 +980,18 @@ class Sampler:
     def sample(self, model_fn, x_T: torch.Tensor,
                generator: torch.Generator | None = None, *,
                noise: Noise = None, cond=None, guidance_scale=1.0,
-               trajectory: bool = False) -> torch.Tensor:
+               trajectory: bool = False):
         return sample(self.plan, model_fn, x_T, generator, noise=noise,
                       cond=cond, guidance_scale=guidance_scale,
                       trajectory=trajectory)
+
+    def sample_batched(self, model_fn, x_T: torch.Tensor, generators=None,
+                       *, noise: torch.Tensor | None = None, cond=None,
+                       guidance_scale=1.0, trajectory: bool = False):
+        return sample_batched(self.plan, model_fn, x_T, generators,
+                              noise=noise, cond=cond,
+                              guidance_scale=guidance_scale,
+                              trajectory=trajectory)
 
     def init_noise(self, generator: torch.Generator, shape) -> torch.Tensor:
         """x_T ~ N(0, prior_scale^2 I), float32 on ``generator``'s device."""

@@ -57,7 +57,16 @@ residual back to the host once per step (one device sync). The init
 evaluation always refreshes; a PECE re-evaluation reuses its step's
 features.
 
-The step-granular adapter comes with a later slice of the port.
+Trajectories: with per-step buffers ``traj = {"x", "x0"}`` the executor
+writes the state after each step and the step's denoised preview (the
+data-convention eval, or x0 rebuilt from the state the eval saw) into row
+i, on the device.
+
+The step-granular adapter (:func:`multistep_stepwise`) is the same step
+refactored from "a loop over steps, one solve" to "one tick over lanes,
+each at its own step index": the lane index lives on the device, the
+coefficients come by a gather at each lane's step, and the init
+evaluation runs in-band as a lane's first tick.
 """
 
 from __future__ import annotations
@@ -70,12 +79,15 @@ import torch
 from ...kernels import ops
 from ...kernels.sa_update import MAX_ROWS
 from ..coefficients import SolverTables, TableBuilder, build_tables
+from ..denoiser import lane_view
 from ..programs import StepProgram
 from .base import SamplerFamily, SamplerSpec, carry_dtype, register_sampler
+from .stepwise import StepAdapter
 
 __all__ = ["MAX_SCAN_SEGMENTS", "execute_multistep", "fc_policy",
            "make_multistep_family", "multistep_nfe", "multistep_statics",
-           "multistep_steps_from_nfe", "plan_multistep", "tables_to_arrays"]
+           "multistep_steps_from_nfe", "multistep_stepwise",
+           "multistep_stepwise_arrays", "plan_multistep", "tables_to_arrays"]
 
 _COMBINES = ("einsum", "kernel", "fused")
 _HISTORIES = ("ring", "concat")
@@ -333,30 +345,47 @@ def _combine_rows(combine, cdt, decay_i, x_prev, packed, buf, noise_i, xi):
     return (decay_i * x_prev.to(f32) + acc + noise_i * xi.to(f32)).to(cdt)
 
 
-def _pc_residual(x_next, x_pred) -> torch.Tensor:
+def _pc_residual(x_next, x_pred, lanes: bool = False) -> torch.Tensor:
     """Relative-RMS predictor-vs-corrector gap, the free step-change
     signal a step with a corrector already computes both states for: it
-    drives the ``residual`` feature-cache refresh."""
+    drives the ``residual`` feature-cache refresh and the step protocol's
+    early exit. ``lanes``: one gap per lane of [L, *shape] states, [L]."""
     f32 = torch.float32
+    dims = tuple(range(1, x_next.dim())) if lanes else None
+    mean = (lambda v: torch.mean(v, dim=dims)) if lanes else torch.mean
     diff = x_next.to(f32) - x_pred.to(f32)
-    return torch.sqrt(torch.mean(diff * diff)) / (
-        torch.sqrt(torch.mean(x_next.to(f32) ** 2)) + 1e-8)
+    return torch.sqrt(mean(diff * diff)) / (
+        torch.sqrt(mean(x_next.to(f32) ** 2)) + 1e-8)
 
 
-def execute_multistep(statics, dev, model_fn, x_T, noise):
+def _x0_preview(dev, parameterization, cdt, x_eval, e_new, i):
+    """The step's denoised preview: the eval itself in the data
+    convention; else x0 rebuilt at t_{i+1} from the state the eval saw.
+    ``i`` is a step index, or one per lane ([L] on the device)."""
+    if parameterization == "data":
+        return e_new
+    f32 = torch.float32
+    sig = lane_view(dev["sigmas"][i + 1], x_eval)
+    alp = lane_view(dev["alphas"][i + 1], x_eval)
+    return ((x_eval.to(f32) - sig * e_new.to(f32)) / alp).to(cdt)
+
+
+def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
     """The multistep solve as a Python loop over the M steps on the device
     of ``x_T``, each step in the mode its segment (or host flag) gives it.
     ``noise`` is the float32 [M, *x_T.shape] buffer of the steps' Gaussian
     draws (row i is step i's), read on the device: the loop reads no host
     value but the plan's host flags, so it can be captured as a CUDA graph
-    (all but the residual policy's per-step read).
+    (all but the residual policy's per-step read). ``traj``: None, or the
+    ``{"x", "x0"}`` [M, *x_T.shape] buffers whose row i gets the state
+    after step i and its denoised preview.
 
     Feature caching (``statics[-1]``): every evaluation goes through
     ``model_fn.cached_call`` with the features carried from the last
     refresh; step i refreshes when ``fc_refresh[i]`` or the previous
     step's residual reached ``fc_thresh`` (read back only when the
     threshold is finite, the residual policy)."""
-    _, modes, combine, denoise, ring, precision, fc = statics
+    parameterization, modes, combine, denoise, ring, precision, fc = statics
     P = dev["pred"].shape[1]  # buffer rows = max(pred order, corr order)
     M = dev["decay"].shape[0]
     flags = _step_modes(modes, dev, M)
@@ -389,7 +418,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
             x_pred = _combine_rows(combine, cdt, decay_i, x,
                                    dev["pred_packed"][i], buf, noise_i, xi)
             e_new = eval_model(x_pred, t_next, True)
-            x_next = x_pred
+            x_next = x_eval = x_pred
             if use_corrector:
                 rows = torch.cat([e_new[None], buf], dim=0)
                 x_next = _combine_rows(combine, cdt, decay_i, x,
@@ -397,8 +426,13 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
                                        noise_i, xi)
                 if pece:
                     e_new = eval_model(x_next, t_next, True)
+                    x_eval = x_next
             buf = torch.cat([e_new[None], buf[:-1]], dim=0)
             x = x_next
+            if traj is not None:
+                traj["x"][i].copy_(x)
+                traj["x0"][i].copy_(_x0_preview(dev, parameterization, cdt,
+                                                x_eval, e_new, i))
             continue
         # refresh when the plan says so OR the last step moved enough
         refresh = fc and (dev["fc_refresh"][i]
@@ -431,14 +465,20 @@ def execute_multistep(statics, dev, model_fn, x_T, noise):
         if fc and gated and use_corrector:
             # the one device-to-host read of the residual policy
             prev_err = float(_pc_residual(x_next, x_pred))
+        x_eval = x_pred  # the state e_new was evaluated at
         if use_corrector and pece:
             # under feature caching the re-eval reuses this step's features
             e_new = eval_model(x_next, t_next, False)
+            x_eval = x_next
         # the one history write, in place: e_new becomes age 0 of step
         # i+1 in slot (i+1) mod P, overwriting age P-1, which no combine
         # needs again
         buf[(i + 1) % P] = e_new
         x = x_next
+        if traj is not None:
+            traj["x"][i].copy_(x)
+            traj["x0"][i].copy_(_x0_preview(dev, parameterization, cdt,
+                                            x_eval, e_new, i))
 
     if denoise:
         # the newest eval: ring slot M mod P, concat row 0
@@ -474,11 +514,186 @@ def multistep_steps_from_nfe(nfe: int, kw: dict) -> int:
     return max(1, (nfe - 1) // (2 if pece else 1))
 
 
+# --------------------------------------------------- step-granular adapter
+def _stepwise_modes(spec: SamplerSpec) -> tuple:
+    """Mode statics of the lane-batched tick. Each lane sits at its own
+    step, so segment boundaries cannot be structure: ANY multi-segment
+    program runs the per-step ``("cond",)`` path (every step the corrector
+    combine, the PECE re-eval selected by a per-lane flag)."""
+    program = check_program(spec)
+    if program is not None:
+        segs = program.segments(spec.n_steps)
+        if len(segs) > 1:
+            return ("cond",)
+        return (segs[0][0], segs[0][1])
+    use_corrector = spec.corrector_order > 0
+    return (use_corrector, spec.mode == "PECE" and use_corrector)
+
+
+def multistep_stepwise_arrays(plan, device) -> dict:
+    """The tick's tables on ``device``: the plan's tensors and, under the
+    ``("cond",)`` modes, the per-step PECE flags ``pece`` and the
+    early-exit gate ``ee_ok`` as device tensors (the tick indexes them by
+    each lane's step). A program of up to :data:`MAX_SCAN_SEGMENTS`
+    segments kept its segment tables in the plan, so its P-only steps are
+    folded here (``corr := pred``) and the kernel coefficients repacked
+    from the folded rows, as the cond fallback's plan does."""
+    spec = plan.spec
+    dev = {k: v for k, v in plan.arrays_on(device).items()
+           if isinstance(v, torch.Tensor)}
+    if _stepwise_modes(spec)[0] != "cond":
+        return dev
+    tables = plan.host["tables"]
+    p_only = tables.c_orders == 0
+    flags = plan.arrays.get("pece")
+    if flags is None:
+        corr = np.array(tables.corr)
+        corr[p_only] = tables.pred[p_only]
+        dev = {k: v.to(device) for k, v in
+               tables_to_arrays(tables, corr=corr).items()}
+        flags = [p for _, p in spec.program.mode_flags(spec.n_steps)]
+    dev["pece"] = torch.tensor(flags, dtype=torch.bool, device=device)
+    # folded P-only steps report a residual of zero (their corrector
+    # combine IS the predictor): they never let a lane exit early
+    dev["ee_ok"] = torch.tensor(~p_only, dtype=torch.bool, device=device)
+    return dev
+
+
+def _age_rows_lanes(buf, ic, P):
+    """[L, P, *shape] newest-first history rows of each lane: age j sits
+    in ring slot (ic - j) mod P of its lane."""
+    L = buf.shape[0]
+    ages = torch.arange(P, device=buf.device)
+    slots = torch.remainder(ic[:, None] - ages[None, :], P)
+    return buf[torch.arange(L, device=buf.device)[:, None], slots]
+
+
+def _combine_lanes(combine, cdt, x, packed, rows, xi):
+    """:func:`_combine_rows` with one coefficient row per lane: ``packed``
+    [L, R+2] (decay, noise, b_0..) over ``rows`` [L, R, *shape]."""
+    if combine == "kernel":
+        return ops.sa_update_lanes(x, rows, xi, packed)
+    f32 = torch.float32
+    acc = torch.einsum("lp,lp...->l...", packed[:, 2:], rows.to(f32))
+    return (lane_view(packed[:, 0], x) * x.to(f32) + acc
+            + lane_view(packed[:, 1], x) * xi.to(f32)).to(cdt)
+
+
+def multistep_stepwise(spec: SamplerSpec,
+                       convention: str | None = None) -> StepAdapter:
+    """The lane-batched tick of the multistep executor: every lane of a
+    running batch advances one step at its own step index ``ic`` [L] (on
+    the device), in one pass of the same op sequence as
+    :func:`execute_multistep`'s ring step. The coefficients are gathered
+    per lane from the plan: ``fused_packed[ic]`` [L, 2, P+2] is already
+    rotated to each lane's ring head (``_rotated`` packs it per step on
+    the host, once per plan), so no host value enters a tick and a tick
+    can be captured as a CUDA graph. The init evaluation (seed row e0)
+    runs in-band: a lane at ``i = -1`` evaluates the model at
+    ``(x_T, ts[0])`` through selects that are bit-transparent on real
+    steps."""
+    base = multistep_statics(spec, convention)
+    (parameterization, _, combine, denoise, ring, precision, fc) = base
+    if not ring:
+        raise ValueError(
+            "step-granular multistep needs history='ring' (the concat "
+            "layout re-stacks the buffer every step and exists only as the "
+            "seed regression baseline)")
+    modes = _stepwise_modes(spec)
+    use_corrector = True if modes[0] == "cond" else modes[0]
+    pece = "cond" if modes[0] == "cond" else modes[1]
+    cdt = carry_dtype(precision)
+    f32 = torch.float32
+
+    def init_inner(dev, x_T):
+        P = dev["pred"].shape[1]
+        x = x_T.to(cdt)
+        return {"x": x, "buf": torch.zeros((P,) + tuple(x.shape), dtype=cdt,
+                                           device=x.device)}
+
+    def step(dev, model_fn, inner, ic, init, xi):
+        x, buf = inner["x"], inner["buf"]
+        L, P = buf.shape[0], buf.shape[1]
+        lanes = lambda v: lane_view(v, x)  # noqa: E731
+        t_next = dev["ts"][ic + 1]
+        rows = None
+        if combine == "fused":
+            packed = dev["fused_packed"][ic]
+            if use_corrector:
+                x_pred, corr_base = ops.sa_fused_update_lanes(x, buf, xi,
+                                                              packed)
+            else:
+                x_pred = ops.sa_update_lanes(x, buf, xi,
+                                             packed[:, 0].contiguous())
+        else:
+            # einsum/kernel gather the rows newest-first, as the whole
+            # solve does (the reference's ring layout): the same rows in
+            # the same order keep a lane bitwise its sample_batched solve.
+            # The row-free combine is "fused".
+            rows = _age_rows_lanes(buf, ic, P)
+            x_pred = _combine_lanes(combine, cdt, x, dev["pred_packed"][ic],
+                                    rows, xi)
+        # init tick: evaluate at (x_T, ts[0]) instead; on real steps both
+        # selects pick the step's operand bit for bit
+        x_in = torch.where(lanes(init), x, x_pred)
+        t_in = torch.where(init, dev["ts"][0], t_next)
+        e_new = model_fn(x_in, t_in).to(cdt)
+        x_eval = x_in
+        if use_corrector:
+            if combine == "fused":
+                x_next = (corr_base.to(f32) + lanes(dev["corr_new"][ic])
+                          * e_new.to(f32)).to(cdt)
+            else:
+                x_next = _combine_lanes(
+                    combine, cdt, x, dev["corr_packed"][ic],
+                    torch.cat([e_new[:, None], rows], dim=1), xi)
+            # the predictor-vs-corrector residual, before any re-eval
+            err = _pc_residual(x_next, x_pred, lanes=True)
+            if pece == "cond":
+                # a per-lane predicate: both evaluations, then a select
+                # (two evaluations a tick, in evals_per_tick)
+                e2 = model_fn(x_next, t_next).to(cdt)
+                hit = dev["pece"][ic] & ~init
+                e_new = torch.where(lanes(hit), e2, e_new)
+                x_eval = torch.where(lanes(hit), x_next, x_eval)
+                err = torch.where(dev["ee_ok"][ic], err, math.inf)
+            elif pece:
+                e2 = model_fn(x_next, t_next).to(cdt)
+                e_new = torch.where(lanes(init), e_new, e2)
+                x_eval = torch.where(lanes(init), x_eval, x_next)
+        else:
+            x_next = x_pred
+            err = torch.full((L,), math.inf, device=x.device)
+        # the ONE history write; the init eval is the seed row in slot 0
+        slot = torch.where(init, 0, torch.remainder(ic + 1, P))
+        buf = buf.clone()
+        buf[torch.arange(L, device=buf.device), slot] = e_new
+        x_out = torch.where(lanes(init), x, x_next)
+        # denoise-final: the newest eval is this tick's e_new, so a lane
+        # that exits early has its result in hand
+        final = e_new if denoise else x_out
+        x0 = _x0_preview(dev, parameterization, cdt, x_eval, e_new, ic)
+        return {"x": x_out, "buf": buf}, final, x0, err
+
+    return StepAdapter(
+        statics=(parameterization, modes, combine, denoise, precision, fc),
+        i0=-1,
+        evals_per_tick=2 if pece else 1,
+        n_steps_of=lambda dev: int(dev["decay"].shape[0]),
+        init_inner=init_inner,
+        step=step,
+        arrays=multistep_stepwise_arrays,
+        shape_key=lambda plan: (int(plan.arrays["pred"].shape[1]),
+                                "alphas" in plan.arrays),
+    )
+
+
 def make_multistep_family(name: str, builder_of, *,
                           tau_inert: bool = False) -> SamplerFamily:
     """Register a solver family that is only a coefficient-table rule:
-    ``builder_of(spec) -> TableBuilder``. It takes full step programs;
-    ``tau_inert`` marks a family whose rule maps every tau to 0."""
+    ``builder_of(spec) -> TableBuilder``. It takes full step programs and
+    the step protocol (``stepwise``); ``tau_inert`` marks a family whose
+    rule maps every tau to 0."""
     def plan(spec):
         return plan_multistep(spec, builder_of(spec))
 
@@ -488,9 +703,12 @@ def make_multistep_family(name: str, builder_of, *,
     def convention(spec):
         return builder_of(spec).parameterization
 
+    def stepwise(spec):
+        return multistep_stepwise(spec, builder_of(spec).parameterization)
+
     family = SamplerFamily(
         name=name, plan=plan, execute=execute_multistep, statics=statics,
         nfe_of=multistep_nfe, steps_from_nfe=multistep_steps_from_nfe,
-        model_convention=convention, full_programs=True, tau_inert=tau_inert,
-        reads_back=_reads_residual)
+        model_convention=convention, stepwise=stepwise, full_programs=True,
+        tau_inert=tau_inert, reads_back=_reads_residual)
     return register_sampler(family)

@@ -2,6 +2,8 @@
 
     sa_update.py        fused SA-Solver state update   (memory-bound)
     sa_fused.py         dual-output predictor+corrector combine (one pass)
+                        (both also lane-batched: L lanes of their own
+                        operands and coefficients in one launch)
     flash_attention.py  blocked online-softmax attention (compute-bound)
     rwkv6_scan.py       chunked RWKV6 WKV recurrence (state kept on chip)
 

@@ -33,10 +33,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: C signatures of each library's entry points
 SIGNATURES = {
     "sa_combine": {
-        # ..., n, P, dtype, blocks, threads, vectorized, stream
-        "sa_update_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P),
+        # ..., n, P, dtype, blocks, threads, vectorized, lanes, stream
+        "sa_update_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                             _P),
         "sa_fused_launch": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _P),
     },
     "flash_attention": {
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

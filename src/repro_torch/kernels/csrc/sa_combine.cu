@@ -8,7 +8,9 @@
 //   sa_fused:   pred = c[0,0]*x + c[0,1]*xi + sum_j c[0,2+j] * buf[j]
 //               corr = c[1,0]*x + c[1,1]*xi + sum_j c[1,2+j] * buf[j]
 //
-// over the flattened latent (n elements), buf stacked as [P, n]. f32
+// over the flattened latent (n elements), buf stacked as [P, n]; or L
+// lanes of their own operands and coefficients in one launch (blockIdx.y
+// the lane; sa_update_lanes, sa_fused_update_lanes). f32
 // accumulation in the reference's order (decay*x + noise*xi first, then the
 // b_j terms in j order, each product rounded before its add, as the plain
 // PyTorch chain does), output in the operand dtype (f32 or bf16).
@@ -166,13 +168,25 @@ __device__ __forceinline__ void combine(
   }
 }
 
+// blockIdx.y is the lane: lane l's operands are x[l], buf[l] (its own
+// [P, n] history), xi[l], coeffs[l] and out[l], each lane n elements
+// apart. A solo combine is one lane (gridDim.y = 1). The reference runs its
+// per-lane step under jax.vmap, which gives the Pallas kernels a lane grid
+// axis with per-lane coefficients. blockIdx.x runs over the lane's n
+// elements with the same geometry and arithmetic at any lane count, so
+// lane l's output equals a one-lane launch on lane l's operands bit for
+// bit. Every lane's base pointer is 16-byte aligned when the first lane's
+// is and n is a multiple of the vector width, which the alignment check
+// already asks.
 template <typename T, int P>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSM)
 sa_update_kernel(const T* __restrict__ x, const T* __restrict__ buf,
                  const T* __restrict__ xi, const float* __restrict__ coeffs,
                  T* __restrict__ out, int64_t n, int vectorized) {
-  T* const outs[1] = {out};
-  combine<T, P, 1>(x, buf, xi, coeffs, outs, n, vectorized);
+  const int64_t l = blockIdx.y;
+  T* const outs[1] = {out + l * n};
+  combine<T, P, 1>(x + l * n, buf + l * P * n, xi + l * n, coeffs + l * (P + 2),
+                   outs, n, vectorized);
 }
 
 template <typename T, int P>
@@ -181,15 +195,21 @@ sa_fused_kernel(const T* __restrict__ x, const T* __restrict__ buf,
                 const T* __restrict__ xi, const float* __restrict__ coeffs,
                 T* __restrict__ pred, T* __restrict__ corr, int64_t n,
                 int vectorized) {
-  T* const outs[2] = {pred, corr};  // coeffs row 0 predictor, row 1 corrector
-  combine<T, P, 2>(x, buf, xi, coeffs, outs, n, vectorized);
+  const int64_t l = blockIdx.y;
+  // coeffs row 0 predictor, row 1 corrector
+  T* const outs[2] = {pred + l * n, corr + l * n};
+  combine<T, P, 2>(x + l * n, buf + l * P * n, xi + l * n,
+                   coeffs + l * 2 * (P + 2), outs, n, vectorized);
 }
+
+constexpr int kMaxLanes = 65535;  // gridDim.y
 
 struct Launch {
   const void *x, *buf, *xi, *coeffs;
   void *out0, *out1;  // out1 null: sa_update
-  long long n;
+  long long n;        // elements per lane
   int blocks, threads, vectorized;
+  int lanes;          // gridDim.y
   cudaStream_t stream;
 };
 
@@ -199,7 +219,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // vector path only where every pointer and n are 16-byte aligned.
 template <typename T>
 bool runnable(const Launch& a) {
-  if (a.n < 0 || a.blocks < 1) return false;
+  if (a.n < 0 || a.blocks < 1 || a.lanes < 1 || a.lanes > kMaxLanes) return false;
   if (a.threads != 32 && a.threads != 64 && a.threads != 128 && a.threads != 256)
     return false;
   if (a.vectorized == 0) return true;
@@ -210,12 +230,13 @@ bool runnable(const Launch& a) {
 
 template <typename T, int P>
 int launch(const Launch& a) {
+  const dim3 grid(a.blocks, a.lanes);
   if (a.out1)
-    sa_fused_kernel<T, P><<<a.blocks, a.threads, 0, a.stream>>>(
+    sa_fused_kernel<T, P><<<grid, a.threads, 0, a.stream>>>(
         (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
         (T*)a.out0, (T*)a.out1, a.n, a.vectorized);
   else
-    sa_update_kernel<T, P><<<a.blocks, a.threads, 0, a.stream>>>(
+    sa_update_kernel<T, P><<<grid, a.threads, 0, a.stream>>>(
         (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
         (T*)a.out0, a.n, a.vectorized);
   return (int)cudaGetLastError();
@@ -244,25 +265,28 @@ int dispatch(const Launch& a, int P, int dtype) {
 
 // dtype: 0 = float32, 1 = bfloat16. blocks and threads come from
 // combine_geometry; vectorized says that every pointer and n are 16-byte
-// aligned. Returns cudaErrorInvalidValue
-// for what the kernels cannot run (no launch), else cudaGetLastError()
-// after the launch (0 = cudaSuccess); the Python wrapper raises on
-// anything but 0.
+// aligned. lanes (1..65535) combines of n elements each: x, xi and the
+// outputs [lanes, n], buf [lanes, P, n], coeffs [lanes, P+2] (sa_update)
+// or [lanes, 2, P+2] (sa_fused); a solo combine is lanes = 1. Returns
+// cudaErrorInvalidValue for what the kernels cannot run (no launch), else
+// cudaGetLastError() after the launch (0 = cudaSuccess); the Python
+// wrapper raises on anything but 0.
 extern "C" int sa_update_launch(const void* x, const void* buf, const void* xi,
                                 const void* coeffs, void* out, long long n,
                                 int P, int dtype, int blocks, int threads,
-                                int vectorized, void* stream) {
+                                int vectorized, int lanes, void* stream) {
   const Launch a{x, buf, xi, coeffs, out, nullptr, n, blocks, threads,
-                 vectorized, (cudaStream_t)stream};
+                 vectorized, lanes, (cudaStream_t)stream};
   return dispatch(a, P, dtype);
 }
 
 extern "C" int sa_fused_launch(const void* x, const void* buf, const void* xi,
                                const void* coeffs, void* pred, void* corr,
                                long long n, int P, int dtype, int blocks,
-                               int threads, int vectorized, void* stream) {
+                               int threads, int vectorized, int lanes,
+                               void* stream) {
   if (!corr) return (int)cudaErrorInvalidValue;
   const Launch a{x, buf, xi, coeffs, pred, corr, n, blocks, threads,
-                 vectorized, (cudaStream_t)stream};
+                 vectorized, lanes, (cudaStream_t)stream};
   return dispatch(a, P, dtype);
 }

@@ -14,7 +14,8 @@ from . import rwkv6_scan as _wkv
 from . import sa_fused as _fused
 from . import sa_update as _update
 
-__all__ = ["sa_update", "sa_fused_update", "flash_attention", "wkv",
+__all__ = ["sa_update", "sa_fused_update", "sa_update_lanes",
+           "sa_fused_update_lanes", "flash_attention", "wkv",
            "launch_counts", "reset_launch_counts", "add_launches"]
 
 _MODES = ("auto", "plain")
@@ -41,6 +42,23 @@ def sa_fused_update(x, buf, xi, coeffs, *, mode: str = "auto"):
     if _plain(mode, x):
         return _fused.sa_fused_update_plain(x, buf, xi, coeffs)
     return _fused.sa_fused_update(x, buf, xi, coeffs)
+
+
+def sa_update_lanes(x, buf, xi, coeffs, *, mode: str = "auto"):
+    """Lane-batched ``sa_update``: x [L, *shape], buf [L, P, *shape], coeffs
+    [L, P+2]; counted under ``sa_update``."""
+    if _plain(mode, x):
+        return _update.sa_update_lanes_plain(x, buf, xi, coeffs)
+    return _update.sa_update_lanes(x, buf, xi, coeffs)
+
+
+def sa_fused_update_lanes(x, buf, xi, coeffs, *, mode: str = "auto"):
+    """Lane-batched ``sa_fused_update``: coeffs [L, 2, P+2] ->
+    ``(x_pred, corr_base)``, each [L, *shape]; counted under
+    ``sa_fused``."""
+    if _plain(mode, x):
+        return _fused.sa_fused_update_lanes_plain(x, buf, xi, coeffs)
+    return _fused.sa_fused_update_lanes(x, buf, xi, coeffs)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):

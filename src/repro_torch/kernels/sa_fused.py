@@ -11,19 +11,23 @@ history the caller rotates the coefficient *columns* by the ring head, so
 the [P, N] data is never rotated or re-stacked. ``sa_fused_update``
 launches the Hopper kernel (``csrc/sa_combine.cu``: each operand read once,
 two f32 accumulators, two writes); ``sa_fused_update_plain`` is the plain
-PyTorch version.
+PyTorch version. ``sa_fused_update_lanes`` launches the same kernel over L
+lanes of their own operands and [2, P+2] coefficients (lane l's outputs
+equal a solo launch on lane l bit for bit), beside
+``sa_fused_update_lanes_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from .sa_update import _sms, check_operands, launch_args
+from .sa_update import check_lane_operands, check_operands, launch_combine
 
-__all__ = ["sa_fused_update", "sa_fused_update_plain"]
+__all__ = ["sa_fused_update", "sa_fused_update_plain",
+           "sa_fused_update_lanes", "sa_fused_update_lanes_plain"]
 
-#: kernel launches made by :func:`sa_fused_update` in this process
+#: kernel launches made by :func:`sa_fused_update` and
+#: :func:`sa_fused_update_lanes` in this process
 launches = 0
 
 
@@ -43,6 +47,16 @@ def sa_fused_update_plain(x, buf, xi, coeffs):
     return acc_p.to(x.dtype), acc_c.to(x.dtype)
 
 
+def sa_fused_update_lanes_plain(x, buf, xi, coeffs):
+    """x [L, *shape]; buf [L, P, *shape]; xi [L, *shape]; coeffs
+    [L, 2, P+2] -> ``(x_pred, corr_base)``, each [L, *shape]:
+    :func:`sa_fused_update_plain` of each lane on its own operands."""
+    outs = [sa_fused_update_plain(x[l], buf[l], xi[l], coeffs[l])
+            for l in range(x.shape[0])]
+    return (torch.stack([p for p, _ in outs]),
+            torch.stack([c for _, c in outs]))
+
+
 def sa_fused_update(x, buf, xi, coeffs):
     """The Hopper kernel: same contract as :func:`sa_fused_update_plain`,
     CUDA tensors only (raises otherwise). coeffs must be float32 [2, P+2]."""
@@ -50,10 +64,20 @@ def sa_fused_update(x, buf, xi, coeffs):
     check_operands(x, buf, xi, coeffs, rows=2)
     pred = torch.empty_like(x)
     corr = torch.empty_like(x)
-    lib = _build.load("sa_combine")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.sa_fused_launch(
-        *launch_args(x, buf, xi, coeffs, (pred, corr), _sms(x.device)), stream)
-    _build.check(rc, "sa_fused_update")
+    launch_combine("sa_fused_launch", x, buf, xi, coeffs, (pred, corr))
+    launches += 1
+    return pred, corr
+
+
+def sa_fused_update_lanes(x, buf, xi, coeffs):
+    """The Hopper kernel over lanes: same contract as
+    :func:`sa_fused_update_lanes_plain`, CUDA tensors only (raises
+    otherwise). coeffs must be float32 [L, 2, P+2]."""
+    global launches
+    check_lane_operands(x, buf, xi, coeffs, rows=2)
+    pred = torch.empty_like(x)
+    corr = torch.empty_like(x)
+    launch_combine("sa_fused_launch", x, buf, xi, coeffs, (pred, corr),
+                   lanes=x.shape[0])
     launches += 1
     return pred, corr

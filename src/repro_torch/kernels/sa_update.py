@@ -7,6 +7,12 @@ Coefficients arrive as one f32 vector [P+2] = (decay, noise, b_0..b_{P-1}).
 (``csrc/sa_combine.cu``): one pass over x, xi and the P stacked history
 rows, f32 accumulation, one write. ``sa_update_plain`` is the same
 function in plain PyTorch; the CPU path and the card-side checks use it.
+
+``sa_update_lanes`` launches the same kernel over L lanes, each with its
+own operands and coefficient vector (the reference's per-lane step calls
+the Pallas kernel under ``jax.vmap``); a solo call is one lane. Lane l's
+output equals a solo launch on lane l bit for bit;
+``sa_update_lanes_plain`` is the loop of the plain version over the lanes.
 """
 
 from __future__ import annotations
@@ -17,8 +23,9 @@ import torch
 
 from . import _build
 
-__all__ = ["sa_update", "sa_update_plain", "combine_geometry", "launch_args",
-           "MAX_ROWS", "DTYPE_CODES"]
+__all__ = ["sa_update", "sa_update_plain", "sa_update_lanes",
+           "sa_update_lanes_plain", "combine_geometry", "launch_args",
+           "launch_combine", "MAX_ROWS", "MAX_LANES", "DTYPE_CODES"]
 
 #: most history rows the kernel is instantiated for
 MAX_ROWS = 5
@@ -32,7 +39,11 @@ BLOCK = 256
 RESIDENT_BLOCKS = 2
 SCALAR_BLOCKS = 16
 
-#: kernel launches made by :func:`sa_update` in this process
+#: most lanes one launch takes (the grid's y extent)
+MAX_LANES = 65535
+
+#: kernel launches made by :func:`sa_update` and :func:`sa_update_lanes`
+#: in this process
 launches = 0
 
 
@@ -52,6 +63,13 @@ def sa_update_plain(x, buf, xi, coeffs):
     for j in range(buf.shape[0]):
         acc = acc + c[2 + j] * buf[j].float()
     return acc.to(x.dtype)
+
+
+def sa_update_lanes_plain(x, buf, xi, coeffs):
+    """x [L, *shape]; buf [L, P, *shape]; xi [L, *shape]; coeffs [L, P+2]:
+    :func:`sa_update_plain` of each lane on its own operands."""
+    return torch.stack([sa_update_plain(x[l], buf[l], xi[l], coeffs[l])
+                        for l in range(x.shape[0])])
 
 
 def combine_geometry(n: int, itemsize: int, vectorized: bool,
@@ -99,6 +117,44 @@ def launch_args(x, buf, xi, coeffs, outs, sms: int) -> tuple:
             int(vectorized))
 
 
+def launch_combine(entry: str, x, buf, xi, coeffs, outs, lanes: int = 0):
+    """Launch the C entry ``entry`` (``sa_update_launch`` or
+    ``sa_fused_launch``) on the current stream and raise on its error.
+    ``lanes`` 0: one combine of :func:`launch_args`' operands; else
+    ``lanes`` combines stacked on a leading axis, passed as lane 0's
+    pointers with one lane's n, P and geometry. Every lane's pointers are
+    16-byte aligned exactly when lane 0's are and n is a multiple of the
+    vector width, which is what the vector-path flag checks."""
+    one = (lambda t: t[0]) if lanes else (lambda t: t)
+    args = launch_args(one(x), one(buf), one(xi), coeffs,
+                       [one(o) for o in outs], _sms(x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_build.load("sa_combine"), entry)(*args, max(lanes, 1), stream)
+    _build.check(rc, entry)
+
+
+def check_lane_operands(x, buf, xi, coeffs, rows: int) -> None:
+    """Raise on what the lane-batched entries do not take: x and xi
+    [L, *shape], buf [L, P, *shape], coeffs float32 [L, rows, P+2]."""
+    if x.dim() < 1 or not 1 <= x.shape[0] <= MAX_LANES:
+        raise ValueError(f"x of shape {tuple(x.shape)}: the lane-batched "
+                         f"entries take [L, *shape], 1 <= L <= {MAX_LANES}")
+    L = x.shape[0]
+    if buf.dim() < 2 or buf.shape[0] != L or \
+            tuple(buf.shape[2:]) != tuple(x.shape[1:]):
+        raise ValueError(f"shapes: x {tuple(x.shape)}, buf {tuple(buf.shape)}"
+                         " (want [L, P, *x.shape[1:]])")
+    if coeffs.dim() != 3 or coeffs.shape[0] != L:
+        raise ValueError(f"coeffs of shape {tuple(coeffs.shape)}; want "
+                         f"[{L}, {rows}, P+2]")
+    check_operands(x[0], buf[0], xi[0], coeffs[0], rows)
+    if xi.shape != x.shape:
+        raise ValueError(f"shapes: x {tuple(x.shape)}, xi {tuple(xi.shape)}")
+    for name, t in (("x", x), ("buf", buf), ("xi", xi), ("coeffs", coeffs)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def check_operands(x, buf, xi, coeffs, rows: int) -> None:
     """Raise on what the combine kernels do not take."""
     if x.device.type != "cuda":
@@ -131,10 +187,20 @@ def sa_update(x, buf, xi, coeffs):
     global launches
     check_operands(x, buf, xi, coeffs.reshape(1, -1), rows=1)
     out = torch.empty_like(x)
-    lib = _build.load("sa_combine")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.sa_update_launch(
-        *launch_args(x, buf, xi, coeffs, (out,), _sms(x.device)), stream)
-    _build.check(rc, "sa_update")
+    launch_combine("sa_update_launch", x, buf, xi, coeffs, (out,))
+    launches += 1
+    return out
+
+
+def sa_update_lanes(x, buf, xi, coeffs):
+    """The Hopper kernel over lanes: same contract as
+    :func:`sa_update_lanes_plain`, CUDA tensors only (raises otherwise).
+    coeffs must be float32 [L, P+2]."""
+    global launches
+    check_lane_operands(x, buf, xi, coeffs.reshape(coeffs.shape[0], 1, -1),
+                        rows=1)
+    out = torch.empty_like(x)
+    launch_combine("sa_update_launch", x, buf, xi, coeffs, (out,),
+                   lanes=x.shape[0])
     launches += 1
     return out

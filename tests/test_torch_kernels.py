@@ -566,10 +566,10 @@ def test_combine_geometry_covers_every_element_once(n, itemsize, vectorized):
                                           (torch.bfloat16, 0),
                                           (torch.float32, 1)])
 def test_combine_launch_args_match_c_signatures(fused, dtype, offset):
-    """The wrappers' arguments fit the C entry points' ctypes signatures
-    in ``_build.SIGNATURES`` (count and integer widths), end with the
-    geometry of ``combine_geometry``, and ask for the vector path only on
-    16-byte aligned operands."""
+    """The wrappers' arguments, one lane and the stream, fit the C entry
+    points' ctypes signatures in ``_build.SIGNATURES`` (count and integer
+    widths), end with the geometry of ``combine_geometry``, and ask for
+    the vector path only on 16-byte aligned operands."""
     from repro_torch.kernels import _build
     P, n = 3, 4096
     view = lambda s: torch.randn(math.prod(s) + offset).to(dtype)[offset:] \
@@ -577,7 +577,7 @@ def test_combine_launch_args_match_c_signatures(fused, dtype, offset):
     x, buf, xi = view((n,)), view((P, n)), view((n,))
     coeffs = torch.randn(2, P + 2) if fused else torch.randn(P + 2)
     outs = (torch.empty_like(x),) * (2 if fused else 1)
-    args = t_update_mod.launch_args(x, buf, xi, coeffs, outs, 132) + (0,)
+    args = t_update_mod.launch_args(x, buf, xi, coeffs, outs, 132) + (1, 0)
     name = "sa_fused_launch" if fused else "sa_update_launch"
     sig = _build.SIGNATURES["sa_combine"][name]
     assert len(args) == len(sig)
@@ -587,10 +587,10 @@ def test_combine_launch_args_match_c_signatures(fused, dtype, offset):
         lo = 0 if ctype is ctypes.c_void_p else -2 ** (bits - 1)
         assert lo <= value < lo + 2 ** bits, (ctype, value)
     vectorized = offset == 0
-    assert args[-2] == int(vectorized)
-    assert args[-4:-2] == t_update_mod.combine_geometry(
+    assert args[-3] == int(vectorized)
+    assert args[-5:-3] == t_update_mod.combine_geometry(
         n, x.element_size(), vectorized, 132)
-    assert args[-7:-4] == (n, P, t_update_mod.DTYPE_CODES[dtype])
+    assert args[-8:-5] == (n, P, t_update_mod.DTYPE_CODES[dtype])
 
 
 # ----------------------------------------------------------- card only
@@ -658,10 +658,12 @@ def test_combine_kernels_repeat_bitwise_on_card(card, shape, dtype):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def _launch_combine(x, buf, xi, coeffs, geometry=None, vectorized=None):
+def _launch_combine(x, buf, xi, coeffs, geometry=None, vectorized=None,
+                    lanes=1):
     """Launch a combine through its C entry point (sa_fused for coeffs
-    [2, P+2]) with the wrapper's arguments, the geometry or the vector flag
-    replaced where given. Returns (rc, outputs)."""
+    [2, P+2]) with the wrapper's arguments for one lane, the geometry, the
+    vector flag or the lane count replaced where given. Returns (rc,
+    outputs)."""
     from repro_torch.kernels import _build
     outs = tuple(torch.empty_like(x) for _ in range(coeffs.dim()))
     args = list(t_update_mod.launch_args(x, buf, xi, coeffs, outs, 132))
@@ -671,7 +673,7 @@ def _launch_combine(x, buf, xi, coeffs, geometry=None, vectorized=None):
         args[-1] = vectorized
     lib = _build.load("sa_combine")
     fn = lib.sa_fused_launch if coeffs.dim() == 2 else lib.sa_update_launch
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    rc = fn(*args, lanes, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     return rc, outs
 
@@ -700,8 +702,9 @@ def test_combine_kernels_same_bits_at_any_geometry_on_card(card, shape,
 @pytest.mark.gpu
 def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
     """The C entry points return an error and launch nothing for a block
-    size or grid they have no instance for, the vector path on unaligned
-    operands or a vector flag other than 0 and 1, or P outside 1..5."""
+    size or grid they have no instance for, a lane count outside
+    1..65535, the vector path on unaligned operands or a vector flag other
+    than 0 and 1, or P outside 1..5."""
     x, buf, xi, c = _combine_card_inputs(card, (4096,), 3, torch.float32)
     xo, bo, xio, co = _combine_card_inputs(card, (4096,), 3, torch.float32,
                                            offset=1)
@@ -710,6 +713,8 @@ def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
         for geometry in ((4, 48), (4, 512), (0, 64)):
             assert _launch_combine(x, buf, xi, coeffs, geometry)[0] != 0
         assert _launch_combine(x, buf, xi, coeffs, vectorized=2)[0] != 0
+        for lanes in (0, 65536):
+            assert _launch_combine(x, buf, xi, coeffs, lanes=lanes)[0] != 0
     assert _launch_combine(xo, bo, xio, co[0], vectorized=1)[0] != 0
     with pytest.raises(ValueError, match="history rows"):
         ops.sa_update(x, torch.zeros(6, 4096, device=card), xi,

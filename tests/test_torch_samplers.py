@@ -188,10 +188,11 @@ def test_spec_validation(bad, exc, match):
 
 
 def test_unported_entry_points_raise_loudly():
-    s = tsamplers.make_sampler("sa", nfe=5)
-    model = TGMM.default_2d().model_fn(t_get_schedule("vp_linear"))
-    with pytest.raises(NotImplementedError, match="trajectory"):
-        s.sample(model, torch.zeros(SHAPE), trajectory=True)
+    # trajectory=True is ported (held in tests/test_torch_stepwise.py); the
+    # step protocol's feature cache is not yet
+    fc = tsamplers.make_sampler("sa", nfe=5, feature_cache=2)
+    with pytest.raises(NotImplementedError, match="feature caching"):
+        tsamplers.fresh_carry(fc.plan, 2, SHAPE, torch.float32, device="cpu")
     with pytest.raises(TypeError, match="StepProgram"):
         tsamplers.make_sampler("sa", nfe=9, program=object())
     with pytest.raises(ValueError, match="unknown sampler"):

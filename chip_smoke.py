@@ -17,11 +17,15 @@ executor's CUDA graphs against its eager solves over DiT-XL/2
 (``graph_path``); the serve engine under both schedulers (solve-granular
 microbatches and the step protocol's lane-batched ticks, through the
 lane-batched combine kernel) over a class-conditional DiT-XL/2, one
-(256, 16) latent a request (``serve_path``); DeepCache feature caching over DiT-XL/2
+(256, 16) latent a request (``serve_path``); the paper's six baseline
+samplers over DiT-XL/2 through the compile cache's graphs, under
+one-call guidance, under the step scheduler and through the sampling
+entry point (``baselines_path``); DeepCache feature caching over DiT-XL/2
 (``feature_cache_path``); the port's sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
-SEEDS and DPM-Solver++ solves of the GMM oracle. Each main path runs with
+SEEDS, DPM-Solver++ and the six baselines' solves of the GMM oracle.
+Each main path runs with
 the launch counts set to 0 just before it and read just after; a solve
 replays a CUDA graph of the compile cache after its entry's first call,
 and the held comparisons of kernel calls with their plain versions run
@@ -75,6 +79,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "guided": ("sa_fused", "flash_attention"),
                 "feature_cache": ("sa_fused", "flash_attention"),
                 "graph": ("sa_update", "sa_fused", "flash_attention"),
+                "baselines": ("flash_attention",),
+                "sample_edm_heun": ("flash_attention",),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused")}
@@ -1536,6 +1542,65 @@ SERVE_SEEDS = (7, 8)
 SERVE_SCALES = (CFG_SCALE, 4.0)
 
 
+def launch_window(fn):
+    """(result, seconds, launches, compile-cache and step-cache deltas) of
+    ``fn()``, synchronized."""
+    import torch
+    from repro_torch.core.samplers import (compile_cache_stats,
+                                           stepwise_cache_stats)
+    from repro_torch.kernels import ops
+    before, c0, s0 = (ops.launch_counts(), compile_cache_stats(),
+                      stepwise_cache_stats())
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    after, c1, s1 = (ops.launch_counts(), compile_cache_stats(),
+                     stepwise_cache_stats())
+    return (out, secs, {k: after[k] - before[k] for k in after},
+            {k: c1[k] - c0[k] for k in ("hits", "misses", "graphs")},
+            {k: s1[k] - s0[k] for k in ("hits", "misses", "graphs")})
+
+
+def only_launches(**counts) -> dict:
+    """Every kernel's launch count: ``counts``, and 0 for the rest."""
+    from repro_torch.kernels import ops
+    return dict.fromkeys(ops.launch_counts(), 0) | counts
+
+
+def served_draws(rid: int, n_steps: int, prior: float):
+    """The x_T and step noise that a ServeEngine with the default seeds
+    (SERVE_SEEDS) draws for request ``rid`` of shape REQ_SHAPE."""
+    import torch
+    from repro_torch.serve import request_draws
+    z, noise = request_draws(*SERVE_SEEDS, rid, 0, REQ_SHAPE, n_steps,
+                             torch.device("cuda"))
+    return prior * z, noise
+
+
+def solo_solve(sam, model_, rid: int, prior: float, **kw):
+    """Served request ``rid`` solved alone at batch 1 from its draws."""
+    x, noise = served_draws(rid, sam.spec.n_steps, prior)
+    return sam.sample(model_, x[None], noise=noise[:, None], **kw)[0]
+
+
+def drive_ticks(eng, after_tick=None, sync: bool = False) -> list:
+    """Step a step-scheduler ``eng`` until no request is pending or
+    running; the seconds of each tick (synchronized when ``sync``).
+    ``after_tick()`` runs after each tick, outside its time."""
+    import torch
+    ticks = []
+    while eng.pending() or eng.health()["running_batches"]:
+        t = time.perf_counter()
+        eng.step()
+        if sync:
+            torch.cuda.synchronize()
+        ticks.append(time.perf_counter() - t)
+        if after_tick is not None:
+            after_tick()
+    return ticks
+
+
 def phase_serve_path(state: dict) -> dict:
     """The port's serving entry points at DiT-XL/2 full width:
     ``ServeEngine`` over the class-conditional tame DiT-XL/2
@@ -1574,8 +1639,7 @@ def phase_serve_path(state: dict) -> dict:
                                            stepwise_cache_stats)
     from repro_torch.kernels import ops
     from repro_torch.models.tame import tame_networks
-    from repro_torch.serve import (Fault, FaultInjector, FaultPlan,
-                                   ServeEngine, request_draws)
+    from repro_torch.serve import Fault, FaultInjector, FaultPlan, ServeEngine
     dev = torch.device("cuda")
     dit = build_tame_dit_xl2(denoiser_cond=N_CLASSES)
     model, params, mu, schedule = (dit[k] for k in ("model", "params", "mu",
@@ -1597,33 +1661,12 @@ def phase_serve_path(state: dict) -> dict:
     prior = schedule.prior_scale(float(s.plan.ts[0]))
     per_solve = {"flash_attention": L * NFE, "sa_fused": M}
 
-    def draws(rid):
-        z, noise = request_draws(*SERVE_SEEDS, rid, 0, REQ_SHAPE, M, dev)
-        return prior * z, noise
-
     def solo(sam, model_, rid, **kw):
-        x, noise = draws(rid)
-        return sam.sample(model_, x[None], noise=noise[:, None], **kw)[0]
-
-    def window(fn):
-        """(result, seconds, launches, compile-cache and step-cache
-        deltas) of ``fn()``, synchronized."""
-        before, c0, s0 = (ops.launch_counts(), compile_cache_stats(),
-                          stepwise_cache_stats())
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        after, c1, s1 = (ops.launch_counts(), compile_cache_stats(),
-                         stepwise_cache_stats())
-        return (out, secs, {k: after[k] - before[k] for k in after},
-                {k: c1[k] - c0[k] for k in ("hits", "misses", "graphs")},
-                {k: s1[k] - s0[k] for k in ("hits", "misses", "graphs")})
+        return solo_solve(sam, model_, rid, prior, **kw)
 
     def want(solves=0, ticks=0):
-        return dict.fromkeys(ops.launch_counts(), 0) | {
-            "flash_attention": L * (NFE * solves + ticks),
-            "sa_fused": M * solves + ticks}
+        return only_launches(flash_attention=L * (NFE * solves + ticks),
+                             sa_fused=M * solves + ticks)
 
     def check_launches(label, got, expected):
         require(got == expected, f"serve: {label}: launches {got}, "
@@ -1643,7 +1686,7 @@ def phase_serve_path(state: dict) -> dict:
     for rid in range(11):
         eng.submit(s.spec, REQ_SHAPE, rid=rid)
     t_solve = time.perf_counter()
-    out, secs, l1, c1, _ = window(lambda: results_of(eng))
+    out, secs, l1, c1, _ = launch_window(lambda: results_of(eng))
     first_s = first_solve[0]
     st = eng.stats()
     check_launches("solve", l1, want(solves=st["microbatches"]
@@ -1653,20 +1696,20 @@ def phase_serve_path(state: dict) -> dict:
             f"serve: solve buckets {st}, cache {c1}")
     for rid in range(11, 15):
         eng.submit(s_half.spec, REQ_SHAPE, rid=rid)
-    out2, secs2, l2, c2, _ = window(lambda: results_of(eng))
+    out2, secs2, l2, c2, _ = launch_window(lambda: results_of(eng))
     check_launches("solve tau 0.5", l2, want(solves=1))
     require(c2["misses"] == 0 and c2["graphs"] == 0,
             f"serve: tau 0.5 buckets missed the warmed entry: {c2}")
     out.update(out2)
     gaps, l_solo = {}, {}
     for rid, r in sorted(out.items()):
-        ref, _, ls, _, _ = window(lambda: solo(s if rid < 11 else s_half,
-                                               den, rid))
+        ref, _, ls, _, _ = launch_window(
+            lambda: solo(s if rid < 11 else s_half, den, rid))
         require(r.status == "ok" and tuple(r.x0.shape) == REQ_SHAPE and
                 bool(torch.isfinite(r.x0).all()), f"serve: rid {rid}: {r}")
         check_launches(f"solo {rid}", ls, want(solves=1))
         gaps[rid] = rel_gap(r.x0, ref)
-    x0, n0 = draws(0)
+    x0, n0 = served_draws(0, M, prior)
     v = torch.randn(REQ_SHAPE, generator=torch.Generator(dev).manual_seed(5),
                     device=dev)
     x_pert = x0 + 1e-7 * x0.norm() / v.norm() * v
@@ -1674,7 +1717,7 @@ def phase_serve_path(state: dict) -> dict:
     yardstick = rel_gap(pert, solo(s, den, 0))
     eng_stream = ServeEngine(den, bucket_sizes=(1,), stream=True)
     eng_stream.submit(s.spec, REQ_SHAPE, rid=0)
-    streamed, _, l3, c3, _ = window(lambda: results_of(eng_stream))
+    streamed, _, l3, c3, _ = launch_window(lambda: results_of(eng_stream))
     require(streamed[0].status == "ok", f"serve: stream {streamed}")
     check_launches("stream", l3, want(solves=1 + c3["graphs"]))
     pv = streamed[0].previews
@@ -1725,27 +1768,22 @@ def phase_serve_path(state: dict) -> dict:
                    min_steps=4 if early else None)
     home: dict = {}
     migrated = set()
-    tick_s = []
     s_churn0 = None
 
-    def drive():
+    def track():
         nonlocal s_churn0
-        while eng.pending() or eng._batcher._batches:
-            t = time.perf_counter()
-            eng.step()
-            tick_s.append(time.perf_counter() - t)
-            if s_churn0 is None:
-                s_churn0 = stepwise_cache_stats()
-            for b, batch in enumerate(eng._batcher._batches):
-                for req in batch.requests:
-                    if req is None:
-                        continue
-                    if home.get(req.rid, id(batch)) != id(batch):
-                        migrated.add(req.rid)
-                    home[req.rid] = id(batch)
+        if s_churn0 is None:
+            s_churn0 = stepwise_cache_stats()
+        for batch in eng._batcher._batches:  # which batch holds each rid
+            for req in batch.requests:
+                if req is None:
+                    continue
+                if home.get(req.rid, id(batch)) != id(batch):
+                    migrated.add(req.rid)
+                home[req.rid] = id(batch)
 
     t_start = time.perf_counter()
-    _, secs, l4, c4, s4 = window(drive)
+    tick_s, secs, l4, c4, s4 = launch_window(lambda: drive_ticks(eng, track))
     st = eng.stats()
     s_end = stepwise_cache_stats()
     check_launches("step", l4, want(ticks=st["ticks"] + s4["graphs"]))
@@ -1761,7 +1799,7 @@ def phase_serve_path(state: dict) -> dict:
     ref_eng = ServeEngine(den, bucket_sizes=(SERVE_LANES,))
     for rid in rids:
         ref_eng.submit(s.spec, REQ_SHAPE, rid=rid)
-    ref_out, _, l5, c5, _ = window(lambda: results_of(ref_eng))
+    ref_out, _, l5, c5, _ = launch_window(lambda: results_of(ref_eng))
     check_launches("step reference", l5, want(solves=2 + c5["graphs"]))
     step_gaps = {r: rel_gap(step_out[r].x0, ref_out[r].x0) for r in full}
     step_bitwise = {r: bool(torch.equal(step_out[r].x0, ref_out[r].x0))
@@ -1769,7 +1807,7 @@ def phase_serve_path(state: dict) -> dict:
     mig = min(migrated)
     alone = ServeEngine(den, scheduler="step", lanes=SERVE_LANES)
     alone.submit(s.spec, REQ_SHAPE, rid=mig)
-    alone_out, _, l6, _, s6 = window(lambda: results_of(alone))
+    alone_out, _, l6, _, s6 = launch_window(lambda: results_of(alone))
     st6 = alone.stats()
     check_launches("step alone", l6, want(ticks=st6["ticks"] + s6["graphs"]))
     mig_bitwise = bool(torch.equal(alone_out[mig].x0, step_out[mig].x0))
@@ -1803,7 +1841,7 @@ def phase_serve_path(state: dict) -> dict:
                      guidance_scale=scales[i])
     batches: dict = {}
     with flash_batches(batches):
-        g_out, secs_g, l7, c7, _ = window(lambda: results_of(eng_g))
+        g_out, secs_g, l7, c7, _ = launch_window(lambda: results_of(eng_g))
     require(sorted(g_out) == [200, 201, 202, 203] and
             all(r.status == "ok" for r in g_out.values()),
             f"serve: guided results {g_out}")
@@ -1885,6 +1923,289 @@ def phase_serve_path(state: dict) -> dict:
     require(not held_bad, f"serve: kernel calls out of tolerance: {held_bad}")
     require(set(held) == set(PATH_KERNELS["serve"]),
             f"serve: held calls missing: {held}")
+    return result
+
+
+#: the paper's six baseline samplers (``core/samplers/baselines.py``)
+BASELINES = ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "euler_maruyama",
+             "edm_heun", "edm_stochastic")
+#: steady replays of each baseline in ``baselines_path`` (p50/p90)
+BASELINE_REPEATS = 5
+#: the served baselines (the stochastic pair: one evaluation a tick, two)
+SERVED_BASELINES = ("ddpm_ancestral", "edm_stochastic")
+#: NFE of the baselines' GMM round trip (the reference's own,
+#: tests/test_samplers.py), each gated below half the prior's sliced-W2
+GMM_BASELINE_NFE = 32
+
+
+def phase_baselines_path(state: dict) -> dict:
+    """The paper's six baseline samplers at DiT-XL/2 full width (the main
+    path's tame model, latent [8, 256, 16], flash), each at NFE 20 (ten
+    Heun steps for the EDM pair, twenty steps for the rest), tau 1, the
+    reference's default churn, through ``make_sampler(...).sample`` and
+    the compile cache:
+
+    - per family: a cold call (the eager warm-up solve and the capture:
+      one miss, one graph), BASELINE_REPEATS steady replays (p50/p90),
+      then one eager solve with every kernel call held against its plain
+      version; the cold call and each replay equal the eager solve bit
+      for bit, and every solve launches flash 28 times per evaluation it
+      makes (the plan's Heun flags give the EDM count);
+    - a ``ddim`` eta sweep (0.5, 1) and a tau-track program at 20 steps:
+      hits with no new graph; ddim at eta 1 equals ``ddpm_ancestral``
+      bit for bit (the same tables and noise);
+    - ``edm_stochastic`` with plain attention within GAP_LIMIT of the
+      flash solve;
+    - one-call CFG (scale 1.5, flash at batch 16) for
+      ``dpm_solver_pp_2m`` over the class-conditional tame DiT-XL/2
+      (``denoiser_cond`` 1000), its solve held against plain too;
+    - ``ServeEngine(scheduler="step")`` at 8 lanes over that model for
+      ``ddpm_ancestral`` and ``edm_stochastic``: 12 requests each, 4 of
+      them joining as lanes free, each within GAP_LIMIT of its solo
+      solve; tick ms p50/p90;
+    - ``launch.sample.main --arch dit-xl-2 --sampler edm_heun`` with no
+      kernel flag (its own window: main sets the counts to 0), which must
+      launch flash on every evaluation."""
+    import io
+    import torch
+    from repro_torch.core import Denoiser, StepProgram, make_sampler
+    from repro_torch.core.samplers import compile_cache_stats
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sample as launch_sample
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.tame import tame_networks
+    from repro_torch.serve import ServeEngine
+    dev = torch.device("cuda")
+    model, params, mu, schedule = _tame_dit_xl2(state)
+    L = model.cfg.n_layers
+    net, _ = tame_networks(model, params, mu)
+    plain_net, _ = tame_networks(
+        TransformerLM(dataclasses.replace(model.cfg, use_flash=False)),
+        params, mu)
+    den = Denoiser(net, schedule, prediction="x0")
+    den_plain = Denoiser(plain_net, schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(61)
+    xT = make_sampler("sa", nfe=NFE, schedule=schedule).init_noise(g, SHAPE)
+    noise = {M: torch.randn((M,) + SHAPE, generator=g, device=dev)
+             for M in (NFE, NFE // 2)}
+
+    def sampler(name, **kw):
+        return make_sampler(name, nfe=NFE, tau=1.0, schedule=schedule,
+                            prediction="x0", **kw)
+
+    def evals(s) -> int:
+        heun = s.plan.arrays.get("heun")
+        return s.spec.n_steps + (sum(heun) if heun is not None else 0)
+
+    def want(n_evals: int) -> dict:
+        return only_launches(flash_attention=L * n_evals)
+
+    def run(s, den_, x=xT, **kw):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den_, x, noise=noise[s.spec.n_steps], **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        require(bool(torch.isfinite(out).all()) and
+                tuple(out.shape) == tuple(x.shape),
+                f"baselines: {s.spec.name}: bad output")
+        return out, secs, {k: after[k] - before[k] for k in after}
+
+    def moved(before):
+        now = compile_cache_stats()
+        return {k: now[k] - before[k]
+                for k in ("hits", "misses", "graphs", "aot_fallbacks")}
+
+    held: dict = {}
+
+    def hold(rec: dict) -> None:
+        """Fold one held solve's record into the phase's."""
+        for k, r in rec.items():
+            h = held.setdefault(k, {"calls": 0, "max_abs_err": 0.0,
+                                    "ok": True})
+            h["calls"] += r["calls"]
+            h["max_abs_err"] = max(h["max_abs_err"], r["max_abs_err"])
+            h["ok"] = h["ok"] and r["ok"]
+
+    families, eager_outs = {}, {}
+    ops.reset_launch_counts()  # the baselines main-path window starts here
+    for name in BASELINES:
+        s = sampler(name)
+        w = want(evals(s))
+        st = compile_cache_stats()
+        cold, cold_s, l_cold = run(s, den)
+        first = moved(st)
+        replays, replay_s = [], []
+        for _ in range(BASELINE_REPEATS):
+            out, secs, l_r = run(s, den)
+            replays.append(out)
+            replay_s.append(secs)
+            require(l_r == w, f"baselines: {name}: replay launches {l_r}, "
+                    f"expected {w}")
+        rec: dict = {}
+        with held_against_plain(rec):
+            ref, eager_s, l_e = run(s, den)
+        eager_outs[name] = ref
+        hold(rec)
+        families[name] = {
+            "steps": s.spec.n_steps, "nfe": s.nfe, "evals": evals(s),
+            "cold_s": cold_s, "replay_s": spread(replay_s),
+            "eager_held_s": eager_s, "first_call_stats": first,
+            "launches": {"cold": l_cold, "eager": l_e},
+            "held_flash_calls": rec.get("flash_attention", {}).get("calls"),
+            "cold_equals_eager_bitwise": bool(torch.equal(cold, ref)),
+            "replays_equal_eager_bitwise": all(torch.equal(r, ref)
+                                               for r in replays)}
+        emit({"phase": "baselines_path", "progress": name, **families[name]})
+        require(first == {"hits": 0, "misses": 1, "graphs": 1,
+                          "aot_fallbacks": 0},
+                f"baselines: {name}: first call {first}")
+        require(l_cold == w and l_e == w and evals(s) == s.nfe and
+                families[name]["held_flash_calls"] == L * s.nfe,
+                f"baselines: {name}: launches {families[name]['launches']}"
+                f", held {families[name]['held_flash_calls']}, expected "
+                f"{w}")
+        require(families[name]["cold_equals_eager_bitwise"] and
+                families[name]["replays_equal_eager_bitwise"],
+                f"baselines: {name}: replays not bitwise the eager solve")
+
+    # ---- knob sweeps at 20 steps: plan data, one entry and one graph
+    st = compile_cache_stats()
+    sweep = {f"ddim_eta_{eta}": run(sampler("ddim", eta=eta), den)
+             for eta in (0.5, 1.0)}
+    sweep["ddim_tau_track"] = run(sampler("ddim", program=StepProgram(
+        tau=tuple(1.0 - i / (NFE - 1) for i in range(NFE)))), den)
+    sweep_stats = moved(st)
+    ddim_w = want(NFE)
+    require(sweep_stats == {"hits": 3, "misses": 0, "graphs": 0,
+                            "aot_fallbacks": 0} and
+            all(l_ == ddim_w for _, _, l_ in sweep.values()),
+            f"baselines: ddim sweep {sweep_stats}")
+    eta1_is_ancestral = bool(torch.equal(sweep["ddim_eta_1.0"][0],
+                                         eager_outs["ddpm_ancestral"]))
+    require(eta1_is_ancestral and not torch.equal(
+        sweep["ddim_eta_0.5"][0], eager_outs["ddim"]),
+            "baselines: ddim at eta 1 is not ddpm_ancestral's solve")
+
+    # ---- edm_stochastic with plain attention against flash
+    out_plain, _, l_plain = run(sampler("edm_stochastic"), den_plain)
+    require(l_plain["flash_attention"] == 0,
+            "baselines: plain-attention solve launched flash")
+    plain_gap = rel_gap(eager_outs["edm_stochastic"], out_plain)
+    require(plain_gap <= GAP_LIMIT,
+            f"baselines: edm_stochastic flash vs plain {plain_gap}")
+
+    # ---- one-call CFG for dpm_solver_pp_2m (class-conditional model)
+    dit_c = build_tame_dit_xl2(denoiser_cond=N_CLASSES)
+    net_c, _ = tame_networks(dit_c["model"], dit_c["params"], dit_c["mu"])
+    den_g = Denoiser(net_c, schedule, prediction="x0", guidance=True,
+                     cond_rank=1)
+    s_g = sampler("dpm_solver_pp_2m", guidance=True)
+    gkw = {"cond": dit_c["cond"], "guidance_scale": CFG_SCALE}
+    batches: dict = {}
+    with flash_batches(batches):
+        g_cold, g_cold_s, l_gc = run(s_g, den_g, x=dit_c["xT"], **gkw)
+    g_rep, g_rep_s, l_gr = run(s_g, den_g, x=dit_c["xT"], **gkw)
+    rec = {}
+    with held_against_plain(rec):
+        g_ref, _, _ = run(s_g, den_g, x=dit_c["xT"], **gkw)
+    hold(rec)
+    guided = {"sampler": repr(s_g.spec), "cold_s": g_cold_s,
+              "steady_s": g_rep_s, "flash_calls_by_batch": batches,
+              "launches": l_gc,
+              "replay_equals_eager_bitwise": bool(torch.equal(g_rep, g_ref)),
+              "cold_equals_eager_bitwise": bool(torch.equal(g_cold, g_ref))}
+    require(l_gc == l_gr == want(NFE) and
+            batches == {2 * SHAPE[0]: L * NFE} and
+            guided["replay_equals_eager_bitwise"] and
+            guided["cold_equals_eager_bitwise"],
+            f"baselines: guided {guided}")
+
+    # ---- the step scheduler at 8 lanes over the conditional model
+    den_c = Denoiser(net_c, schedule, prediction="x0")
+    served = {}
+    for name in SERVED_BASELINES:
+        s = sampler(name)
+        M = s.spec.n_steps
+        prior = schedule.prior_scale(float(s.plan.ts[0]))
+        rids = list(range(500, 512))
+        joiners = rids[SERVE_LANES:]
+        out: dict = {}
+
+        def on_result(r):
+            out[r.rid] = r
+            if joiners:
+                eng.submit(s.spec, REQ_SHAPE, rid=joiners.pop(0))
+
+        eng = ServeEngine(den_c, scheduler="step", lanes=SERVE_LANES,
+                          on_result=on_result)
+        for rid in rids[:SERVE_LANES]:
+            eng.submit(s.spec, REQ_SHAPE, rid=rid)
+        tick_s, secs, l_serve, _, sc = launch_window(
+            lambda: drive_ticks(eng, sync=True))
+        st_e = eng.stats()
+        graphs = sc["graphs"]
+        gaps = {rid: rel_gap(out[rid].x0, solo_solve(s, den_c, rid, prior))
+                for rid in rids}
+        served[name] = {
+            "requests": len(rids), "lanes": SERVE_LANES,
+            "ticks": st_e["ticks"], "joins": st_e["joins"], "seconds": secs,
+            "tick_ms": spread([1e3 * t for t in tick_s]),
+            "requests_per_s": st_e["requests_per_s"],
+            "statuses": sorted({r.status for r in out.values()}),
+            "steps": sorted({r.n_steps for r in out.values()}),
+            "launches": l_serve, "tick_graphs": graphs,
+            "vs_solo_rel_gap_max": max(gaps.values())}
+        require(sorted(out) == rids and served[name]["statuses"] == ["ok"]
+                and served[name]["steps"] == [M],
+                f"baselines: served {name}: {served[name]}")
+        # every tick, and the eager tick a capture follows, evaluates the
+        # 8-lane batch once (twice for EDM); a replay adds what its
+        # capture recorded
+        per_tick = 2 if name.startswith("edm") else 1
+        require(l_serve == want(per_tick * (st_e["ticks"] + graphs)),
+                f"baselines: served {name}: launches {l_serve}, ticks "
+                f"{st_e['ticks']}, graphs {graphs}")
+        require(served[name]["vs_solo_rel_gap_max"] <= GAP_LIMIT,
+                f"baselines: served {name}: vs solo {gaps}")
+    state["launches"]["baselines"] = ops.launch_counts()  # window ends
+    state["held"]["baselines"] = held
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    del dit_c, net_c, den_g, den_c
+
+    # ---- the sampling entry point with a baseline and no kernel flag
+    argv = ["--arch", "dit-xl-2", "--nfe", str(NFE), "--weights", "tame",
+            "--sampler", "edm_heun"]
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        launch_sample.main(argv)
+    entry_s = time.perf_counter() - t
+    entry_launches = ops.launch_counts()
+    state["launches"]["sample_edm_heun"] = entry_launches
+    entry = {"argv": argv, "seconds": entry_s, "launches": entry_launches,
+              "printed": printed.getvalue().strip().splitlines(),
+              "expected_flash": L * NFE * 2}  # two solves
+    result = {"phase": "baselines_path", "arch": model.cfg.name,
+              "layers": L, "latent": list(SHAPE), "weights": "tame",
+              "nfe": NFE, "repeats": BASELINE_REPEATS,
+              "families": families,
+              "ddim_sweep": {"stats": sweep_stats,
+                             "eta_1_equals_ddpm_ancestral_bitwise":
+                                 eta1_is_ancestral},
+              "edm_stochastic_flash_vs_plain_rel_gap": plain_gap,
+              "gap_limit_f32": GAP_LIMIT, "guided": guided,
+              "served": served, "sample_entry_point": entry,
+              "held_against_plain": held, "ok": not held_bad}
+    emit(result)
+    require(not held_bad, f"baselines: kernel calls out of tolerance: "
+            f"{held_bad}")
+    require(set(held) == set(PATH_KERNELS["baselines"]),
+            f"baselines: held calls missing: {held}")
+    require(entry_launches["flash_attention"] == entry["expected_flash"] and
+            "finite=True" in printed.getvalue(),
+            f"baselines: launch.sample's edm_heun run: {entry}")
     return result
 
 
@@ -2128,12 +2449,31 @@ def phase_gmm() -> dict:
             "sliced_w2_x0": f_sw2, "gated": gated,
             "ok": bool(torch.isfinite(f_out).all()) and (
                 f_sw2 <= SW2_LIMIT or not gated)}
+    baselines = {}
+    for name in BASELINES:
+        bs = make_sampler(name, nfe=GMM_BASELINE_NFE, tau=1.0,
+                          schedule=schedule)
+        before = ops.launch_counts()
+        b_out = bs.sample(model, xT.cuda(),
+                          torch.Generator("cuda").manual_seed(8))
+        after = ops.launch_counts()
+        b_sw2 = sliced_w2(b_out, target,
+                          torch.Generator("cuda").manual_seed(7))
+        finite = bool(torch.isfinite(b_out).all())
+        baselines[name] = {
+            "sampler": f"{name} nfe={GMM_BASELINE_NFE} tau=1.0",
+            "steps": bs.spec.n_steps, "nfe": bs.nfe,
+            "launches": {k: after[k] - before[k] for k in after},
+            "finite": finite, "sliced_w2_x0": b_sw2,
+            "limit": 0.5 * sw2_xT, "ok": finite and b_sw2 < 0.5 * sw2_xT}
     res = {"phase": "gmm", "points": n,
            "sampler": "sa nfe=20 tau=1.0 P3C3 PEC fused",
            "sa_fused_launches": launches, "sliced_w2_x0": sw2,
            "sliced_w2_xT": sw2_xT, "sliced_w2_limit": SW2_LIMIT,
            "max_abs_gap_to_cpu_solve": gap, "families": families,
-           "ok": sw2 <= SW2_LIMIT and all(f["ok"] for f in families.values())}
+           "baselines": baselines,
+           "ok": sw2 <= SW2_LIMIT and all(f["ok"] for f in families.values())
+           and all(b["ok"] for b in baselines.values())}
     emit(res)
     require(launches == s.spec.n_steps, f"gmm: sa_fused launched {launches}x")
     require(sw2 <= SW2_LIMIT, f"gmm sliced-W2 {sw2} above {SW2_LIMIT}")
@@ -2142,6 +2482,9 @@ def phase_gmm() -> dict:
         require(f["launches"] == want,
                 f"gmm: {name} launches {f['launches']}, expected {want}")
         require(f["ok"], f"gmm: {name}: {f}")
+    for name, b in baselines.items():
+        require(b["ok"], f"gmm: {name}: sliced-W2 {b['sliced_w2_x0']} not "
+                f"below half the prior's ({b['limit']}), or not finite")
     return res
 
 
@@ -2309,6 +2652,7 @@ def main() -> int:
     phase_guided_path(state)
     phase_graph_path(state)
     phase_serve_path(state)
+    phase_baselines_path(state)
     phase_feature_cache_path(state)
     phase_sample_defaults(state)
     phase_gmm()

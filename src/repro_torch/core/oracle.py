@@ -16,7 +16,7 @@ import torch
 
 from .schedules import NoiseSchedule
 
-__all__ = ["GMM", "gaussian_oracle"]
+__all__ = ["GMM", "gaussian_oracle", "perturb_model"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,3 +123,33 @@ def gaussian_oracle(schedule: NoiseSchedule, mean=0.0, std=1.0, dim: int = 2):
     error)."""
     mu = np.full((dim,), float(mean))
     return GMM.single(mu, float(std))
+
+
+def perturb_model(model_fn, dim: int, delta: float, seed: int = 0,
+                  n_features: int = 32):
+    """Emulate an inaccurate learned model (paper §6.5 / Appendix C).
+
+    Adds a fixed smooth random-feature field ``delta * f(x)`` to the
+    prediction; f has zero mean over x and unit RMS, so delta is the RMS
+    prediction error. The features come from ``numpy``'s generator of
+    ``seed`` (the reference's draws), held as float32 with one copy per
+    device made at the first evaluation there (a CUDA graph can capture a
+    later one).
+    """
+    rng = np.random.default_rng(seed)
+    host = (rng.normal(size=(dim, n_features)) / np.sqrt(dim),
+            rng.uniform(0, 2 * np.pi, size=(n_features,)),
+            rng.normal(size=(n_features, dim)) * np.sqrt(2.0 / n_features))
+    on_device: dict = {}
+
+    def wrapped(x, t):
+        consts = on_device.get(x.device)
+        if consts is None:
+            consts = on_device[x.device] = tuple(
+                torch.as_tensor(a, dtype=torch.float32, device=x.device)
+                for a in host)
+        W, b, V = consts
+        feat = torch.cos(x.to(torch.float32) @ W + b)
+        return model_fn(x, t) + delta * (feat @ V)
+
+    return wrapped

@@ -6,11 +6,13 @@
     g = torch.Generator("cuda").manual_seed(0)
     x0 = s.sample(model_fn, s.init_noise(g, (4096, 2)), g)
 
-The three multistep-core families are registered: "sa", "seeds" and
-"dpmpp_multistep" (see ``multistep`` for the shared executor and
-``coefficients.TableBuilder`` for adding another), each with its
-step-granular adapter (``stepwise``: the tick the step scheduler serves);
-the baselines follow in a later slice.
+One registry covers the three multistep-core families ("sa", "seeds",
+"dpmpp_multistep": see ``multistep`` for the shared executor and
+``coefficients.TableBuilder`` for adding another) and the paper's six
+baselines ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m",
+"euler_maruyama", "edm_heun", "edm_stochastic": see ``baselines``), each
+with its step-granular adapter (``stepwise``: the tick the step scheduler
+serves); ``list_samplers()`` enumerates them.
 """
 
 from ..denoiser import (PREDICTION_TYPES, Denoiser, canonical_prediction,
@@ -45,10 +47,11 @@ from .stepwise import (
     stepwise_supported,
 )
 
-# importing the family module registers it
+# importing the family modules registers them
 from . import sa as _sa_family  # noqa: F401
 from . import seeds as _seeds_family  # noqa: F401
 from . import dpmpp as _dpmpp_family  # noqa: F401
+from . import baselines as _baseline_families  # noqa: F401
 from .multistep import make_multistep_family, tables_to_arrays
 
 __all__ = [

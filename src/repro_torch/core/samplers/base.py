@@ -242,6 +242,10 @@ class SamplerFamily:
     #: None when the family has no step-granular executor (whole solves
     #: only; the step scheduler refuses it)
     stepwise: Callable | None = None
+    #: whether the family's executors dispatch the Denoiser's cached
+    #: (split-segment) evaluation; ``spec.feature_cache`` is refused
+    #: otherwise (the knob would be silently inert)
+    supports_feature_cache: bool = False
     #: whether the family consumes FULL step programs (per-interval order
     #: and mode tracks, not just the tau track): the multistep core's
     #: families do
@@ -289,6 +293,18 @@ def build_plan(spec: SamplerSpec) -> SamplerPlan:
 
 
 # -------------------------------------------------- denoiser adapter hooks
+def check_feature_cache_family(spec: SamplerSpec) -> None:
+    """Refuse ``spec.feature_cache`` on a family whose executors never
+    dispatch the cached evaluation (the reference's capability gate)."""
+    if spec.feature_cache is not None and \
+            not get_family(spec.name).supports_feature_cache:
+        raise ValueError(
+            f"feature_cache is not supported by the {spec.name!r} family "
+            "(its executors never dispatch the cached eval, so the knob "
+            "would be silently inert); use a multistep-core family (sa, "
+            "seeds, dpmpp_multistep)")
+
+
 def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
     """Validate the model argument against the spec's denoiser fields."""
     spec = plan.spec
@@ -312,6 +328,7 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
             raise ValueError(
                 "conditioning requires a Denoiser model; a plain "
                 "model_fn(x, t) has no cond input")
+    check_feature_cache_family(spec)
     if spec.feature_cache is not None and not (
             isinstance(model_fn, Denoiser) and model_fn.cached is not None):
         raise ValueError(

@@ -87,7 +87,8 @@ from .stepwise import StepAdapter
 __all__ = ["MAX_SCAN_SEGMENTS", "execute_multistep", "fc_policy",
            "make_multistep_family", "multistep_nfe", "multistep_statics",
            "multistep_steps_from_nfe", "multistep_stepwise",
-           "multistep_stepwise_arrays", "plan_multistep", "tables_to_arrays"]
+           "multistep_stepwise_arrays", "plan_from_tables", "plan_multistep",
+           "tables_to_arrays"]
 
 _COMBINES = ("einsum", "kernel", "fused")
 _HISTORIES = ("ring", "concat")
@@ -232,7 +233,23 @@ def tables_to_arrays(tables: SolverTables, corr=None) -> dict:
 
 
 def plan_multistep(spec: SamplerSpec, builder: TableBuilder):
-    """Build the family's coefficient tables and ship them as plan data.
+    """Build the family's coefficient tables and ship them as plan data
+    (:func:`plan_from_tables`)."""
+    tables = build_tables(
+        spec.resolve_schedule(), spec.grid_ts(),
+        tau=spec.tau,
+        predictor_order=spec.predictor_order,
+        corrector_order=spec.corrector_order,
+        parameterization=spec.parameterization,
+        program=check_program(spec),
+        builder=builder,
+    )
+    return plan_from_tables(spec, tables)
+
+
+def plan_from_tables(spec: SamplerSpec, tables: SolverTables):
+    """Ship built coefficient tables as the plan's ``(arrays, host)``, as
+    they are (the legacy surface hands in prebuilt tables).
 
     Under the cond fallback the predictor-only steps' corrector rows are
     folded to their predictor rows (``corr_new`` is already 0 there, so
@@ -240,18 +257,7 @@ def plan_multistep(spec: SamplerSpec, builder: TableBuilder):
     kernel coefficients are packed from them, and the per-step PECE flags
     ride the plan as a host tuple. The host ``tables`` keep the true
     rows."""
-    schedule = spec.resolve_schedule()
-    ts = spec.grid_ts()
     program = check_program(spec)
-    tables = build_tables(
-        schedule, ts,
-        tau=spec.tau,
-        predictor_order=spec.predictor_order,
-        corrector_order=spec.corrector_order,
-        parameterization=spec.parameterization,
-        program=program,
-        builder=builder,
-    )
     _check_kernel_rows(spec, tables)
     if not _use_cond_fallback(program, spec.n_steps):
         return (tables_to_arrays(tables) | _fc_plan(spec),
@@ -613,6 +619,7 @@ def multistep_stepwise(spec: SamplerSpec,
 
     def step(dev, model_fn, inner, ic, init, xi):
         x, buf = inner["x"], inner["buf"]
+        xi = xi.to(cdt)
         L, P = buf.shape[0], buf.shape[1]
         lanes = lambda v: lane_view(v, x)  # noqa: E731
         t_next = dev["ts"][ic + 1]
@@ -709,6 +716,7 @@ def make_multistep_family(name: str, builder_of, *,
     family = SamplerFamily(
         name=name, plan=plan, execute=execute_multistep, statics=statics,
         nfe_of=multistep_nfe, steps_from_nfe=multistep_steps_from_nfe,
-        model_convention=convention, stepwise=stepwise, full_programs=True,
+        model_convention=convention, stepwise=stepwise,
+        supports_feature_cache=True, full_programs=True,
         tau_inert=tau_inert, reads_back=_reads_residual)
     return register_sampler(family)

@@ -83,7 +83,8 @@ from ..denoiser import lane_view
 from . import base
 from .base import (SamplerPlan, _adapter_statics, _bind_model, _check_lanes,
                    _check_model, _deref_model, _ModelCache, capture_graph,
-                   carry_dtype, cond_struct, get_family)
+                   carry_dtype, check_feature_cache_family, cond_struct,
+                   get_family)
 
 __all__ = [
     "StepAdapter",
@@ -109,7 +110,8 @@ class StepAdapter:
     the denoised preview, and the step's residual [L] (``inf`` where the
     family has none: early exit never fires). ``ic`` [L] is each lane's
     clamped step index, ``init`` [L] the in-band init predicate and ``xi``
-    [L, *shape] each lane's noise row at ``ic``. ``statics`` is the
+    [L, *shape] each lane's float32 noise row at ``ic`` (the adapter rounds
+    it to its carry dtype where its family does). ``statics`` is the
     trace-relevant identity (part of the cache key).
     """
 
@@ -152,6 +154,7 @@ def stepwise_adapter(spec) -> StepAdapter:
 
 
 def _refuse_feature_cache(spec) -> None:
+    check_feature_cache_family(spec)
     if spec.feature_cache is not None:
         raise NotImplementedError(
             "feature caching under the step scheduler (a per-lane feats "
@@ -279,7 +282,7 @@ class StepFns:
         init = i < 0
         ic = i.clamp(0, M - 1)
         lanes = torch.arange(i.shape[0], device=i.device)
-        xi = carry["noise"][lanes, ic].to(inner["x"].dtype)
+        xi = carry["noise"][lanes, ic]
         inner2, final, x0, err = adapter.step(arrays, model, inner, ic, init,
                                               xi)
         i_new = torch.where(init, 0, ic + 1)

@@ -1,6 +1,6 @@
-"""Diffusion sampling entry point of the port: a multistep sampler (SA,
-SEEDS or DPM-Solver++, optionally under a step program) over a DiT or an
-RWKV6 backbone.
+"""Diffusion sampling entry point of the port: any registered sampler (SA,
+SEEDS or DPM-Solver++, optionally under a step program, or one of the
+paper's six baselines, ``--sampler``) over a DiT or an RWKV6 backbone.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-xl-2 \
         --combine fused --weights tame
@@ -9,7 +9,8 @@ RWKV6 backbone.
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error naming the missing card. ``--nfe`` goes through
-``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1);
+``SamplerSpec.from_nfe`` (PEC: NFE = steps + 1, PECE: 2*steps + 1; the
+baselines one evaluation a step, the EDM pair two);
 ``--program`` stamps a preset at the largest step count whose own cost
 fits ``--nfe``.
 ``--weights init`` samples the reference's initialisation (zero output
@@ -54,6 +55,13 @@ from ..kernels import ops
 from ..models import LMConfig, build_model, init_params
 from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
                            tame_rwkv6)
+
+#: the spec fields each baseline family's plan reads (``ddpm_ancestral``
+#: is DDIM at a fixed eta of 1; ``dpm_solver_pp_2m`` and ``edm_heun`` have
+#: none)
+_BASELINE_KNOBS = {"ddim": ("eta",), "euler_maruyama": ("tau",),
+                   "edm_stochastic": ("s_churn", "s_tmin", "s_tmax",
+                                      "s_noise")}
 
 __all__ = ["as_cached_network", "as_prediction_network", "build_denoiser",
            "main", "parse_feature_cache"]
@@ -275,19 +283,28 @@ def main(argv=None):
     t1 = time.perf_counter()
     run(3)
     t2 = time.perf_counter()
+    multistep = get_family(args.sampler).full_programs
+    if not multistep:
+        # a baseline reads none of tau/P/C/mode/combine/history: print the
+        # knobs its plan does read
+        solver = " ".join(f"{k}={getattr(spec, k)}"
+                          for k in _BASELINE_KNOBS.get(args.sampler, ()))
+    elif program is not None:  # the program shadows tau/P/C/mode
+        solver = f"program={args.program}"
+    else:
+        solver = (f"tau={args.tau} P{args.predictor}C{args.corrector} "
+                  f"{args.mode}")
     print(f"arch={cfg.name} latent={cfg.denoiser_latent} "
           f"sampler={args.sampler} "
           f"NFE={sampler.nfe} (network NFE={spec.network_nfe}) "
           f"(requested {args.nfe}) steps={spec.n_steps} "
-          + (f"program={args.program}"  # the program shadows tau/P/C/mode
-             if program is not None else
-             f"tau={args.tau} P{args.predictor}C{args.corrector} "
-             f"{args.mode}")
-          + f" prediction={args.prediction} "
+          + (solver + " " if solver else "")
+          + f"prediction={args.prediction} "
           f"guidance={g_scale if guidance else 'off'}"
           + (f" feature_cache={fc}" if fc is not None else "")
-          + f" combine={args.combine} history={args.history} "
-          f"precision={args.precision} "
+          + (f" combine={args.combine} history={args.history}"
+             if multistep else "")
+          + f" precision={args.precision} "
           f"flash={dit and routed} wkv_kernel={not dit and routed} "
           f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())

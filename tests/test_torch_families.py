@@ -292,9 +292,12 @@ def test_family_program_solve_matches_reference(name):
 
 # --------------------------------------------------- capability registry
 def test_family_capability_flags():
-    assert list_samplers() == ["dpmpp_multistep", "sa", "seeds"]
-    for name in list_samplers():
+    assert list_samplers() == jsamplers.list_samplers() == [
+        "ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "dpmpp_multistep",
+        "edm_heun", "edm_stochastic", "euler_maruyama", "sa", "seeds"]
+    for name in ("dpmpp_multistep", "sa", "seeds"):
         assert get_family(name).full_programs, name
+    for name in list_samplers():
         assert get_family(name).full_programs == \
             jsamplers.get_family(name).full_programs
         assert get_family(name).tau_inert == \

@@ -120,8 +120,8 @@ def test_launch_sample_runs_a_family_under_a_program(capsys):
 
 def test_launch_sample_refuses_a_program_for_a_tau_track_family(capsys):
     """``--program`` needs a family that consumes full step programs. The
-    port registers only such families, so the guard is checked through a
-    stub family that does not."""
+    guard is checked through a stub family that consumes only a tau
+    track (the baselines also refuse a full program in their own plans)."""
     from repro_torch.core.samplers import base
     sa = base.get_family("sa")
     stub = base.SamplerFamily(

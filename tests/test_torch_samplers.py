@@ -188,7 +188,8 @@ def test_spec_validation(bad, exc, match):
 
 
 def test_unported_entry_points_raise_loudly():
-    # trajectory=True is ported (held in tests/test_torch_stepwise.py); the
+    # trajectory=True and the baselines are ported (held in
+    # tests/test_torch_stepwise.py and tests/test_torch_baselines.py); the
     # step protocol's feature cache is not yet
     fc = tsamplers.make_sampler("sa", nfe=5, feature_cache=2)
     with pytest.raises(NotImplementedError, match="feature caching"):
@@ -196,7 +197,7 @@ def test_unported_entry_points_raise_loudly():
     with pytest.raises(TypeError, match="StepProgram"):
         tsamplers.make_sampler("sa", nfe=9, program=object())
     with pytest.raises(ValueError, match="unknown sampler"):
-        tsamplers.make_sampler("ddim", nfe=5)
+        tsamplers.make_sampler("nope", nfe=5)
 
 
 def test_sliced_w2_matches_numpy():

@@ -321,6 +321,54 @@ def test_engine_matches_reference_engine(reference, scheduler):
         assert rel(got[r].x0, ref[r].x0) <= 1e-5, r
 
 
+@pytest.mark.parametrize("scheduler", ["solve", "step"])
+@pytest.mark.parametrize("name", ["ddpm_ancestral", "dpm_solver_pp_2m",
+                                  "edm_stochastic"])
+def test_baseline_engine_matches_reference_engine(reference, name,
+                                                  scheduler):
+    """Baseline specs served on the reference's draws: each request within
+    1e-5 of the reference engine's, under each scheduler (the step
+    scheduler through the family's step adapter, with lane recycling and
+    a ragged tail)."""
+    spec = tsamplers.SamplerSpec(name=name, schedule=TS, n_steps=6, tau=1.0)
+    kw = {"scheduler": scheduler, "lanes": 4} if scheduler == "step" else {}
+    eng = engine(bucket_sizes=(1, 2, 4), draws=ref_draws, **kw)
+    jeng = JServeEngine(j_stable, bucket_sizes=(1, 2, 4), **kw)
+    for rid in range(6):
+        eng.submit(spec, (16, 2), rid=rid)
+        jeng.submit(j_spec(spec), (16, 2), rid=rid)
+    got = {res.rid: res for res in eng.run()}
+    ref = {res.rid: res for res in jeng.run()}
+    assert set(got) == set(ref) == set(range(6))
+    for r in ref:
+        assert got[r].status == ref[r].status == "ok"
+        assert got[r].n_steps == ref[r].n_steps
+        assert rel(got[r].x0, ref[r].x0) <= 1e-5, r
+    if scheduler == "step":
+        assert eng.stats()["model_evals"] == \
+            6 * tsamplers.build_plan(spec).spec.nfe
+
+
+@pytest.mark.parametrize("scheduler", ["solve", "step"])
+def test_baseline_feature_cache_fails_as_in_the_reference(reference,
+                                                          scheduler):
+    """A feature-cached baseline spec fails its request with the
+    reference's error under each scheduler (the gate raises inside the
+    engine's containment boundary, as in the reference)."""
+    spec = tsamplers.SamplerSpec(name="ddim", schedule=TS, n_steps=4,
+                                 feature_cache=2)
+    kw = {"scheduler": scheduler, "lanes": 2} if scheduler == "step" else {}
+    eng = engine(max_retries=0, **kw)
+    jeng = JServeEngine(j_stable, max_retries=0, **kw)
+    eng.submit(spec, (16, 2), rid=0)
+    jeng.submit(jsamplers.SamplerSpec(name="ddim", schedule=JS, n_steps=4,
+                                      feature_cache=2), (16, 2), rid=0)
+    (got,), (ref,) = eng.run(), jeng.run()
+    assert got.status == ref.status == "failed"
+    assert got.error == ref.error
+    assert "not supported by the 'ddim' family" in got.error
+
+
 def _cond_net(x, t, c):
     """A conditional network of both packages' lane contract: a per-lane
     [2] cond shifts the prediction."""

@@ -87,6 +87,17 @@ def j_stable(x, t):
     return 0.3 * x * jnp.cos(t)
 
 
+def t_stable32(x, t):
+    """``t_stable`` computed in f32 whatever the carry: on a bf16 ``x``
+    torch multiplies by 0.3 in f32 where JAX first rounds 0.3 to bf16, a
+    0.26% gap of the model itself per evaluation."""
+    return t_stable(x.float(), t)
+
+
+def j_stable32(x, t):
+    return j_stable(x.astype(jnp.float32), t)
+
+
 def t_gmm(x, t):
     """The GMM oracle's score per lane (the oracle takes one t)."""
     model = TGMM.default_2d().model_fn(TS, "data")
@@ -330,6 +341,46 @@ def test_other_families_stepwise_match_reference(reference, name):
     got, batched = check_against_reference(
         dict(name=name, tau=1.0, corrector_order=0, combine="fused"))
     assert_port_contract(got, batched, "fused")
+
+
+BASELINES = ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "euler_maruyama",
+             "edm_heun", "edm_stochastic")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_stepwise_matches_reference(reference, name, precision):
+    """Each baseline's adapter through the step protocol against the
+    reference's whole solve and stepwise drive (1e-5 in f32, 1e-2 in
+    bf16), and against the port's own whole solve at the reference's
+    step-vs-solve bar (rtol and atol 2e-5, ``tests/test_stepwise.py``),
+    which promises no bitwise equality for the baselines. The model
+    computes in f32 (``t_stable32``), so that in bf16 the frameworks'
+    models agree and the gap is the samplers'."""
+    kw = dict(name=name, tau=1.0, precision=precision)
+    got, batched = check_against_reference(kw, dtype=precision,
+                                           j_model=j_stable32,
+                                           t_model=t_stable32)
+    assert tsamplers.stepwise_supported(spec(T, **kw))
+    for b in range(3):
+        if precision == "f32":
+            np.testing.assert_allclose(got[b].numpy(), batched[b].numpy(),
+                                       rtol=2e-5, atol=2e-5)
+        else:
+            assert rel(got[b].float(), batched[b].float()) < 1e-2
+
+
+@pytest.mark.parametrize("name", ["dpm_solver_pp_2m", "edm_stochastic"])
+def test_baseline_stepwise_under_staggered_joins(reference, name):
+    """Joins into a shared carry mid-solve leave a baseline lane's bytes as
+    they are without the stagger, and match the reference's staggered
+    drive."""
+    kw = dict(name=name, tau=1.0)
+    got, _ = check_against_reference(kw, stagger=[0, 3, 5], lanes=4)
+    _, tplan, _, _, xT, noise = _inputs(kw, 3)
+    flat, _, _ = t_drive(tplan, xT, noise, lanes=4)
+    for b in range(3):
+        assert torch.equal(got[b], flat[b]), f"request {b} moved"
 
 
 # ----------------------------------------------------------- early exit
@@ -593,6 +644,12 @@ def test_adapter_reports_in_band_init():
     assert adapter.evals_per_tick == 1
     assert tsamplers.stepwise_adapter(spec(T, mode="PECE")).evals_per_tick \
         == 2
+    # the baselines have no init evaluation; EDM's tick makes both
+    for name in BASELINES:
+        adapter = tsamplers.stepwise_adapter(spec(T, name=name))
+        assert adapter.i0 == 0
+        assert adapter.evals_per_tick == (2 if name.startswith("edm")
+                                          else 1)
 
 
 # ------------------------------------------------- lane-batched combines
@@ -693,6 +750,39 @@ def test_captured_tick_equals_eager_ticks_on_card(card, combine):
         w = carries[2][path[0]][path[1]] if len(path) > 1 \
             else carries[2][path[0]]
         assert torch.equal(v, w), path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dpm_solver_pp_2m", "edm_stochastic"])
+def test_captured_baseline_tick_equals_eager_ticks_on_card(card, name):
+    """A baseline's tick captured as a CUDA graph replays its eager tick
+    bit for bit, and a full drive equals the eager drive."""
+    plan = tsamplers.build_plan(spec(T, name=name, tau=1.0))
+    g = torch.Generator(card).manual_seed(0)
+    xT = torch.randn((3,) + SHAPE, generator=g, device=card)
+    noise = torch.randn((3, 6) + SHAPE, generator=g, device=card)
+
+    def drive():
+        fns = tsamplers.make_stepfns(plan, t_stable, SHAPE, torch.float32,
+                                     4, device=card)
+        arrays = fns.adapter.arrays(plan, card)
+        carry = tsamplers.fresh_carry(plan, 4, SHAPE, torch.float32,
+                                      device=card)
+        fns.warm(arrays, carry)
+        for lane in range(3):
+            fns.join(arrays, carry, lane, xT[lane], noise[lane], 0.0, 0, 1.0)
+        for _ in range(6):
+            fns.step(arrays, carry)
+        return carry["x_final"][:3].clone()
+
+    tsamplers.clear_stepwise_cache()
+    replayed = drive()
+    assert tsamplers.stepwise_cache_stats()["graphs"] == 1
+    with tsamplers.eager():
+        eager_out = drive()
+    assert torch.equal(replayed, eager_out)
+    ref = tsamplers.sample_batched(plan, t_stable, xT, noise=noise)
+    torch.testing.assert_close(replayed, ref, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu

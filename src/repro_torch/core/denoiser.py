@@ -106,8 +106,9 @@ def convert_prediction(pred: torch.Tensor, x: torch.Tensor, t, src: str,
 
 
 def _doubled(t):
-    """The time of a guided call's doubled batch: a per-lane ``t`` [L]
-    twice over, a 0-d one as it is."""
+    """A per-row value of a guided call's doubled batch (the time, the
+    refresh flags): a per-lane ``t`` [L] twice over, in ``_cfg_pair``'s
+    row order; a 0-d one (or a Python value) as it is."""
     if isinstance(t, torch.Tensor) and t.dim() == 1:
         return torch.cat([t, t])
     return t
@@ -120,11 +121,15 @@ class CachedNetwork:
 
     Args:
         call: ``(x, t, cond, feats, refresh) -> (prediction, new_feats)``.
-            With ``refresh`` (a Python bool) the deep feature segment is
-            recomputed and returned; otherwise the cached ``feats`` stand
-            in and come back unchanged. Predictions follow the owning
-            Denoiser's ``prediction`` convention; ``cond`` follows its
-            network's contract.
+            With ``refresh`` True (a Python bool) the deep feature segment
+            is recomputed and returned; with False the cached ``feats``
+            stand in and come back unchanged. ``refresh`` may also be a
+            bool tensor on the device, 0-d or one flag per row of ``x``:
+            the segment then runs on the device's decision and the
+            refreshed rows are written into ``feats`` in place
+            (``TransformerLM.denoise_cached``). Predictions follow the
+            owning Denoiser's ``prediction`` convention; ``cond`` follows
+            its network's contract.
         init: ``(x) -> feats``, the zero features for one network input
             ``x`` (before the Denoiser doubles the batch under guidance).
     """
@@ -241,15 +246,18 @@ class Denoiser:
         f = self.cached.init(x)
         return torch.cat([f, f]) if self.guidance else f
 
-    def evaluate_cached(self, x, t, cond, scale, feats, refresh: bool):
+    def evaluate_cached(self, x, t, cond, scale, feats, refresh):
         """``evaluate`` through the feature-cached network. Returns
-        ``(prediction, new_feats)``."""
+        ``(prediction, new_feats)``. ``refresh``: a Python bool, or a
+        device bool tensor (0-d, or one flag per row of ``x``, doubled
+        with the batch under guidance)."""
         if self.cached is None:
             raise ValueError("Denoiser built without cached=")
         if not self.guidance:
             return self.cached.call(x, t, cond, feats, refresh)
         xx, cc = self._cfg_pair(x, cond)
-        out, new_feats = self.cached.call(xx, _doubled(t), cc, feats, refresh)
+        out, new_feats = self.cached.call(xx, _doubled(t), cc, feats,
+                                          _doubled(refresh))
         B = x.shape[0]
         return self._combine(out[:B], out[B:], scale), new_feats
 

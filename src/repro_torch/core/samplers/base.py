@@ -253,11 +253,6 @@ class SamplerFamily:
     #: whether tau is definitionally inert for this family (a
     #: deterministic family maps every tau to 0)
     tau_inert: bool = False
-    #: plan arrays -> whether the executor reads a device value back to
-    #: the host on them (to branch on it): such a solve cannot be
-    #: captured as a CUDA graph and runs eager, counted in
-    #: ``aot_fallbacks``
-    reads_back: Callable[[dict], bool] = lambda arrays: False
 
 
 _REGISTRY: dict[str, SamplerFamily] = {}
@@ -368,13 +363,17 @@ def _bind_model(m, adapter, cond, scale, lanes: bool = False) -> ModelFn:
     refresh) -> (pred, feats)`` and ``init_feats(x)`` for the
     feature-caching executor. ``lanes``: the executor passes the one 0-d
     time of a solve over stacked lanes, and the lane-batched model gets it
-    as [L], one per lane."""
+    as [L], one per lane; the bound function's ``lanes`` attribute tells
+    the executor (whose feature cache then decides its refresh per
+    lane)."""
     fn = _bind_plain(m, adapter, cond, scale)
     if not lanes:
         return fn
 
     def lane_fn(x, t):
         return fn(x, t.expand(x.shape[0]))
+
+    lane_fn.lanes = True
 
     if hasattr(fn, "cached_call"):
         cached = fn.cached_call
@@ -408,16 +407,9 @@ def cond_struct(cond):
 
 
 def _check_lanes(plan: SamplerPlan, model_fn, cond, lanes: int) -> None:
-    """Refuse what a lane-batched solve cannot run: the residual
-    feature-cache policy (its refresh decision is per lane), and a
-    per-lane cond that a Denoiser would not read per lane."""
-    fc = plan.spec.feature_cache
-    if isinstance(fc, tuple) and fc[:1] == ("residual",):
-        raise NotImplementedError(
-            "the 'residual' feature-cache policy decides its refresh per "
-            "lane; under sample_batched and the step scheduler it is a "
-            "later slice of the port (ROADMAP A9, what is left). Serve it "
-            "with an int refresh interval or through sample()")
+    """Refuse a per-lane cond that a lane-batched solve cannot take: one
+    not stacked per lane, or one a guided Denoiser would not read per
+    lane."""
     if cond is None:
         return
     if cond.dim() < 1 or cond.shape[0] != lanes:
@@ -446,9 +438,9 @@ _POOLS: dict = {}
 
 def compile_cache_stats() -> dict:
     """``hits``/``misses``/``evictions`` as the reference counts them;
-    ``aot_fallbacks``: calls that did not run the entry's CUDA graph (the
-    residual feature-cache policy, and calls inside :func:`eager`), on any
-    device; ``graphs``: CUDA graphs captured; ``size``: live entries."""
+    ``aot_fallbacks``: calls that did not run the entry's CUDA graph
+    (calls inside :func:`eager`), on any device; ``graphs``: CUDA graphs
+    captured; ``size``: live entries."""
     return dict(_CACHE_STATS, size=len(_COMPILE_CACHE))
 
 
@@ -483,12 +475,20 @@ def graph_stream(device) -> torch.cuda.Stream:
 
 def drop_graph_stream(device) -> None:
     """After a failed capture: the capture never ended cleanly, so the
-    caching allocator still records into the shared pool and every later
-    capture into it would fail ("already recording to mempool_id"). The
-    next capture gets a fresh side stream and pool; graphs captured
-    before keep the old pool alive."""
+    caching allocator still routes allocations into the shared pool (and
+    every later capture into it would fail, "already recording to
+    mempool_id"; a memory pool destroyed later, such as the conditional
+    bodies' of ``kernels.graph_gate``, would abort the process on it).
+    The routing is ended here, and the next capture gets a fresh side
+    stream and pool; graphs captured before keep the old pool alive."""
     _STREAMS.pop(device, None)
-    _POOLS.pop(device, None)
+    pool = _POOLS.pop(device, None)
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if pool is not None and end is not None:
+        try:
+            end(device.index, pool)
+        except RuntimeError:  # the capture's own end got that far
+            pass
 
 
 def capture_graph(fn, device, what: str):
@@ -835,7 +835,7 @@ def _solve(entry: _CacheEntry, run: _Run):
     tensors: the graph's replay on a CUDA device once captured, else the
     eager executor (on a CUDA device, the warm-up that the capture
     follows). With a trajectory, ``(x0, {"x", "x0"})``."""
-    if _EAGER_DEPTH or entry.family.reads_back(run.arrays):
+    if _EAGER_DEPTH:
         _CACHE_STATS["aot_fallbacks"] += 1
         out = entry.execute(run)
     elif entry.x.device.type != "cuda":
@@ -921,8 +921,9 @@ def sample_batched(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
     one coefficient vector, and the model is called lane-batched (``x``
     [K, *shape], ``t`` [K]). The lane count joins the cache key. Returns
     ``x0`` [K, *shape], with ``trajectory=True`` ``(x0, traj)`` whose
-    leaves are [K, M, *shape] (the reference's vmapped layout). The
-    residual feature-cache policy raises (its refresh is per lane).
+    leaves are [K, M, *shape] (the reference's vmapped layout). Under the
+    residual feature-cache policy each lane refreshes on its own residual
+    (a [K] device mask; the deep segment runs when any lane refreshes).
     """
     K = int(x_T.shape[0])
     _check_model(plan, model_fn, cond, guidance_scale)
@@ -971,7 +972,7 @@ def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
                       trajectory=trajectory, batch=batch)
     run = entry.run_for(plan)
     if run.graph is not None or entry.x.device.type != "cuda" or \
-            _EAGER_DEPTH or entry.family.reads_back(run.arrays):
+            _EAGER_DEPTH:
         return
     run.load_plan(plan)
     if cond is not None:

@@ -50,12 +50,15 @@ shares one statics tuple.
 Feature caching (``spec.feature_cache``, ring history, no program):
 every evaluation goes through the Denoiser's cached companion, and step
 i refreshes the cached mid-stack features when ``fc_refresh[i]`` (a host
-tuple of the plan) says so or, under the ``residual`` policy, when the
-previous step's predictor-vs-corrector residual reached ``fc_thresh``.
-The interval policy reads host data only; the residual policy reads the
-residual back to the host once per step (one device sync). The init
-evaluation always refreshes; a PECE re-evaluation reuses its step's
-features.
+tuple of the plan) says so or, under the ``residual`` policy
+(``fc_gated``, a host flag), when the previous step's
+predictor-vs-corrector residual reached ``fc_thresh`` (a float32 table,
+so a threshold sweep is data). That decision stays on the device: the
+residual and the threshold meet in a device flag that gates the deep
+segment (:func:`repro_torch.kernels.graph_gate.run_if`, a conditional
+node of the solve's CUDA graph), one flag per lane in a lane-batched
+solve. The interval policy builds no gate. The init evaluation always
+refreshes; a PECE re-evaluation reuses its step's features.
 
 Trajectories: with per-step buffers ``traj = {"x", "x0"}`` the executor
 writes the state after each step and the step's denoised preview (the
@@ -165,12 +168,13 @@ def fc_policy(spec: SamplerSpec):
 
 
 def _fc_plan(spec: SamplerSpec) -> dict:
-    """The feature cache's plan data, kept on the host: ``fc_refresh``,
-    one flag per step (the interval policy refreshes every k-th step; the
-    init evaluation always refreshes, so step 0 may reuse fresh features;
-    the residual policy plans step 0 only), and ``fc_thresh``, the
-    residual trigger (float32, as the reference's table; +inf for the
-    interval policy: it never fires)."""
+    """The feature cache's plan data: ``fc_refresh``, one host flag per
+    step (the interval policy refreshes every k-th step; the init
+    evaluation always refreshes, so step 0 may reuse fresh features; the
+    residual policy plans step 0 only), ``fc_gated``, a host flag (the
+    residual policy: steps not planned refresh on the device's decision),
+    and ``fc_thresh``, the residual trigger as a 0-d float32 table (as the
+    reference's; +inf for the interval policy: it never fires)."""
     fc = fc_policy(spec)
     if fc is None:
         return {}
@@ -182,13 +186,8 @@ def _fc_plan(spec: SamplerSpec) -> dict:
         refresh = np.arange(M) == 0
         thresh = float(np.float32(fc[1]))
     return {"fc_refresh": tuple(bool(r) for r in refresh),
-            "fc_thresh": thresh}
-
-
-def _reads_residual(arrays: dict) -> bool:
-    """Whether the plan's feature cache is the residual policy, whose
-    steps read the residual back to the host (a finite threshold)."""
-    return arrays.get("fc_thresh", math.inf) < math.inf
+            "fc_gated": fc[0] == "residual",
+            "fc_thresh": torch.tensor(thresh, dtype=torch.float32)}
 
 
 def _rotated(a: dict, i: int, P: int, *rows) -> torch.Tensor:
@@ -381,16 +380,18 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
     of ``x_T``, each step in the mode its segment (or host flag) gives it.
     ``noise`` is the float32 [M, *x_T.shape] buffer of the steps' Gaussian
     draws (row i is step i's), read on the device: the loop reads no host
-    value but the plan's host flags, so it can be captured as a CUDA graph
-    (all but the residual policy's per-step read). ``traj``: None, or the
-    ``{"x", "x0"}`` [M, *x_T.shape] buffers whose row i gets the state
-    after step i and its denoised preview.
+    value but the plan's host flags, so it can be captured as a CUDA
+    graph. ``traj``: None, or the ``{"x", "x0"}`` [M, *x_T.shape] buffers
+    whose row i gets the state after step i and its denoised preview.
 
     Feature caching (``statics[-1]``): every evaluation goes through
     ``model_fn.cached_call`` with the features carried from the last
-    refresh; step i refreshes when ``fc_refresh[i]`` or the previous
-    step's residual reached ``fc_thresh`` (read back only when the
-    threshold is finite, the residual policy)."""
+    refresh; step i refreshes when ``fc_refresh[i]`` or, under the
+    residual policy (``fc_gated``), on the device flag ``prev_err >=
+    fc_thresh`` of the previous step's float32 residual: 0-d, or one per
+    lane where ``model_fn.lanes`` (a lane-batched solve, whose lanes
+    refresh each on its own residual, as the reference's vmapped solve
+    does)."""
     parameterization, modes, combine, denoise, ring, precision, fc = statics
     P = dev["pred"].shape[1]  # buffer rows = max(pred order, corr order)
     M = dev["decay"].shape[0]
@@ -399,9 +400,12 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
     f32 = torch.float32
 
     x = x_T.to(cdt)
+    lanes = getattr(model_fn, "lanes", False)
     if fc:
-        gated = dev["fc_thresh"] < math.inf
+        gated = dev["fc_gated"]
         feats = model_fn.init_feats(x)
+        prev_err = torch.zeros(x.shape[:1] if lanes else (), dtype=f32,
+                               device=x.device)
 
         def eval_model(x_in, t_in, refresh):
             nonlocal feats
@@ -413,7 +417,6 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
 
     buf = torch.zeros((P,) + tuple(x.shape), dtype=cdt, device=x.device)
     buf[0] = eval_model(x, dev["ts"][0], True)
-    prev_err = 0.0
 
     for i, (use_corrector, pece) in enumerate(flags):
         xi = noise[i].to(cdt)
@@ -440,7 +443,8 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
                 traj["x0"][i].copy_(_x0_preview(dev, parameterization, cdt,
                                                 x_eval, e_new, i))
             continue
-        # refresh when the plan says so OR the last step moved enough
+        # refresh when the plan says so OR (a device flag) the last step
+        # moved enough
         refresh = fc and (dev["fc_refresh"][i]
                           or (gated and prev_err >= dev["fc_thresh"]))
         if combine == "fused":
@@ -469,8 +473,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
                                        torch.stack([e_new] + rows),
                                        noise_i, xi)
         if fc and gated and use_corrector:
-            # the one device-to-host read of the residual policy
-            prev_err = float(_pc_residual(x_next, x_pred))
+            prev_err = _pc_residual(x_next, x_pred, lanes=lanes)
         x_eval = x_pred  # the state e_new was evaluated at
         if use_corrector and pece:
             # under feature caching the re-eval reuses this step's features
@@ -537,7 +540,8 @@ def _stepwise_modes(spec: SamplerSpec) -> tuple:
 
 
 def multistep_stepwise_arrays(plan, device) -> dict:
-    """The tick's tables on ``device``: the plan's tensors and, under the
+    """The tick's tables on ``device``: the plan's tensors, the feature
+    cache's per-step refresh flags as a device tensor, and, under the
     ``("cond",)`` modes, the per-step PECE flags ``pece`` and the
     early-exit gate ``ee_ok`` as device tensors (the tick indexes them by
     each lane's step). A program of up to :data:`MAX_SCAN_SEGMENTS`
@@ -547,6 +551,10 @@ def multistep_stepwise_arrays(plan, device) -> dict:
     spec = plan.spec
     dev = {k: v for k, v in plan.arrays_on(device).items()
            if isinstance(v, torch.Tensor)}
+    if "fc_refresh" in plan.arrays:
+        # each lane reads its own step's flag
+        dev["fc_refresh"] = torch.tensor(plan.arrays["fc_refresh"],
+                                         dtype=torch.bool, device=device)
     if _stepwise_modes(spec)[0] != "cond":
         return dev
     tables = plan.host["tables"]
@@ -718,5 +726,5 @@ def make_multistep_family(name: str, builder_of, *,
         nfe_of=multistep_nfe, steps_from_nfe=multistep_steps_from_nfe,
         model_convention=convention, stepwise=stepwise,
         supports_feature_cache=True, full_programs=True,
-        tau_inert=tau_inert, reads_back=_reads_residual)
+        tau_inert=tau_inert)
     return register_sampler(family)

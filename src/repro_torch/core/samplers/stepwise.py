@@ -36,7 +36,15 @@ The carry (a dict of tensors on one device, leading axis = lanes):
   ``aux["failed"]``. The interval is carry data: toggling it adds no cache
   entry, and at 0 every masked write selects the unguarded bytes,
 - ``scale`` (and ``cond`` when the requests are conditioned) the per-lane
-  guidance scale and conditioning, bound into the lane-batched model.
+  guidance scale and conditioning, bound into the lane-batched model,
+- ``feats`` (feature-cached specs) each lane's cached mid-stack features
+  [L, G, *f]: G = 2 under guidance (the lane's conditional and null rows
+  of the doubled call), else 1. A tick's first model call refreshes the
+  lanes whose ``init | fc_refresh[i] | (isfinite(err) & err >=
+  fc_thresh)`` holds (active lanes only), decided on the device: the deep
+  segment runs when any lane refreshes (a conditional node of the tick's
+  graph); a PECE re-evaluation in the same tick reuses them. ``join``
+  zeroes a lane's features and ``copy`` moves them.
 
 A :class:`StepFns` entry holds the three operations of one step key:
 
@@ -153,29 +161,36 @@ def stepwise_adapter(spec) -> StepAdapter:
     return adapter
 
 
-def _refuse_feature_cache(spec) -> None:
-    check_feature_cache_family(spec)
-    if spec.feature_cache is not None:
-        raise NotImplementedError(
-            "feature caching under the step scheduler (a per-lane feats "
-            "carry) is a later slice of the port (ROADMAP A9, what is "
-            "left); serve feature-cached specs with scheduler='solve'")
+def _lane_feats_shape(model_fn, batch: int, shape, dtype) -> tuple:
+    """The per-lane features' shape ``(G, *f)`` of a feature-cached
+    Denoiser over ``batch`` lanes of ``shape``: its ``init_feats`` of the
+    lane-batched input has G * batch rows (G = 2 under guidance), taken
+    on the meta device (nothing is allocated)."""
+    if model_fn is None or not hasattr(model_fn, "init_feats"):
+        raise ValueError(
+            "spec.feature_cache needs the feats shape: pass the Denoiser "
+            "(built with cached=) as fresh_carry(..., model_fn=)")
+    f = model_fn.init_feats(torch.zeros((int(batch),) + tuple(shape),
+                                        dtype=dtype, device="meta"))
+    return (f.shape[0] // int(batch),) + tuple(f.shape[1:]), f.dtype
 
 
 # -------------------------------------------------------------- build carry
 @torch.no_grad()
 def fresh_carry(plan: SamplerPlan, batch: int, shape, dtype, *, cond=None,
-                guard_every: int = 0, device="cuda") -> dict:
+                model_fn=None, guard_every: int = 0, device="cuda") -> dict:
     """An all-lanes-free carry for one running batch on ``device`` (the
     card unless the caller asks for the CPU).
 
     ``cond`` is a per-request conditioning prototype (its shape and dtype
     matter); lanes are zeroed and inactive until ``join`` writes them.
-    ``guard_every`` seeds every lane's numerical-guard interval (data:
-    ``join`` overwrites it per request; 0 disables the guard). A spec
-    with ``feature_cache`` raises (a later slice).
+    When the spec sets ``feature_cache`` the carry grows the per-lane
+    ``feats`` leaf, shaped from the Denoiser's ``init_feats`` (pass it as
+    ``model_fn``). ``guard_every`` seeds every lane's numerical-guard
+    interval (data: ``join`` overwrites it per request; 0 disables the
+    guard).
     """
-    _refuse_feature_cache(plan.spec)
+    check_feature_cache_family(plan.spec)
     device = resolve_device(device)
     adapter = stepwise_adapter(plan.spec)
     arrays = adapter.arrays(plan, device)
@@ -203,6 +218,10 @@ def fresh_carry(plan: SamplerPlan, batch: int, shape, dtype, *, cond=None,
         cond = torch.as_tensor(cond)
         carry["cond"] = torch.zeros(lanes + tuple(cond.shape),
                                     dtype=cond.dtype, device=device)
+    if plan.spec.feature_cache is not None:
+        fshape, fdtype = _lane_feats_shape(model_fn, batch, shape, dtype)
+        carry["feats"] = torch.zeros(lanes + fshape, dtype=fdtype,
+                                     device=device)
     return carry
 
 
@@ -222,7 +241,42 @@ def _at(carry: dict, path):
 
 
 #: the carry fields a tick writes (the rest is join data it only reads)
-_TICK_WRITES = ("inner", "i", "active", "x_final", "err")
+_TICK_WRITES = ("inner", "i", "active", "x_final", "err", "feats")
+
+
+def _cached_tick_model(model, carry: dict, arrays: dict, active, init, ic):
+    """The tick's model over the lanes' cached features: ``(model_fn,
+    write_back)``. The tick's first call refreshes the active lanes whose
+    ``init | fc_refresh[ic] | (isfinite(err) & err >= fc_thresh)`` holds
+    (the reference's per-lane predicate), as one device mask; later calls
+    in the tick (the PECE re-evaluation) reuse the features. The features
+    go to the network as its [G * L, *f] rows (G-major: the doubled call's
+    row order) and come back into the carry in ``write_back()``, masked by
+    ``active`` as in the reference."""
+    err = carry["err"]
+    refresh = active & (init | arrays["fc_refresh"][ic]
+                        | (torch.isfinite(err) & (err >= arrays["fc_thresh"])))
+    lane_feats = carry["feats"]
+    L, G = lane_feats.shape[:2]
+    rows = lane_feats.transpose(0, 1).reshape((G * L,)
+                                              + tuple(lane_feats.shape[2:]))
+    state = {"first": True, "feats": rows}
+
+    def model_fn(x, t):
+        r = refresh if state["first"] else False
+        state["first"] = False
+        e, state["feats"] = model.cached_call(x, t, state["feats"], r)
+        return e
+
+    def write_back():
+        new = state["feats"]
+        if new is rows and G == 1:
+            return  # refreshed in place in the carry, on active lanes only
+        new = new.reshape((G, L) + tuple(new.shape[1:])).transpose(0, 1)
+        lane_feats.copy_(torch.where(lane_view(active, new), new,
+                                     lane_feats))
+
+    return model_fn, write_back
 
 
 # ------------------------------------------------------------ compile cache
@@ -281,10 +335,16 @@ class StepFns:
                             carry.get("cond"), carry["scale"])
         init = i < 0
         ic = i.clamp(0, M - 1)
+        write_back = None
+        if "feats" in carry:
+            model, write_back = _cached_tick_model(model, carry, arrays,
+                                                   active, init, ic)
         lanes = torch.arange(i.shape[0], device=i.device)
         xi = carry["noise"][lanes, ic]
         inner2, final, x0, err = adapter.step(arrays, model, inner, ic, init,
                                               xi)
+        if write_back is not None:
+            write_back()
         i_new = torch.where(init, 0, ic + 1)
         err = torch.where(init, math.inf, err)
         # masked early exit: the residual strictly below the lane's
@@ -369,6 +429,10 @@ class StepFns:
         carry["min_i"][lane] = int(min_i)
         carry["scale"][lane] = float(scale)
         carry["guard"][lane] = int(guard)
+        if "feats" in carry:
+            # a fresh lane starts from zero features; its init tick's
+            # forced refresh overwrites them before any reuse
+            carry["feats"][lane].zero_()
         if self.has_cond:
             if cond is None:
                 raise ValueError("this step function was built with "
@@ -380,7 +444,8 @@ class StepFns:
     @torch.no_grad()
     def copy(dst_carry, src_carry, dst_lane: int, src_lane: int):
         """Move lane ``src_lane`` of ``src_carry`` (state, history, step
-        index, noise, knobs) into lane ``dst_lane`` of ``dst_carry``."""
+        index, noise, knobs, cached features) into lane ``dst_lane`` of
+        ``dst_carry``."""
         for path, v in carry_leaves(dst_carry):
             v[int(dst_lane)].copy_(_at(src_carry, path)[int(src_lane)])
         return dst_carry
@@ -433,9 +498,10 @@ def make_stepfns(plan: SamplerPlan, model_fn, shape, dtype, batch: int, *,
     ``cond`` a per-request conditioning prototype. Conditioning values and
     guidance scales are per-lane carry data: only cond's shape and dtype
     key the entry. Two plans whose specs differ only in tau, program
-    orders or coefficient values resolve to the SAME entry.
+    orders or coefficient values resolve to the SAME entry. A
+    feature-cached spec's entry is also keyed on its per-lane features'
+    shape.
     """
-    _refuse_feature_cache(plan.spec)
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -447,10 +513,12 @@ def make_stepfns(plan: SamplerPlan, model_fn, shape, dtype, batch: int, *,
                  cond.expand((int(batch),) + tuple(cond.shape)), int(batch))
     dadapter = _adapter_statics(plan, model_fn)
     M = int(plan.spec.n_steps)
+    feats = None if plan.spec.feature_cache is None else \
+        _lane_feats_shape(model_fn, batch, shape, dtype)
     key = (plan.spec.name, adapter.statics, M, adapter.shape_key(plan),
            tuple(shape), str(dtype), int(batch),
            _STEPS.lookup_token(model_fn), dadapter, cond_struct(cond),
-           bool(stream), device)
+           bool(stream), device, feats)
     entry = _STEPS.get(key)
     if entry is not None:
         return entry

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("sa_combine", "flash_attention", "rwkv6_wkv")
+SOURCES = ("sa_combine", "flash_attention", "rwkv6_wkv", "graph_gate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,11 @@ SIGNATURES = {
     "rwkv6_wkv": {
         "rwkv6_wkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _P),
+    },
+    "graph_gate": {
+        # capture stream, pred, body stream; body stream
+        "gate_if_begin": (_P, _P, _P),
+        "gate_if_end": (_P,),
     },
 }
 

@@ -5,6 +5,8 @@
     denoise(params, z, t, cond)     -> x0 prediction [B, S, dz]
     denoise_cached(params, z, t, cond, feats=, refresh=)
                                     -> (x0 prediction, features)
+                                    (refresh: a bool, or a device flag
+                                    per batch or per row)
 
 ``denoise`` embeds the continuous latent, runs the block stack with
 bidirectional attention and adaLN conditioning on the time and, with
@@ -24,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..kernels.graph_gate import run_if
 from .attention import AttentionConfig, attn_defs, gqa_forward
 from .common import (ParamDef, layer_of, mlp_apply, mlp_defs,
                      promote_matmul, rms_norm, tree_defs_map)
@@ -219,25 +222,52 @@ class TransformerLM:
         return (batch, seq, self.cfg.d_model), self.cfg.dtype
 
     def denoise_cached(self, params, z, t, cond=None, *, feats,
-                       refresh: bool, span=None):
+                       refresh, span=None):
         """``denoise`` with the mid-segment ``[a, b)`` of the block stack
         either recomputed (``refresh``) or replaced by the cached residual
         ``feats`` (DeepCache). Returns ``(x0_prediction, new_feats)``. The
         cached quantity is the residual ``y - x`` across [a, b), so a
-        refresh-every-step schedule reproduces ``denoise``; a reuse
-        passes ``feats`` back unchanged. ``span`` overrides
-        :meth:`cache_span`."""
+        refresh-every-step schedule reproduces ``denoise``. ``span``
+        overrides :meth:`cache_span`.
+
+        ``refresh`` is a Python bool (a refresh returns new features, a
+        reuse passes ``feats`` back unchanged), or a bool tensor on the
+        device of ``z``: 0-d for the whole batch, or [B], one flag per
+        row. With a tensor the segment runs only where some flag is set,
+        decided on the device (:func:`repro_torch.kernels.graph_gate.run_if`:
+        a conditional node of a CUDA graph under capture), and the
+        refreshed rows are written into ``feats`` in place, which is
+        returned. The reference dispatches a traced flag through
+        ``lax.cond``."""
         L = self.cfg.n_layers
         a, b = self.cache_span() if span is None else span
         if not 0 <= a <= b <= L:
             raise ValueError(f"bad cache span ({a}, {b}) for L={L}")
         x, tcond = self._embed(params["denoiser"], z, t, cond)
         x = self._stack(params, x, tcond, 0, a)
-        if refresh:
-            y = self._stack(params, x, tcond, a, b)
-            feats = (y - x).to(feats.dtype)
-            x = y
+        if isinstance(refresh, bool):
+            if refresh:
+                y = self._stack(params, x, tcond, a, b)
+                feats = (y - x).to(feats.dtype)
+                x = y
+            else:
+                x = x + feats.to(x.dtype)
         else:
-            x = x + feats.to(x.dtype)
+            if refresh.dim() > 1 or (refresh.dim() == 1
+                                     and refresh.shape[0] != x.shape[0]):
+                raise ValueError(
+                    f"refresh of shape {tuple(refresh.shape)}: 0-d, or one "
+                    f"flag per row of a batch of {x.shape[0]}")
+            rows = refresh.reshape(tuple(refresh.shape)
+                                   + (1,) * (x.dim() - refresh.dim()))
+            h = x + feats.to(x.dtype)  # the reuse, overwritten where fresh
+
+            def deep():
+                y = self._stack(params, x, tcond, a, b)
+                feats.copy_(torch.where(rows, (y - x).to(feats.dtype), feats))
+                h.copy_(torch.where(rows, y, h))
+
+            run_if(refresh.any(), deep)
+            x = h
         x = self._stack(params, x, tcond, b, L)
         return self._head(params, x), feats

@@ -317,7 +317,8 @@ class ContinuousBatcher:
                            stream=self.stream, device=self.device)
         arrays = fns.adapter.arrays(plan, fns.device)
         carry = fresh_carry(plan, self.lanes, req.shape, dtype,
-                            cond=req.cond, guard_every=self.guard_interval,
+                            cond=req.cond, model_fn=self.model_fn,
+                            guard_every=self.guard_interval,
                             device=fns.device)
         if not fns.warmed:
             fns.warm(arrays, carry, cond=req.cond)

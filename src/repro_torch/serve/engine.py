@@ -199,7 +199,7 @@ class ServeEngine:
         if mesh is not None or cfg_axis is not None:
             raise NotImplementedError(
                 "mesh-sharded serving (mesh=, cfg_axis=, sample_sharded) is "
-                "a later slice of the port (ROADMAP A9, what is left); on "
+                "the next slice of the port (ROADMAP A9, what is left); on "
                 "one device the engine runs the guided pair as one call "
                 "over the doubled batch")
         self.model_fn = model_fn

@@ -256,7 +256,9 @@ def test_cache_stats_follow_the_reference(reference, name):
 def test_guided_cached_sweep_follows_the_reference(reference):
     """``test_e2e_dit.py``: tau, guidance scale and the residual threshold
     are data, so a sweep over all three on a guided + cached Denoiser is
-    one entry; the residual policy runs eager on every call."""
+    one entry and one graph signature (on the card, one graph); no call
+    runs outside the entry's graph path (the residual decides on the
+    device)."""
     jd, td = dit_models()
     prompt = 0.1 * np.random.default_rng(7).standard_normal(
         (16, 8)).astype(np.float32)
@@ -267,7 +269,9 @@ def test_guided_cached_sweep_follows_the_reference(reference):
              for tau in (0.0, 0.7) for s in (1.0, 3.0) for th in (0.02, 0.08)]
     trail = run_sequence(calls, {"dit": (jd, td)})
     assert trail[-1]["misses"] == 1 and trail[-1]["hits"] == 7
-    assert trail[-1]["aot_fallbacks"] == 8
+    assert trail[-1]["aot_fallbacks"] == 0
+    (entry,) = tbase._COMPILE_CACHE.values()
+    assert len(entry.runs) == 1
 
 
 def test_lru_bound_follows_the_reference(reference, monkeypatch):
@@ -489,11 +493,12 @@ def test_interval_refresh_flags_sign_the_graph():
     assert torch.equal(*outs[2]) and not torch.equal(outs[2][0], outs[3][0])
 
 
-@pytest.mark.parametrize("policy,fallbacks", [(2, 0), (("residual", 0.05), 2)])
+@pytest.mark.parametrize("policy,fallbacks", [(2, 0), (("residual", 0.05), 0)])
 def test_eager_calls_count_as_fallbacks(policy, fallbacks):
-    """The residual policy reads its residual back every step, so its
-    calls run eager and count in ``aot_fallbacks``; so does every call in
-    ``eager()``. A plain CPU call does not."""
+    """Only a call inside ``eager()`` counts in ``aot_fallbacks``: not a
+    plain CPU call, and not the residual policy's (its refresh is decided
+    on the device, so on the card it is captured like the interval
+    policy)."""
     td = cached_dit()
     plan = tsamplers.build_plan(tsamplers.SamplerSpec.from_nfe(
         "sa", 6, feature_cache=policy, schedule="vp_linear"))
@@ -583,17 +588,35 @@ def test_replay_equals_eager_on_card(card, combine, precision):
 
 
 @pytest.mark.gpu
-def test_residual_policy_runs_eager_on_card(card):
+def test_residual_policy_is_captured_on_card(card):
+    """The residual policy is captured (its refresh gate a conditional
+    node): no fallback outside ``eager()``, each replay equals the eager
+    solve bit for bit, and a threshold sweep replays the one graph, each
+    threshold equal to its own eager solve."""
     den, x = _card_dit(card, n_layers=6)
-    s = tsamplers.make_sampler("sa", nfe=10, schedule="vp_linear",
-                               combine="fused", prediction="x0",
-                               feature_cache=("residual", 0.05))
+
+    def sampler(th):
+        return tsamplers.make_sampler("sa", nfe=10, schedule="vp_linear",
+                                      combine="fused", prediction="x0",
+                                      feature_cache=("residual", th))
+
+    s = sampler(0.05)
     tsamplers.clear_compile_cache()
     a = s.sample(den, x)
     b = s.sample(den, x)
     stats = tsamplers.compile_cache_stats()
-    assert stats["graphs"] == 0 and stats["aot_fallbacks"] == 2
-    assert torch.equal(a, b)
+    assert stats["graphs"] == 1 and stats["aot_fallbacks"] == 0
+    with tsamplers.eager():
+        ref = s.sample(den, x)
+    assert torch.equal(a, ref) and torch.equal(b, ref)
+    outs = {}
+    for th in (0.0, 0.02, 0.08, 1e9):
+        outs[th] = sampler(th).sample(den, x)
+        with tsamplers.eager():
+            assert torch.equal(outs[th], sampler(th).sample(den, x)), th
+    stats = tsamplers.compile_cache_stats()
+    assert stats["graphs"] == 1 and stats["misses"] == 1
+    assert not torch.equal(outs[0.0], outs[1e9])
 
 
 @pytest.mark.gpu

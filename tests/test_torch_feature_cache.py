@@ -194,6 +194,67 @@ def test_denoise_cached_spans(span):
                               span=(3, 5))
 
 
+@pytest.mark.parametrize("flag", [True, False])
+def test_denoise_cached_device_flag_is_the_bool_path(flag):
+    """A 0-d bool tensor refreshes (or reuses) exactly as the Python bool
+    does, bit for bit, and writes the refreshed features into the given
+    buffer in place."""
+    _, _, tmodel, tparams, _, _ = dit_pair()
+    rng = np.random.default_rng(10)
+    z0, z = (torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32))
+             for _ in range(2))
+    shape, _ = tmodel.feature_shape(*SHAPE[:2])
+    _, feats0 = tmodel.denoise_cached(tparams, z0, 0.6,
+                                      feats=torch.zeros(shape), refresh=True)
+    ref, ref_feats = tmodel.denoise_cached(tparams, z, 0.4,
+                                           feats=feats0.clone(),
+                                           refresh=flag)
+    buf = feats0.clone()
+    out, got = tmodel.denoise_cached(tparams, z, 0.4, feats=buf,
+                                     refresh=torch.tensor(flag))
+    assert got is buf
+    assert torch.equal(out, ref) and torch.equal(got, ref_feats)
+    assert torch.equal(got, feats0) != flag
+
+
+def test_denoise_cached_row_flags_equal_per_row_calls(monkeypatch):
+    """A [B] mask refreshes its rows and reuses the others: each row equals
+    that row's own bool call (1e-6), the refreshed rows' features are
+    written in place, and an all-False mask skips the deep segment (the
+    CPU decides with a Python branch)."""
+    _, _, tmodel, tparams, _, _ = dit_pair()
+    B = 3
+    rng = np.random.default_rng(11)
+    z0, z = (torch.from_numpy(rng.standard_normal(
+        (B,) + SHAPE[1:]).astype(np.float32)) for _ in range(2))
+    shape, _ = tmodel.feature_shape(B, SHAPE[1])
+    _, feats0 = tmodel.denoise_cached(tparams, z0, 0.6,
+                                      feats=torch.zeros(shape), refresh=True)
+    mask = torch.tensor([True, False, True])
+    buf = feats0.clone()
+    out, got = tmodel.denoise_cached(tparams, z, 0.4, feats=buf,
+                                     refresh=mask)
+    assert got is buf
+    for r in range(B):
+        ref, ref_feats = tmodel.denoise_cached(
+            tparams, z[r:r + 1], 0.4, feats=feats0[r:r + 1].clone(),
+            refresh=bool(mask[r]))
+        torch.testing.assert_close(out[r:r + 1], ref, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(got[r:r + 1], ref_feats, atol=1e-6,
+                                   rtol=1e-6)
+    assert torch.equal(got[1], feats0[1])
+    blocks = []
+    block = tmodel._block
+    monkeypatch.setattr(tmodel, "_block",
+                        lambda p, x, tc: blocks.append(1) or block(p, x, tc))
+    tmodel.denoise_cached(tparams, z, 0.4, feats=feats0.clone(),
+                          refresh=torch.zeros(B, dtype=torch.bool))
+    assert len(blocks) == 2  # span (1, 3) of 4: blocks 0 and 3 only
+    with pytest.raises(ValueError, match="one flag per row"):
+        tmodel.denoise_cached(tparams, z, 0.4, feats=feats0.clone(),
+                              refresh=torch.ones(B + 1, dtype=torch.bool))
+
+
 # ------------------------------------------------------- cached solves
 def solve_pair(fc, *, guided=False, precision="f32", combine="fused",
                mode="PEC", nfe=9, n_layers=4, seed=5):

@@ -859,3 +859,66 @@ def test_wkv_kernel_refuses_what_it_has_no_instance_for(card):
         ops.wkv(*inputs(48, 16), chunk=32)
     with pytest.raises(TypeError, match="float32"):
         ops.wkv(*(a.half() for a in inputs(64, 16)), chunk=16)
+
+
+# ------------------------------------------------ the device-side gate
+def test_run_if_is_a_python_branch_on_the_cpu():
+    """On the CPU ``run_if`` reads the flag and runs the body or not; the
+    fire counter counts the bodies run."""
+    from repro_torch.kernels import graph_gate
+    graph_gate.reset_fires()
+    ran = []
+    for flag in (True, False, True):
+        graph_gate.run_if(torch.tensor(flag), lambda: ran.append(1))
+    assert ran == [1, 1] and graph_gate.fires("cpu") == 2
+    graph_gate.reset_fires()
+    assert graph_gate.fires("cpu") == 0
+
+
+@pytest.mark.gpu
+def test_run_if_conditional_node_replays_eager_on_card(card):
+    """A body gated by ``run_if`` inside a captured graph (a conditional IF
+    node) runs at replay exactly where its flag holds: every flag pattern
+    replays its eager result bit for bit (a cuBLAS product and the flash
+    kernel in the body), the fire counter counts the bodies run, and a
+    replay adds only the launches outside the bodies."""
+    from repro_torch.core.samplers.base import capture_graph
+    from repro_torch.kernels import graph_gate
+    g = torch.Generator(card).manual_seed(0)
+    w = torch.randn(72, 72, generator=g, device=card) / 9
+    x = torch.randn(2, 16, 256, 72, generator=g, device=card)
+    out = torch.zeros_like(x)
+    mask = torch.zeros(2, dtype=torch.bool, device=card)
+
+    def fn():
+        h = out * 0.5
+        for k in range(3):
+            def body():
+                y = ops.flash_attention(h @ w, x, x, causal=False) + k
+                out.copy_(torch.where(mask[:, None, None, None], y, h))
+            out.copy_(h)
+            graph_gate.run_if(mask.any(), body)
+            h = ops.flash_attention(out, x, x, causal=False) + 1.0
+        return h
+
+    def load(m):
+        out.fill_(1.0)
+        mask.copy_(torch.tensor(m, device=card))
+
+    cases = [[True, False], [False, False], [False, True], [True, True]]
+    refs = []
+    for m in cases:
+        load(m)
+        refs.append(fn().clone())
+    load([False, False])
+    _, graph, res, launches = capture_graph(fn, card, "the gate test")
+    assert launches == {"flash_attention": 3}
+    graph_gate.reset_fires()
+    before = ops.launch_counts()["flash_attention"]
+    for m, ref in zip(cases, refs):
+        load(m)
+        graph.replay()
+        ops.add_launches(launches)
+        assert torch.equal(res, ref), m
+    assert graph_gate.fires(card) == 3 * 3
+    assert ops.launch_counts()["flash_attention"] - before == 3 * 4

@@ -188,11 +188,17 @@ def test_spec_validation(bad, exc, match):
 
 
 def test_unported_entry_points_raise_loudly():
-    # trajectory=True and the baselines are ported (held in
-    # tests/test_torch_stepwise.py and tests/test_torch_baselines.py); the
-    # step protocol's feature cache is not yet
+    # trajectory=True, the baselines and the step protocol's feature cache
+    # are ported (held in tests/test_torch_stepwise.py,
+    # tests/test_torch_baselines.py and
+    # tests/test_torch_feature_cache_lanes.py); tiers from an autotuner
+    # artifact are not yet
+    from repro_torch.serve import QualityTiers
+    with pytest.raises(NotImplementedError, match="A10"):
+        QualityTiers.from_artifact("search.json")
+    # a feature-cached carry needs the Denoiser that shapes its features
     fc = tsamplers.make_sampler("sa", nfe=5, feature_cache=2)
-    with pytest.raises(NotImplementedError, match="feature caching"):
+    with pytest.raises(ValueError, match="model_fn="):
         tsamplers.fresh_carry(fc.plan, 2, SHAPE, torch.float32, device="cpu")
     with pytest.raises(TypeError, match="StepProgram"):
         tsamplers.make_sampler("sa", nfe=9, program=object())

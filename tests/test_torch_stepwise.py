@@ -138,17 +138,20 @@ def to_torch(a, dtype=torch.float32):
 
 
 def t_drive(plan, xT, noise, *, model=t_stable, lanes=None, stagger=None,
-            tol=0.0, min_i=0, stream=False, max_ticks=200, shape=SHAPE):
+            tol=0.0, min_i=0, stream=False, max_ticks=200, shape=SHAPE,
+            after_tick=None):
     """The port's requests through the step protocol to completion.
-    ``stagger[b]`` delays request b's join to that tick. Returns (x_final
-    per request, steps per request, previews per request)."""
+    ``stagger[b]`` delays request b's join to that tick; ``after_tick(
+    carry, aux)`` sees every tick. Returns (x_final per request, steps per
+    request, previews per request)."""
     n = xT.shape[0]
     lanes = n if lanes is None else lanes
     stagger = [0] * n if stagger is None else list(stagger)
     fns = tsamplers.make_stepfns(plan, model, shape, xT.dtype, lanes,
                                  stream=stream, device="cpu")
     arrays = fns.adapter.arrays(plan, CPU)
-    carry = tsamplers.fresh_carry(plan, lanes, shape, xT.dtype, device="cpu")
+    carry = tsamplers.fresh_carry(plan, lanes, shape, xT.dtype,
+                                  model_fn=model, device="cpu")
     done, steps = {}, {}
     previews = {b: [] for b in range(n)}
     owner = [None] * lanes
@@ -164,6 +167,8 @@ def t_drive(plan, xT, noise, *, model=t_stable, lanes=None, stagger=None,
                 break
             continue
         carry, aux = fns.step(arrays, carry)
+        if after_tick is not None:
+            after_tick(carry, aux)
         for lane, b in enumerate(owner):
             if b is None:
                 continue
@@ -179,17 +184,18 @@ def t_drive(plan, xT, noise, *, model=t_stable, lanes=None, stagger=None,
 
 
 def j_drive(plan, xT, solve_keys, *, model=None, lanes=None, stagger=None,
-            tol=0.0, min_i=0, stream=False, max_ticks=200):
+            tol=0.0, min_i=0, stream=False, max_ticks=200, shape=SHAPE):
     """The reference test's drive, on the reference's step protocol."""
     model = j_stable if model is None else model
     n = xT.shape[0]
     lanes = n if lanes is None else lanes
     stagger = [0] * n if stagger is None else list(stagger)
-    fns = jsamplers.make_stepfns(plan, model, SHAPE, xT.dtype, lanes,
+    fns = jsamplers.make_stepfns(plan, model, shape, xT.dtype, lanes,
                                  stream=stream)
     arrays = fns.adapter.arrays(plan)
     M = fns.adapter.n_steps_of(arrays)
-    carry = jsamplers.fresh_carry(plan, lanes, SHAPE, xT.dtype)
+    carry = jsamplers.fresh_carry(plan, lanes, shape, xT.dtype,
+                                  model_fn=model)
     done, steps = {}, {}
     previews = {b: [] for b in range(n)}
     owner = [None] * lanes
@@ -592,21 +598,42 @@ def test_copy_moves_the_whole_lane():
 
 
 def test_feature_cache_and_residual_policy_are_refused():
-    """Feature caching under the step protocol, and the residual policy
-    under sample_batched, are the later slice's (ROADMAP A9)."""
-    plan = tsamplers.build_plan(spec(T, feature_cache=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tsamplers.fresh_carry(plan, 2, SHAPE, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tsamplers.make_stepfns(plan, t_stable, SHAPE, torch.float32, 2,
-                               device="cpu")
-    rplan = tsamplers.build_plan(spec(T, feature_cache=("residual", 0.05),
-                                      prediction="x0"))
+    """Feature caching under the step protocol and the residual policy
+    under sample_batched run (tests/test_torch_feature_cache_lanes.py);
+    what they still refuse: a carry with no Denoiser to shape its
+    features, a model without a cached companion, and a family whose
+    executors never dispatch the cached evaluation (the reference's
+    message)."""
     den = Denoiser(lambda x, t, c: x, TS, prediction="x0",
                    cached=CachedNetwork(call=lambda x, t, c, f, r: (x, f),
                                         init=torch.zeros_like))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tsamplers.sample_batched(rplan, den, torch.zeros((2,) + SHAPE),
+    for fc in (2, ("residual", 0.05)):
+        plan = tsamplers.build_plan(spec(T, feature_cache=fc,
+                                         prediction="x0"))
+        with pytest.raises(ValueError, match="model_fn="):
+            tsamplers.fresh_carry(plan, 2, SHAPE, torch.float32,
+                                  device="cpu")
+        carry = tsamplers.fresh_carry(plan, 2, SHAPE, torch.float32,
+                                      model_fn=den, device="cpu")
+        # one feature row per lane (G = 1 unguided), zero until a tick
+        assert carry["feats"].shape == (2, 1) + SHAPE
+        assert not carry["feats"].any()
+        with pytest.raises(ValueError, match="cached="):
+            tsamplers.make_stepfns(plan, t_stable, SHAPE, torch.float32, 2,
+                                   device="cpu")
+        with pytest.raises(ValueError, match="cached="):
+            tsamplers.sample_batched(plan, t_stable,
+                                     torch.zeros((2,) + SHAPE),
+                                     noise=torch.zeros((2, 6) + SHAPE))
+    ddim = tsamplers.build_plan(spec(T, name="ddim", feature_cache=2))
+    with pytest.raises(ValueError, match="not supported by the 'ddim'"):
+        tsamplers.fresh_carry(ddim, 2, SHAPE, torch.float32, model_fn=den,
+                              device="cpu")
+    with pytest.raises(ValueError, match="not supported by the 'ddim'"):
+        tsamplers.make_stepfns(ddim, den, SHAPE, torch.float32, 2,
+                               device="cpu")
+    with pytest.raises(ValueError, match="not supported by the 'ddim'"):
+        tsamplers.sample_batched(ddim, den, torch.zeros((2,) + SHAPE),
                                  noise=torch.zeros((2, 6) + SHAPE))
 
 
@@ -783,6 +810,63 @@ def test_captured_baseline_tick_equals_eager_ticks_on_card(card, name):
     assert torch.equal(replayed, eager_out)
     ref = tsamplers.sample_batched(plan, t_stable, xT, noise=noise)
     torch.testing.assert_close(replayed, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fc", [2, ("residual", 0.05)])
+def test_captured_cached_tick_equals_eager_ticks_on_card(card, fc):
+    """A feature-cached tick over the tame dit-s at full width (6 layers,
+    span (1, 5)), captured as a CUDA graph with its refresh gate a
+    conditional node, replays the eager tick bit for bit through staggered
+    joins and retirements, features included; its drive equals each lane's
+    solo ``sample()`` within 1e-4."""
+    from repro_torch.models.tame import tame_dit, tame_networks
+    model, params, mu = tame_dit("dit-s", smoke=False, n_layers=6,
+                                 device=card)
+    net, cached = tame_networks(model, params, mu)
+    den = Denoiser(net, TS, prediction="x0", cached=cached)
+    plan = tsamplers.build_plan(spec(T, n_steps=6, combine="fused",
+                                     prediction="x0", feature_cache=fc))
+    shape = (128, 16)
+    g = torch.Generator(card).manual_seed(0)
+    xT = torch.randn((4,) + shape, generator=g, device=card)
+    noise = torch.randn((4, 6) + shape, generator=g, device=card)
+    tsamplers.clear_stepwise_cache()
+    fns = tsamplers.make_stepfns(plan, den, shape, torch.float32, 3,
+                                 device=card)
+    arrays = fns.adapter.arrays(plan, card)
+    carries = [tsamplers.fresh_carry(plan, 3, shape, torch.float32,
+                                     model_fn=den, device=card)
+               for _ in range(2)]
+    fns.warm(arrays, carries[0])
+    assert tsamplers.stepwise_cache_stats()["graphs"] == 1
+    done = {}
+    owner = [None] * 3
+    for tick in range(16):
+        for b, at in enumerate((0, 0, 2, 8)):
+            if at == tick:
+                lane = owner.index(None)
+                owner[lane] = b
+                for c in carries:
+                    fns.join(arrays, c, lane, xT[b], noise[b], 0.0, 0, 1.0)
+        _, aux = fns.step(arrays, carries[0])
+        with tsamplers.eager():
+            _, aux_eager = fns.step(arrays, carries[1])
+        for k in aux:
+            assert torch.equal(aux[k], aux_eager[k]), (tick, k)
+        for path, v in carry_leaves(carries[0]):
+            w = carries[1][path[0]][path[1]] if len(path) > 1 \
+                else carries[1][path[0]]
+            assert torch.equal(v, w), (tick, path)
+        for lane, b in enumerate(owner):
+            if b is not None and aux["finished"][lane]:
+                done[b] = carries[0]["x_final"][lane].clone()
+                owner[lane] = None
+    assert sorted(done) == [0, 1, 2, 3]
+    for b in range(4):
+        solo = tsamplers.sample(plan, den, xT[b:b + 1],
+                                noise=noise[b][:, None])
+        assert rel(done[b].cpu(), solo[0].cpu()) <= 1e-4, b
 
 
 @pytest.mark.gpu

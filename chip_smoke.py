@@ -22,7 +22,11 @@ samplers over DiT-XL/2 through the compile cache's graphs, under
 one-call guidance, under the step scheduler and through the sampling
 entry point (``baselines_path``); DeepCache feature caching over DiT-XL/2,
 its refresh gated on the device, per lane under ``sample_batched`` and
-served by the step scheduler (``feature_cache_path``); the port's sampling
+served by the step scheduler (``feature_cache_path``); the sharded path
+over ``torch.distributed`` (``sharded_path``: ``sample_sharded`` and the
+sharded engine at one NCCL rank, ``--cfg-shard``'s refusal, and sharded
+classifier-free guidance at two gloo ranks sharing the card, started as
+``chip_smoke.py --cfg-rank RANK DIR``); the port's sampling
 entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -80,6 +84,7 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "programs": ("sa_update", "sa_fused", "flash_attention"),
                 "guided": ("sa_fused", "flash_attention"),
                 "feature_cache": ("sa_fused", "flash_attention"),
+                "sharded": ("sa_fused", "flash_attention"),
                 "graph": ("sa_update", "sa_fused", "flash_attention"),
                 "baselines": ("flash_attention",),
                 "sample_edm_heun": ("flash_attention",),
@@ -2605,6 +2610,316 @@ def phase_feature_cache_path(state: dict) -> dict:
     return result
 
 
+#: replays of the sharded solve timed in ``sharded_path`` (p50/p90)
+SHARD_REPLAYS = 5
+#: seconds the two cfg ranks of ``sharded_path`` may take, start to end
+SHARD_RANKS_DEADLINE_S = 300
+
+
+def _sharded_inputs(dev, M: int, seed: int = 11):
+    """The sharded phase's step noise [8, M, 256, 16] and one-hot classes
+    [8, N_CLASSES] (one generator, seeded ``seed``)."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    noise = torch.randn((SHAPE[0], M) + REQ_SHAPE, generator=g, device=dev)
+    classes = torch.randint(0, N_CLASSES, (SHAPE[0],), generator=g,
+                            device=dev)
+    return noise, torch.nn.functional.one_hot(classes, N_CLASSES).float()
+
+
+def _sharded_model(dit: dict, guided: bool):
+    """(sampler, Denoiser) of the sharded phase over ``dit``, the
+    class-conditional tame DiT-XL/2: SA NFE 20 P3C3 PEC tau 1, fused."""
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.models.tame import tame_networks
+    net, _ = tame_networks(dit["model"], dit["params"], dit["mu"])
+    den = Denoiser(net, dit["schedule"], prediction="x0", guidance=guided,
+                   cond_rank=1 if guided else None)
+    s = make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                     corrector_order=3, mode="PEC", combine="fused",
+                     schedule=dit["schedule"], prediction="x0",
+                     guidance=guided)
+    return s, den
+
+
+def sharded_cfg_rank(rank: int, workdir: str) -> int:
+    """One of ``sharded_path``'s two cfg ranks (``chip_smoke.py --cfg-rank
+    RANK DIR``): a gloo group of two on the one card, a (cfg=2, data=1)
+    mesh, one eager guided solve of the phase's inputs through
+    ``sample_sharded``; writes its output, launches and flash calls by
+    batch to ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.samplers import compile_cache_stats
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/gloo",
+                            rank=rank, world_size=2)
+    try:
+        mesh = make_test_mesh((2, 1), ("cfg", "data"), device="cuda")
+        s, den = _sharded_model(build_tame_dit_xl2(N_CLASSES), guided=True)
+        inp = {k: v.cuda() for k, v in torch.load(
+            os.path.join(workdir, "inputs.pt")).items()}
+        ops.reset_launch_counts()
+        batches: dict = {}
+        with flash_batches(batches):
+            t = time.perf_counter()
+            out = s.sample_sharded(den, inp["xT"], noise=inp["noise"],
+                                   cond=inp["cond"], mesh=mesh,
+                                   cfg_axis="cfg", guidance_scale=CFG_SCALE)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        launches = ops.launch_counts()
+        cfg = mesh.get_group("cfg")
+        torch.save({"out": out.cpu(), "seconds": secs, "launches": launches,
+                    "flash_calls_by_batch": batches,
+                    # the port hands gloo the CUDA tensors (no host copy of
+                    # its own; what gloo stages inside is not seen here)
+                    "exchange": f"{dist.get_backend(cfg)} all_gather of "
+                                f"{out.device} tensors",
+                    "cfg_rank": dist.get_rank(cfg),
+                    "eager_entries": compile_cache_stats()["eager_entries"],
+                    "graphs": compile_cache_stats()["graphs"]},
+                   os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _run_cfg_ranks(workdir: str) -> list:
+    """Start both cfg ranks (``--cfg-rank``), each in a session of its own;
+    kill both at the deadline; their results."""
+    import torch
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cfg-rank", str(r),
+         workdir], start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(2)]
+    end = time.monotonic() + SHARD_RANKS_DEADLINE_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(end - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [p for p in procs if p.poll() is None]
+        for p in late:
+            os.killpg(p.pid, 9)
+        logs = [p.communicate()[0].decode(errors="replace") for p in procs]
+    require(not late, f"sharded: cfg ranks past {SHARD_RANKS_DEADLINE_S} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0,
+                f"sharded: cfg rank {r} exited {p.returncode}: {log[-2000:]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"))
+            for r in range(2)]
+
+
+def phase_sharded_path(state: dict) -> dict:
+    """The port's sharded path (``sample_sharded``, ``ServeEngine(mesh=)``,
+    ``launch.sample --cfg-shard``, sharded CFG) over ``torch.distributed``
+    at DiT-XL/2 full width: the class-conditional tame DiT-XL/2, latent
+    [8, 256, 16], SA NFE 20 P3C3 PEC tau 1, fused f32, flash. One card
+    runs the sharded path at one NCCL rank; two ranks share it only under
+    gloo (NCCL refuses two ranks on one device). No speed is claimed.
+
+    1. An NCCL group of one rank (a ``file://`` store; one collective
+       before any capture), a (data=1, model=1) mesh: ``sample_sharded``
+       of the 8 lanes, a cold call and SHARD_REPLAYS replays (p50/p90),
+       each bitwise the ``sample_batched`` replay of the same lanes and
+       noise; one eager call with every kernel call held against its
+       plain version.
+    2. ``ServeEngine(mesh=)``, solve scheduler, buckets (1, 2, 4, 8): 8
+       plus a ragged 3 requests, bitwise the unsharded engine's results.
+       Each engine's bucket of 8 is an entry of step 1 (a hit: the
+       sharded one keyed by the mesh), its bucket of 4 a new entry and
+       graph of its own.
+    3. ``launch.sample --cfg-shard`` refuses at one rank.
+    4. Two gloo ranks on the card (``--cfg-rank``), a (cfg=2, data=1)
+       mesh, CFG at 1.5, eager (a cfg-sharded entry is not captured):
+       each rank evaluates one branch at batch 8 (560 flash calls), the
+       halves exchanged by gloo's ``all_gather`` of the CUDA tensors; the
+       output against the one-call CFG ``sample_batched`` (batch 16) at
+       GAP_LIMIT, both ranks' outputs bitwise equal.
+
+    The unsharded twins of 1 and 2 (the ``sample_batched`` capture and
+    replay, the unsharded engine's 3 solves) run first, and their launches
+    are recorded apart (``unsharded_twins_launches``). The sharded launch
+    window then covers 1-2 in this process (the sharded solves only), and
+    4's ranks add their own counts."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.samplers import (compile_cache_stats,
+                                           sample_batched, sample_sharded)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sample as launch_sample
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve import ServeEngine
+    dev = torch.device("cuda")
+    dit = build_tame_dit_xl2(denoiser_cond=N_CLASSES)
+    s, den = _sharded_model(dit, guided=False)
+    L, M = dit["model"].cfg.n_layers, s.spec.n_steps
+    xT = dit["xT"]
+    noise, cond = _sharded_inputs(dev, M)
+    per_solve = only_launches(flash_attention=L * NFE, sa_fused=M)
+
+    def solves(n):
+        return {k: n * v for k, v in per_solve.items()}
+
+    res: dict = {}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl",
+                            rank=0, world_size=1)
+    try:
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)  # NCCL's communicator, before any capture
+        torch.cuda.synchronize()
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+
+        def batched():
+            return sample_batched(s.plan, den, xT, noise=noise)
+
+        def sharded():
+            return sample_sharded(s.plan, den, xT, noise=noise, mesh=mesh)
+
+        def serve(mesh_):
+            eng = ServeEngine(den, bucket_sizes=(1, 2, 4, 8), mesh=mesh_)
+            for rid in range(11):
+                eng.submit(s.spec, REQ_SHAPE, rid=rid)
+            out, secs, lw, cw, _ = launch_window(
+                lambda: {r.rid: r for r in eng.run()})
+            return out, secs, lw, cw, eng.stats()
+
+        # ---- the unsharded twins that 1 and 2 are held against (their
+        # launches are recorded apart, outside the sharded window)
+        ops.reset_launch_counts()
+        batched()  # the unsharded entry's capture
+        ref, _, l_ref, c_ref, _ = launch_window(batched)
+        require(l_ref == solves(1) and c_ref["graphs"] == 0,
+                f"sharded: the sample_batched replay: {l_ref} {c_ref}")
+        plain, plain_s, l_plain, c_plain, st_plain = serve(None)
+        twins = ops.launch_counts()
+        ops.reset_launch_counts()  # the sharded main-path window starts here
+
+        # ---- 1. sample_sharded on the size-1 NCCL mesh
+        cold, cold_s, l_cold, c_cold, _ = launch_window(sharded)
+        require(l_cold == solves(1) and c_cold["misses"] == 1 and
+                c_cold["graphs"] == 1,
+                f"sharded: cold sample_sharded: {l_cold} {c_cold}")
+        replays, bitwise = [], [torch.equal(cold, ref)]
+        for _ in range(SHARD_REPLAYS):
+            out, secs, l_rep, c_rep, _ = launch_window(sharded)
+            require(l_rep == solves(1) and c_rep["graphs"] == 0,
+                    f"sharded: a replay: {l_rep} {c_rep}")
+            replays.append(secs)
+            bitwise.append(torch.equal(out, ref))
+        held: dict = {}
+        with held_against_plain(held):
+            held_out = sharded()
+        res["nccl_1_rank"] = {
+            "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                     "backend": dist.get_backend()},
+            "cold_s": cold_s, "replay_s": spread(replays),
+            "bitwise_sample_batched_replay": bitwise,
+            "held_eager_rel_gap": rel_gap(held_out, ref),
+            "launches_per_solve": per_solve,
+            "unsharded_twins_launches": twins}
+        require(all(bitwise), f"sharded: not bitwise sample_batched: "
+                f"{bitwise}")
+        require(rel_gap(held_out, ref) <= GAP_LIMIT,
+                f"sharded: held eager solve {rel_gap(held_out, ref)}")
+
+        # ---- 2. the engine on the mesh against the unsharded engine
+        shard, shard_s, l_shard, c_shard, st_shard = serve(mesh)
+        same = {rid: shard[rid].status == "ok" and
+                torch.equal(shard[rid].x0, plain[rid].x0) for rid in plain}
+        res["engine"] = {
+            "requests": 11, "buckets": [1, 2, 4, 8],
+            "serve_s": {"unsharded": plain_s, "sharded": shard_s},
+            "padded_slots": st_shard["padded_slots"],
+            "microbatches": st_shard["microbatches"],
+            "cache_delta": {"unsharded": c_plain, "sharded": c_shard},
+            "launches": {"unsharded": l_plain, "sharded": l_shard},
+            "bitwise_unsharded": same,
+            "compile_cache": compile_cache_stats()}
+        require(all(same.values()), f"sharded engine: not bitwise {same}")
+        require(st_shard["microbatches"] == 2 and
+                st_shard["padded_slots"] == 1 and
+                c_plain["misses"] == c_shard["misses"] == 1 and
+                c_plain["graphs"] == c_shard["graphs"] == 1 and
+                l_plain == l_shard == solves(3),
+                f"sharded engine: {res['engine']}")
+
+        # ---- 3. --cfg-shard at one rank
+        try:
+            launch_sample.main(["--arch", "dit-xl-2", "--guidance-scale",
+                                str(CFG_SCALE), "--cfg-shard"])
+            refusal = None
+        except SystemExit as e:
+            refusal = str(e)
+        res["cfg_shard_refusal"] = refusal
+        require(refusal == "--cfg-shard needs an even device count >= 2 "
+                "(have 1)", f"sharded: --cfg-shard at one rank: {refusal}")
+    finally:
+        dist.destroy_process_group()
+    launches = ops.launch_counts()  # this process's window ends
+
+    # ---- 4. two gloo ranks on the one card, CFG at 1.5
+    s_g, den_g = _sharded_model(dit, guided=True)
+    one_call = sample_batched(s_g.plan, den_g, xT, noise=noise, cond=cond,
+                              guidance_scale=CFG_SCALE)
+    torch.save({"xT": xT.cpu(), "noise": noise.cpu(), "cond": cond.cpu()},
+               os.path.join(workdir, "inputs.pt"))
+    t = time.perf_counter()
+    ranks = _run_cfg_ranks(workdir)
+    ranks_s = time.perf_counter() - t
+    shutil.rmtree(workdir, ignore_errors=True)
+    for r in ranks:
+        launches = {k: launches[k] + r["launches"][k] for k in launches}
+    gaps = [rel_gap(r["out"].to(dev), one_call) for r in ranks]
+    res["cfg_2_ranks"] = {
+        "mesh": {"shape": [2, 1], "axes": ["cfg", "data"],
+                 "backend": "gloo", "device": "cuda:0 (both ranks)"},
+        "guidance_scale": CFG_SCALE, "wall_s": ranks_s,
+        "ranks": [{k: r[k] for k in ("cfg_rank", "seconds", "launches",
+                                     "flash_calls_by_batch", "exchange",
+                                     "eager_entries", "graphs")}
+                  for r in ranks],
+        "vs_one_call_rel_gap": gaps,
+        "ranks_bitwise": torch.equal(ranks[0]["out"], ranks[1]["out"])}
+    state["launches"]["sharded"] = launches
+    state["held"]["sharded"] = held
+    held_bad = {k: h for k, h in held.items() if not h["ok"]}
+    result = {"phase": "sharded_path", "arch": dit["model"].cfg.name,
+              "layers": L, "d_model": dit["model"].cfg.d_model,
+              "denoiser_cond": N_CLASSES, "latent": list(SHAPE),
+              "weights": "tame",
+              "sampler": {"name": "sa", "nfe": NFE, "tau": 1.0,
+                          "predictor_order": 3, "corrector_order": 3,
+                          "mode": "PEC", "combine": "fused"},
+              "gap_limit_f32": GAP_LIMIT, **res, "launches": launches,
+              "held_against_plain": held, "ok": not held_bad}
+    emit(result)
+    require(not held_bad, f"sharded: kernel calls out of tolerance: "
+            f"{held_bad}")
+    require(set(held) == set(PATH_KERNELS["sharded"]),
+            f"sharded: held calls missing: {held}")
+    require(max(gaps) <= GAP_LIMIT and res["cfg_2_ranks"]["ranks_bitwise"],
+            f"sharded CFG: gaps {gaps}, ranks bitwise "
+            f"{res['cfg_2_ranks']['ranks_bitwise']}")
+    for r in ranks:
+        require(r["flash_calls_by_batch"] == {SHAPE[0]: L * NFE} and
+                r["launches"]["sa_fused"] == M and
+                r["eager_entries"] == 1 and r["graphs"] == 0,
+                f"sharded CFG rank {r['cfg_rank']}: {r}")
+    return result
+
+
 def phase_sample_defaults(state: dict) -> dict:
     """The port's sampling entry point, ``launch.sample.main``, with no kernel
     flag on the card: DiT-XL/2 (full config) and the RWKV6 smoke config,
@@ -2865,6 +3180,8 @@ def phase_rwkv6_profile(state: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
+        return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -2895,6 +3212,7 @@ def main() -> int:
     phase_serve_path(state)
     phase_baselines_path(state)
     phase_feature_cache_path(state)
+    phase_sharded_path(state)
     phase_sample_defaults(state)
     phase_gmm()
     phase_rwkv6_path(state)

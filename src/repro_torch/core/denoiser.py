@@ -15,10 +15,17 @@ of any output convention:
   then combine as ``(1 - s) * uncond + s * cond``. That form, not
   ``uncond + s (cond - uncond)``, makes scale 1.0 exactly the conditional
   branch (``0 * u + c``) of that call.
+- **sharded classifier-free guidance**: given a process group of two ranks
+  (the ``cfg`` axis of a mesh, ``cfg_group``), group rank 0 evaluates the
+  cond branch and group rank 1 the uncond branch, each at the call's own
+  batch; one ``all_gather`` over the group gives both halves to both ranks,
+  in the one-call pair's order (cond, then uncond), and the combine is the
+  same. Both ranks then hold the same bytes of the combined output.
 - **feature caching**: a :class:`CachedNetwork` companion evaluates the
   network with the mid-segment of its block stack either recomputed or
   replayed from the previous step (DeepCache); under guidance its
-  features carry the doubled batch.
+  features carry the doubled batch (under sharded guidance, each rank
+  the features of its own branch).
 
 NFE accounting: one guided evaluation costs two network evaluations
 (``SamplerSpec.network_nfe``), run as one call over twice the batch.
@@ -37,7 +44,9 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from ..distributed import all_gather
 from .schedules import NoiseSchedule
 
 __all__ = ["PREDICTION_TYPES", "CachedNetwork", "Denoiser",
@@ -195,20 +204,35 @@ class Denoiser:
                 f"of a batch of {batch}")
         return c
 
-    def _cfg_pair(self, x: torch.Tensor, cond):
+    def _cfg_pair(self, x: torch.Tensor, cond, cfg_group=None):
         """The doubled batch of one guided call: ``[x; x]`` and
-        ``[cond; null]``, each half expanded to the batch of ``x``."""
+        ``[cond; null]``, each half expanded to the batch of ``x``. Under
+        sharded guidance (``cfg_group``) this rank's half only: ``x`` and
+        the cond (group rank 0) or the null cond (group rank 1)."""
         null = self.null_cond
         if null is None and cond is not None:
             null = torch.zeros_like(torch.as_tensor(cond))
         if (cond is None) != (null is None):
             raise ValueError("null_cond needs a per-call cond to pair with")
+        B = x.shape[0]
+        if cfg_group is not None:
+            c = cond if dist.get_rank(cfg_group) == 0 else null
+            return x, None if c is None else self._batched(c, B)
         xx = torch.cat([x, x])
         if cond is None:
             return xx, None
-        B = x.shape[0]
         return xx, torch.cat([self._batched(cond, B),
                               self._batched(null, B)])
+
+    @staticmethod
+    def _halves(out: torch.Tensor, B: int, cfg_group):
+        """``(cond, uncond)`` outputs of one guided call: the two halves of
+        the doubled batch, or under sharded guidance each rank's branch
+        gathered over ``cfg_group``."""
+        if cfg_group is None:
+            return out[:B], out[B:]
+        c_out, u_out = all_gather(out, cfg_group)
+        return c_out, u_out
 
     def statics(self, target: str) -> tuple:
         """What the binding to ``target`` computes, for the compile-cache
@@ -227,60 +251,73 @@ class Denoiser:
         # (1-s)*u + s*c: at s == 1.0 this is exactly the cond branch
         return (1.0 - s) * u_out + s * c_out
 
-    def evaluate(self, x: torch.Tensor, t, cond, scale) -> torch.Tensor:
+    def evaluate(self, x: torch.Tensor, t, cond, scale,
+                 cfg_group=None) -> torch.Tensor:
         """One guided (or plain) network evaluation, in ``self.prediction``
         convention. Under guidance both branches run as ONE network call
-        over the doubled batch."""
+        over the doubled batch, or with ``cfg_group`` one branch on each
+        of its two ranks (sharded guidance)."""
         if not self.guidance:
             return self.network(x, t, cond)
-        xx, cc = self._cfg_pair(x, cond)
-        out = self.network(xx, _doubled(t), cc)
-        B = x.shape[0]
-        return self._combine(out[:B], out[B:], scale)
+        xx, cc = self._cfg_pair(x, cond, cfg_group)
+        out = self.network(xx, t if cfg_group is not None else _doubled(t),
+                           cc)
+        return self._combine(*self._halves(out, x.shape[0], cfg_group),
+                             scale)
 
-    def init_feats(self, x: torch.Tensor):
+    def init_feats(self, x: torch.Tensor, cfg_group=None):
         """Zero feature cache for one solver state ``x`` (under guidance
-        for the doubled batch, matching ``evaluate``'s call)."""
+        for the doubled batch, matching ``evaluate``'s call; under sharded
+        guidance for this rank's branch alone)."""
         if self.cached is None:
             raise ValueError("Denoiser built without cached=")
         f = self.cached.init(x)
-        return torch.cat([f, f]) if self.guidance else f
+        return torch.cat([f, f]) if self.guidance and cfg_group is None \
+            else f
 
-    def evaluate_cached(self, x, t, cond, scale, feats, refresh):
+    def evaluate_cached(self, x, t, cond, scale, feats, refresh,
+                        cfg_group=None):
         """``evaluate`` through the feature-cached network. Returns
         ``(prediction, new_feats)``. ``refresh``: a Python bool, or a
         device bool tensor (0-d, or one flag per row of ``x``, doubled
-        with the batch under guidance)."""
+        with the batch under one-call guidance). Under sharded guidance
+        ``feats`` are this rank's branch's, and the refresh flags (read
+        from the combined state, the same on both ranks) gate both ranks'
+        segments alike."""
         if self.cached is None:
             raise ValueError("Denoiser built without cached=")
         if not self.guidance:
             return self.cached.call(x, t, cond, feats, refresh)
-        xx, cc = self._cfg_pair(x, cond)
-        out, new_feats = self.cached.call(xx, _doubled(t), cc, feats,
-                                          _doubled(refresh))
-        B = x.shape[0]
-        return self._combine(out[:B], out[B:], scale), new_feats
+        xx, cc = self._cfg_pair(x, cond, cfg_group)
+        if cfg_group is None:
+            t, refresh = _doubled(t), _doubled(refresh)
+        out, new_feats = self.cached.call(xx, t, cc, feats, refresh)
+        return (self._combine(*self._halves(out, x.shape[0], cfg_group),
+                              scale), new_feats)
 
-    def as_model_fn(self, target: str, cond, scale) -> Callable:
+    def as_model_fn(self, target: str, cond, scale,
+                    cfg_group=None) -> Callable:
         """Bind to a plan's parameterization and one call's conditioning
-        and guidance scale: the ``model_fn(x, t)`` the executors consume."""
+        and guidance scale (and, for sharded guidance, the cfg group): the
+        ``model_fn(x, t)`` the executors consume."""
         target = canonical_prediction(target)
 
         def model_fn(x, t):
-            raw = self.evaluate(x, t, cond, scale)
+            raw = self.evaluate(x, t, cond, scale, cfg_group)
             return convert_prediction(raw, x, t, self.prediction, target,
                                       self.schedule)
 
         return model_fn
 
-    def as_cached_model_fn(self, target: str, cond, scale) -> Callable:
+    def as_cached_model_fn(self, target: str, cond, scale,
+                           cfg_group=None) -> Callable:
         """Feature-cached twin of :meth:`as_model_fn`:
         ``model_fn(x, t, feats, refresh) -> (prediction, new_feats)``."""
         target = canonical_prediction(target)
 
         def model_fn(x, t, feats, refresh):
             raw, new_feats = self.evaluate_cached(x, t, cond, scale, feats,
-                                                  refresh)
+                                                  refresh, cfg_group)
             return (convert_prediction(raw, x, t, self.prediction, target,
                                        self.schedule), new_feats)
 

@@ -34,6 +34,7 @@ from .base import (
     register_sampler,
     sample,
     sample_batched,
+    sample_sharded,
     warmup,
 )
 from .stepwise import (
@@ -61,7 +62,7 @@ __all__ = [
     "list_samplers", "make_sampler", "register_sampler", "sample",
     "warmup", "compile_cache_stats", "clear_compile_cache", "eager",
     "make_multistep_family", "tables_to_arrays", "sample_batched",
-    "cond_struct", "StepAdapter", "StepFns", "clear_stepwise_cache",
-    "fresh_carry", "make_stepfns", "stepwise_adapter",
+    "sample_sharded", "cond_struct", "StepAdapter", "StepFns",
+    "clear_stepwise_cache", "fresh_carry", "make_stepfns", "stepwise_adapter",
     "stepwise_cache_stats", "stepwise_supported",
 ]

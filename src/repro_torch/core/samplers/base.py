@@ -44,22 +44,35 @@ the same tables, so the one-coefficient combine kernels apply, and the
 model is called lane-batched (``x`` [K, *shape], ``t`` [K]; see
 :mod:`repro_torch.core.denoiser`). The trajectory flag and the lane count
 join the cache key, as in the reference.
+
+Sharded entry points: :func:`sample_sharded` runs ``sample_batched`` over
+the ``data`` axis of a named :class:`torch.distributed.device_mesh.
+DeviceMesh` (``repro_torch.launch.mesh``): every rank is called with the
+global request batch, solves its own share of the lanes through the same
+lane-batched entry, and gathers the result over the data axis, so every
+rank returns the global batch. ``cfg_axis`` names a size-2 axis that
+carries the guided pair (sharded classifier-free guidance, one branch a
+rank; see :mod:`repro_torch.core.denoiser`). The mesh's identity joins the
+cache key.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import types
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...device import resolve_device
+from ...distributed import all_gather
 from ...kernels import ops
 from ..denoiser import Denoiser, canonical_prediction, convert_prediction
 from ..schedules import NoiseSchedule, get_schedule, timestep_grid
@@ -68,8 +81,8 @@ __all__ = [
     "PRECISIONS", "carry_dtype", "SamplerSpec", "SamplerPlan",
     "SamplerFamily", "Sampler", "register_sampler", "get_family",
     "make_sampler", "list_samplers", "build_plan", "sample", "warmup",
-    "sample_batched", "compile_cache_stats", "clear_compile_cache", "eager",
-    "cond_struct",
+    "sample_batched", "sample_sharded", "compile_cache_stats",
+    "clear_compile_cache", "eager", "cond_struct",
 ]
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -355,7 +368,8 @@ def _adapter_statics(plan: SamplerPlan, model_fn) -> tuple | None:
     return None
 
 
-def _bind_model(m, adapter, cond, scale, lanes: bool = False) -> ModelFn:
+def _bind_model(m, adapter, cond, scale, lanes: bool = False,
+                cfg_group=None) -> ModelFn:
     """The executor-facing ``model_fn(x, t)``: a Denoiser bound to the
     plan's convention and the entry's cond and scale buffers, or a plain
     model whose output the adapter converts. A Denoiser with a
@@ -365,8 +379,10 @@ def _bind_model(m, adapter, cond, scale, lanes: bool = False) -> ModelFn:
     time of a solve over stacked lanes, and the lane-batched model gets it
     as [L], one per lane; the bound function's ``lanes`` attribute tells
     the executor (whose feature cache then decides its refresh per
-    lane)."""
-    fn = _bind_plain(m, adapter, cond, scale)
+    lane). ``cfg_group`` (the process group of a mesh's cfg axis) asks
+    the Denoiser for sharded classifier-free guidance, as the reference's
+    ``cfg_shard``."""
+    fn = _bind_plain(m, adapter, cond, scale, cfg_group)
     if not lanes:
         return fn
 
@@ -383,14 +399,16 @@ def _bind_model(m, adapter, cond, scale, lanes: bool = False) -> ModelFn:
     return lane_fn
 
 
-def _bind_plain(m, adapter, cond, scale) -> ModelFn:
+def _bind_plain(m, adapter, cond, scale, cfg_group=None) -> ModelFn:
     if adapter is None:
         return m
     if adapter[0] == "denoiser":
-        fn = m.as_model_fn(adapter[3], cond, scale)
+        fn = m.as_model_fn(adapter[3], cond, scale, cfg_group)
         if m.cached is not None:
-            fn.cached_call = m.as_cached_model_fn(adapter[3], cond, scale)
-            fn.init_feats = m.init_feats
+            fn.cached_call = m.as_cached_model_fn(adapter[3], cond, scale,
+                                                  cfg_group)
+            fn.init_feats = functools.partial(m.init_feats,
+                                              cfg_group=cfg_group)
         return fn
     _, src, dst, schedule = adapter  # a plain model, its output converted
     return lambda x, t: convert_prediction(m(x, t), x, t, src, dst, schedule)
@@ -427,7 +445,7 @@ def _check_lanes(plan: SamplerPlan, model_fn, cond, lanes: int) -> None:
 # ------------------------------------------------------------ compile cache
 _COMPILE_CACHE_MAX = 64
 _CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0, "aot_fallbacks": 0,
-                "graphs": 0}
+                "graphs": 0, "eager_entries": 0}
 #: depth of nested :func:`eager` contexts
 _EAGER_DEPTH = 0
 #: per CUDA device: the side stream that warms and captures every graph,
@@ -440,7 +458,9 @@ def compile_cache_stats() -> dict:
     """``hits``/``misses``/``evictions`` as the reference counts them;
     ``aot_fallbacks``: calls that did not run the entry's CUDA graph
     (calls inside :func:`eager`), on any device; ``graphs``: CUDA graphs
-    captured; ``size``: live entries."""
+    captured; ``eager_entries``: entries built to run eager on every
+    device (a cfg-sharded entry exchanges the guided pair inside every
+    evaluation, which no graph captures yet); ``size``: live entries."""
     return dict(_CACHE_STATS, size=len(_COMPILE_CACHE))
 
 
@@ -581,10 +601,11 @@ class _CacheEntry:
     when the model dies)."""
 
     __slots__ = ("family", "statics", "adapter", "model", "x", "cond",
-                 "scale", "runs", "trajectory", "batch")
+                 "scale", "runs", "trajectory", "batch", "eager_only")
 
     def __init__(self, family, statics, adapter, model, x, cond,
-                 trajectory: bool = False, batch: int | None = None):
+                 trajectory: bool = False, batch: int | None = None,
+                 eager_only: bool = False):
         self.family = family
         self.statics = statics
         self.adapter = adapter
@@ -596,6 +617,8 @@ class _CacheEntry:
         self.scale = torch.ones(() if batch is None else (batch,),
                                 dtype=torch.float32, device=x.device)
         self.runs: dict = {}
+        #: a cfg-sharded entry: never captured (see compile_cache_stats)
+        self.eager_only = eager_only
 
     def run_for(self, plan: SamplerPlan) -> _Run:
         sig = _signature(plan)
@@ -604,11 +627,13 @@ class _CacheEntry:
             run = self.runs[sig] = _Run(plan, self.x, self.trajectory)
         return run
 
-    def execute(self, run: _Run) -> torch.Tensor:
-        """The eager solve over the entry's buffers."""
+    def execute(self, run: _Run, cfg_group=None) -> torch.Tensor:
+        """The eager solve over the entry's buffers (with ``cfg_group``,
+        the call's cfg axis group, for a cfg-sharded entry)."""
         model = _bind_model(_deref_model(self.model), self.adapter,
                             self.cond, self.scale,
-                            lanes=self.batch is not None)
+                            lanes=self.batch is not None,
+                            cfg_group=cfg_group)
         return self.family.execute(self.statics, run.arrays, model, self.x,
                                    run.noise, run.traj)
 
@@ -763,16 +788,38 @@ def _deref_model(ref):
     return m
 
 
+class _MeshIdent(NamedTuple):
+    """Identity of a mesh placement, for the cache key: the axes (names
+    and sizes), the global ranks in mesh order, and the data and cfg axes.
+    Sharded and unsharded entries never collide, and neither do two
+    layouts over the same ranks."""
+
+    axes: tuple
+    ranks: tuple
+    data_axis: str
+    cfg_axis: str | None
+
+
+def _mesh_ident(mesh, data_axis: str, cfg_axis: str | None) -> _MeshIdent:
+    return _MeshIdent(tuple(zip(mesh.mesh_dim_names,
+                                tuple(mesh.mesh.shape))),
+                      tuple(int(r) for r in mesh.mesh.flatten().tolist()),
+                      data_axis, cfg_axis)
+
+
 def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
               cond=None, *, trajectory: bool = False,
-              batch: int | None = None) -> _CacheEntry:
+              batch: int | None = None,
+              mesh: _MeshIdent | None = None) -> _CacheEntry:
     """LRU-cached executor entry.
 
     Keyed on (family name, executor statics, per-request latent shape,
     dtype, model token, model-adapter statics, cond shape and dtype,
-    device, trajectory, lane count (None: unbatched)), as the reference
-    keys its jitted executors (less the mesh of its sharded path). The
-    model token is a weak identity of
+    device, trajectory, lane count (None: unbatched; a sharded entry's
+    lanes are one rank's share), mesh identity (None: unsharded)), as the
+    reference keys its jitted executors. A cfg-sharded entry
+    (``mesh.cfg_axis``) runs eager on every device and is counted in
+    ``eager_entries``. The model token is a weak identity of
     ``model_fn``: the cache holds no strong reference to the model, and an
     entry is evicted when its model is garbage-collected. ``plan.arrays``,
     the cond values and the guidance scale are data copied into the
@@ -787,7 +834,7 @@ def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
         device = torch.device("cuda", torch.cuda.current_device())
     key = (plan.spec.name, plan.statics, tuple(shape), str(dtype),
            _CACHE.lookup_token(model_fn), adapter, cond_struct(cond), device,
-           bool(trajectory), batch)
+           bool(trajectory), batch, mesh)
     entry = _CACHE.get(key)
     if entry is not None:
         return entry
@@ -795,9 +842,11 @@ def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
     x = torch.zeros(lanes + tuple(shape), dtype=dtype, device=device)
     cond_buf = None if cond is None else torch.zeros(
         tuple(cond.shape), dtype=cond.dtype, device=device)
+    eager_only = mesh is not None and mesh.cfg_axis is not None
+    _CACHE_STATS["eager_entries"] += eager_only
     return _CACHE.put(key, model_fn, lambda model: _CacheEntry(
         get_family(plan.spec.name), plan.statics, adapter, model, x, cond_buf,
-        bool(trajectory), batch), _COMPILE_CACHE_MAX)
+        bool(trajectory), batch, eager_only), _COMPILE_CACHE_MAX)
 
 
 def _load_noise(run: _Run, noise, generator, device) -> None:
@@ -830,16 +879,17 @@ def _load_scale(entry: _CacheEntry, guidance_scale) -> None:
         else (entry.batch,)).expand(entry.scale.shape))
 
 
-def _solve(entry: _CacheEntry, run: _Run):
+def _solve(entry: _CacheEntry, run: _Run, cfg_group=None):
     """Run one solve over the entry's loaded buffers and return fresh
     tensors: the graph's replay on a CUDA device once captured, else the
     eager executor (on a CUDA device, the warm-up that the capture
-    follows). With a trajectory, ``(x0, {"x", "x0"})``."""
+    follows; a cfg-sharded entry, over ``cfg_group``, always). With a
+    trajectory, ``(x0, {"x", "x0"})``."""
     if _EAGER_DEPTH:
         _CACHE_STATS["aot_fallbacks"] += 1
-        out = entry.execute(run)
-    elif entry.x.device.type != "cuda":
-        out = entry.execute(run)
+        out = entry.execute(run, cfg_group)
+    elif entry.x.device.type != "cuda" or entry.eager_only:
+        out = entry.execute(run, cfg_group)
     elif run.graph is None:
         out = entry.capture(run)
     else:
@@ -925,13 +975,22 @@ def sample_batched(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
     residual feature-cache policy each lane refreshes on its own residual
     (a [K] device mask; the deep segment runs when any lane refreshes).
     """
-    K = int(x_T.shape[0])
     _check_model(plan, model_fn, cond, guidance_scale)
     if cond is not None:
         cond = torch.as_tensor(cond)
-    _check_lanes(plan, model_fn, cond, K)
+    _check_lanes(plan, model_fn, cond, int(x_T.shape[0]))
+    return _lane_solve(plan, model_fn, x_T, generators, noise, cond,
+                       guidance_scale, trajectory)
+
+
+def _lane_solve(plan: SamplerPlan, model_fn, x_T, generators, noise, cond,
+                guidance_scale, trajectory: bool, mesh=None, cfg_group=None):
+    """One solve over the stacked lanes of ``x_T`` through the lane-batched
+    entry (of ``mesh``'s placement, for a rank's share of a sharded
+    batch)."""
     entry = _compiled(plan, model_fn, x_T.shape[1:], x_T.dtype, x_T.device,
-                      cond, trajectory=trajectory, batch=K)
+                      cond, trajectory=trajectory, batch=int(x_T.shape[0]),
+                      mesh=mesh)
     run = entry.run_for(plan)
     run.load_plan(plan)
     entry.x.copy_(x_T)
@@ -939,28 +998,171 @@ def sample_batched(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
     if cond is not None:
         entry.cond.copy_(cond)
     _load_scale(entry, guidance_scale)
-    out = _solve(entry, run)
+    out = _solve(entry, run, cfg_group)
     if not trajectory:
         return out
     x0, traj = out
     return x0, {k: v.transpose(0, 1).contiguous() for k, v in traj.items()}
 
 
+class _Placement(NamedTuple):
+    """One rank's part of a sharded batch: its lanes ``[lo, hi)``, the
+    data axis's process group (the result's gather), the cfg axis's (or
+    None) and the mesh identity of the cache key."""
+
+    lo: int
+    hi: int
+    data_group: Any
+    cfg_group: Any
+    ident: _MeshIdent
+
+
+def _placement(mesh, batch: int, model_fn, device, data_axis: str,
+               cfg_axis: str | None) -> _Placement:
+    """Check a sharded call's mesh against its batch and model, with the
+    reference's messages, and place this rank: its lanes are the
+    ``rank``-th of the data axis's equal shares, ``rank`` its rank in the
+    data axis's group (the gather's order, so the gathered shares are the
+    batch in order)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if data_axis not in names:
+        raise ValueError(f"mesh has no axis {data_axis!r}; axes: {names}")
+    sizes = dict(zip(names, tuple(mesh.mesh.shape)))
+    n_data = sizes[data_axis]
+    if batch % n_data:
+        raise ValueError(
+            f"request batch {batch} is not divisible by mesh axis "
+            f"{data_axis!r} (size {n_data}); pad the bucket first "
+            "(repro_torch.serve.sharding.align_bucket_sizes)")
+    if cfg_axis is not None:
+        if cfg_axis not in names:
+            raise ValueError(
+                f"cfg_axis={cfg_axis!r} needs a mesh with that axis "
+                "(see repro_torch.serve.sharding.auto_cfg_mesh)")
+        if sizes[cfg_axis] != 2:
+            raise ValueError(
+                f"cfg_axis {cfg_axis!r} has size {sizes[cfg_axis]}; "
+                "sharded CFG splits exactly the cond/uncond pair (size 2)")
+        if not (isinstance(model_fn, Denoiser) and model_fn.guidance):
+            raise ValueError(
+                "cfg_axis only applies to a guidance-enabled Denoiser")
+    if mesh.device_type != torch.device(device).type:
+        raise ValueError(
+            f"a {mesh.device_type!r} mesh cannot place a batch on {device}")
+    if mesh.get_coordinate() is None:
+        raise ValueError(
+            f"rank {dist.get_rank()} is not in the mesh (ranks "
+            f"{mesh.mesh.flatten().tolist()})")
+    cfg_group = None if cfg_axis is None else mesh.get_group(cfg_axis)
+    data_group = mesh.get_group(data_axis)
+    share = batch // n_data
+    lo = dist.get_rank(data_group) * share
+    return _Placement(lo, lo + share, data_group, cfg_group,
+                      _mesh_ident(mesh, data_axis, cfg_axis))
+
+
+def _rows(v, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of a per-lane value (None stays None)."""
+    return None if v is None else v[lo:hi]
+
+
+@torch.no_grad()
+def sample_sharded(plan: SamplerPlan, model_fn, x_T: torch.Tensor,
+                   generators=None, *, mesh, data_axis: str = "data",
+                   cfg_axis: str | None = None,
+                   noise: torch.Tensor | None = None, cond=None,
+                   guidance_scale=1.0, trajectory: bool = False,
+                   donate: bool | None = None):
+    """``sample_batched`` with the leading request axis placed on the
+    ``data`` axis of ``mesh`` (a named
+    :class:`~torch.distributed.device_mesh.DeviceMesh`, e.g. from
+    ``repro_torch.launch.mesh``). Every rank of the mesh makes the same
+    call with the global batch: ``x_T`` [K, *shape], its noise (``noise``
+    [K, M, *shape], or K generators), ``cond`` [K, ...] and the guidance
+    scale (a number or K of them). A rank solves the lanes of its data
+    coordinate, with their noise, cond and scales, as ONE solve through
+    the same lane-batched entry as ``sample_batched`` (on the card its
+    CUDA graph), then gathers the results over the data axis (after the
+    replay, outside the graph): every rank returns the global ``x0``
+    [K, *shape] (with ``trajectory=True``, ``(x0, traj)``, traj leaves
+    [K, M, *shape]). Ranks that share a data coordinate along another axis
+    (``model``) solve the same lanes: the axis is replicated, as in the
+    reference; the backbone's tensor parallelism over it is not ported.
+
+    ``cfg_axis`` names a size-2 mesh axis that carries the guided pair
+    (sharded classifier-free guidance): the rank at its coordinate 0
+    evaluates the cond branch and the other the uncond branch, each at
+    the local batch, and one ``all_gather`` over the axis gives both
+    halves to both ranks inside every evaluation; the combine is
+    unchanged. It needs a guidance-enabled Denoiser and a cfg-factored
+    mesh (``repro_torch.serve.sharding.auto_cfg_mesh``). Such an entry
+    runs eager on every device (``compile_cache_stats()["eager_entries"]``).
+
+    ``donate`` is accepted for the reference's signature and ignored: the
+    entry's own carry buffer already holds the copy of ``x_T``, so there
+    is nothing to donate, and it does not key the entry.
+
+    The mesh's identity (axes, ranks, data and cfg axes) joins the cache
+    key: sharded and unsharded entries never collide.
+    """
+    K = int(x_T.shape[0])
+    if noise is not None or generators is not None:
+        n = int(noise.shape[0]) if noise is not None else len(generators)
+        if n != K:
+            raise ValueError(
+                f"leading axes must match: x_T {K} vs "
+                f"{'noise' if noise is not None else 'generators'} {n}")
+    place = _placement(mesh, K, model_fn, x_T.device, data_axis, cfg_axis)
+    _check_model(plan, model_fn, cond, guidance_scale)
+    if cond is not None:
+        cond = torch.as_tensor(cond)
+    _check_lanes(plan, model_fn, cond, K)
+    lo, hi = place.lo, place.hi
+    scale = torch.as_tensor(guidance_scale, dtype=torch.float32)
+    if scale.numel() != 1:
+        scale = scale.reshape(K)[lo:hi]
+    out = _lane_solve(plan, model_fn, x_T[lo:hi], _rows(generators, lo, hi),
+                      _rows(noise, lo, hi), _rows(cond, lo, hi), scale,
+                      trajectory, mesh=place.ident,
+                      cfg_group=place.cfg_group)
+    if not trajectory:
+        return torch.cat(all_gather(out, place.data_group))
+    x0, traj = out
+    return (torch.cat(all_gather(x0, place.data_group)),
+            {k: torch.cat(all_gather(v, place.data_group))
+             for k, v in traj.items()})
+
+
 @torch.no_grad()
 def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
            cond=None, guidance_scale=None, device="cuda",
-           batch: int | None = None, trajectory: bool = False) -> None:
+           batch: int | None = None, trajectory: bool = False, mesh=None,
+           data_axis: str = "data", cfg_axis: str | None = None,
+           donate: bool | None = None) -> None:
     """Build the entry that :func:`sample` (or, with ``batch``,
-    :func:`sample_batched` of that many lanes) of this plan, model,
-    per-request latent ``shape``/``dtype``, ``cond`` structure and
-    ``trajectory`` flag on ``device`` will use and, on a CUDA device,
-    capture its graph for the plan's signature. ``cond`` is a prototype
-    of one call's (with ``batch``: one request's) conditioning; its shape
-    and dtype key the entry, its values feed the warm-up solve.
-    Idempotent: a later warmup or sample of the same key is a hit, and
-    adds no graph."""
+    :func:`sample_batched` of that many lanes; with ``mesh`` too,
+    :func:`sample_sharded` of that global batch over ``mesh``'s
+    ``data_axis``, with ``cfg_axis`` as there; ``donate`` is ignored) of
+    this plan, model, per-request latent ``shape``/``dtype``, ``cond``
+    structure and ``trajectory`` flag on ``device`` will use and, on a
+    CUDA device, capture its graph for the plan's signature (not for a
+    cfg-sharded entry, which runs eager). ``cond`` is a prototype of one
+    call's (with ``batch``: one request's) conditioning; its shape and
+    dtype key the entry, its values feed the warm-up solve. Idempotent: a
+    later warmup or sample of the same key is a hit, and adds no graph.
+    A sharded warmup checks the mesh as :func:`sample_sharded` does,
+    with the reference's messages."""
     scale = 1.0 if guidance_scale is None else guidance_scale
     device = resolve_device(device)
+    ident = None
+    if mesh is not None:
+        if batch is None:
+            raise ValueError(
+                "warmup(mesh=...) warms a sample_sharded bucket; pass its "
+                "global lane count as batch=")
+        place = _placement(mesh, batch, model_fn, device, data_axis,
+                           cfg_axis)
+        batch, ident = place.hi - place.lo, place.ident
     _check_model(plan, model_fn, cond, scale)
     if cond is not None:
         cond = torch.as_tensor(cond)
@@ -969,10 +1171,10 @@ def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
     if batch is not None:
         _check_lanes(plan, model_fn, cond, batch)
     entry = _compiled(plan, model_fn, shape, dtype, device, cond,
-                      trajectory=trajectory, batch=batch)
+                      trajectory=trajectory, batch=batch, mesh=ident)
     run = entry.run_for(plan)
     if run.graph is not None or entry.x.device.type != "cuda" or \
-            _EAGER_DEPTH:
+            entry.eager_only or _EAGER_DEPTH:
         return
     run.load_plan(plan)
     if cond is not None:
@@ -984,7 +1186,8 @@ def warmup(plan: SamplerPlan, model_fn, shape, dtype=torch.float32, *,
 # ------------------------------------------------------------ bound sampler
 class Sampler:
     """A spec bound to its plan: ``make_sampler("sa", nfe=20, tau=0.4)``
-    plans once, then ``.sample`` runs solves."""
+    plans once, then ``.sample`` / ``.sample_batched`` /
+    ``.sample_sharded`` run solves."""
 
     def __init__(self, spec: SamplerSpec):
         self.spec = spec
@@ -1010,6 +1213,18 @@ class Sampler:
                               noise=noise, cond=cond,
                               guidance_scale=guidance_scale,
                               trajectory=trajectory)
+
+    def sample_sharded(self, model_fn, x_T: torch.Tensor, generators=None,
+                       *, mesh, data_axis: str = "data",
+                       cfg_axis: str | None = None,
+                       noise: torch.Tensor | None = None, cond=None,
+                       guidance_scale=1.0, trajectory: bool = False,
+                       donate: bool | None = None):
+        return sample_sharded(self.plan, model_fn, x_T, generators,
+                              mesh=mesh, data_axis=data_axis,
+                              cfg_axis=cfg_axis, noise=noise, cond=cond,
+                              guidance_scale=guidance_scale,
+                              trajectory=trajectory, donate=donate)
 
     def init_noise(self, generator: torch.Generator, shape) -> torch.Tensor:
         """x_T ~ N(0, prior_scale^2 I), float32 on ``generator``'s device."""

@@ -35,26 +35,43 @@ steps (DeepCache): ``K`` refreshes them every K-th step, ``residual:T``
 when the previous step's predictor-vs-corrector residual reaches T (one
 device-to-host read a step). RWKV6 has no cached evaluation and refuses
 it.
+
+``--cfg-shard`` (with ``--guidance-scale``) splits the guided pair over the
+size-2 ``cfg`` axis of a ``(cfg=2, data=n//2)`` mesh of the ranks that
+``torchrun`` starts (each rank evaluates one branch at its lanes' batch,
+one ``all_gather`` a step joins them; NCCL on the card, one card a rank,
+gloo on the CPU)::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 -m \
+        repro_torch.launch.sample --arch dit-s --smoke --batch 2 --seq 16 \
+        --nfe 9 --device cpu --weights tame --guidance-scale 1.5 --cfg-shard
+
+Run alone (one rank) it refuses, as the reference does on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCHS, get_config, get_smoke
 from ..core import CachedNetwork, Denoiser, convert_prediction, get_schedule
 from ..core.programs import list_presets, parse_program
 from ..core.samplers import Sampler, SamplerSpec, get_family, list_samplers
 from ..device import resolve_device
+from ..distributed import world_size
 from ..kernels import ops
 from ..models import LMConfig, build_model, init_params
 from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
                            tame_rwkv6)
+from ..serve.batching import fold_keys
+from ..serve.sharding import auto_cfg_mesh
 
 #: the spec fields each baseline family's plan reads (``ddpm_ancestral``
 #: is DDIM at a fixed eta of 1; ``dpm_solver_pp_2m`` and ``edm_heun`` have
@@ -156,6 +173,30 @@ def parse_feature_cache(text: str | None):
     return int(text)
 
 
+def cfg_shard_mesh(device: torch.device):
+    """The ``(cfg=2, data=n//2)`` mesh of ``--cfg-shard`` over the ranks
+    that torchrun started (their process group is made here, from
+    torchrun's environment: NCCL for the card, gloo for the CPU), or exit
+    when it cannot be built; with the flag whether the group was made
+    here."""
+    made = False
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            if local >= torch.cuda.device_count():
+                raise SystemExit(
+                    f"--cfg-shard needs one card per rank (local rank "
+                    f"{local}, {torch.cuda.device_count()} cards)")
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        made = True
+    mesh = auto_cfg_mesh(device=device.type)
+    if mesh is None:
+        raise SystemExit("--cfg-shard needs an even device count >= 2 "
+                         f"(have {world_size()})")
+    return mesh, made
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dit-xl-2", choices=list(ARCHS))
@@ -214,12 +255,31 @@ def main(argv=None):
     ap.add_argument("--weights", default="init", choices=["init", "tame"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cfg-shard", action="store_true",
+                    help="run classifier-free guidance with the cond/"
+                    "uncond pair sharded over a size-2 'cfg' mesh axis "
+                    "(needs --guidance-scale and >=2 ranks: torchrun "
+                    "--nproc-per-node 2k) instead of the one-call "
+                    "doubled-batch eval")
     args = ap.parse_args(argv)
 
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e))
+    mesh, made_group = None, False
+    if args.cfg_shard:
+        if args.guidance_scale is None:
+            raise SystemExit("--cfg-shard needs --guidance-scale")
+        mesh, made_group = cfg_shard_mesh(device)
+    try:
+        _run(args, device, mesh)
+    finally:
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, mesh) -> None:
     cfg, network, cached = build_denoiser(
         args.arch, smoke=args.smoke, weights=args.weights, flash=args.flash,
         wkv_kernel=args.wkv_kernel, latent=args.latent, seed=args.seed,
@@ -260,15 +320,29 @@ def main(argv=None):
     model_fn = Denoiser(
         as_prediction_network(network, schedule, args.prediction), schedule,
         prediction=args.prediction, guidance=guidance,
+        # sharded: the prompt goes per lane, [batch, seq, dz]
+        cond_rank=2 if mesh is not None else None,
         cached=(as_cached_network(cached, schedule, args.prediction)
                 if fc is not None else None))
     g = torch.Generator(device).manual_seed(args.seed + 1)
-    xT = sampler.init_noise(g, (args.batch, args.seq, cfg.denoiser_latent))
+    shape = (args.batch, args.seq, cfg.denoiser_latent)
+    xT = sampler.init_noise(g, shape)
 
     def run(seed: int):
-        out = sampler.sample(model_fn, xT,
-                             torch.Generator(device).manual_seed(seed),
-                             cond=cond, guidance_scale=g_scale)
+        if mesh is None:
+            out = sampler.sample(model_fn, xT,
+                                 torch.Generator(device).manual_seed(seed),
+                                 cond=cond, guidance_scale=g_scale)
+        else:  # one generator a lane, seeded by (seed, lane)
+            gens = [torch.Generator(device).manual_seed(k)
+                    for k in fold_keys(seed, range(args.batch))]
+            out = sampler.sample_sharded(
+                model_fn, xT, gens, mesh=mesh, data_axis="data",
+                cfg_axis="cfg",
+                cond=None if cond is None else torch.broadcast_to(
+                    cond, shape),
+                guidance_scale=torch.full((args.batch,), g_scale,
+                                          device=device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out
@@ -294,13 +368,18 @@ def main(argv=None):
     else:
         solver = (f"tau={args.tau} P{args.predictor}C{args.corrector} "
                   f"{args.mode}")
-    print(f"arch={cfg.name} latent={cfg.denoiser_latent} "
+    # under a mesh, rank 0 prints the record (every rank holds the batch)
+    say = print if mesh is None or dist.get_rank() == 0 else \
+        (lambda *a: None)
+    say(f"arch={cfg.name} latent={cfg.denoiser_latent} "
           f"sampler={args.sampler} "
           f"NFE={sampler.nfe} (network NFE={spec.network_nfe}) "
           f"(requested {args.nfe}) steps={spec.n_steps} "
           + (solver + " " if solver else "")
           + f"prediction={args.prediction} "
           f"guidance={g_scale if guidance else 'off'}"
+          + (f" cfg_shard={tuple(mesh.mesh.shape)}" if mesh is not None
+             else "")
           + (f" feature_cache={fc}" if fc is not None else "")
           + (f" combine={args.combine} history={args.history}"
              if multistep else "")
@@ -308,7 +387,7 @@ def main(argv=None):
           f"flash={dit and routed} wkv_kernel={not dit and routed} "
           f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())
-    print(f"first run {t1 - t0:.2f}s, steady {t2 - t1:.2f}s; "
+    say(f"first run {t1 - t0:.2f}s, steady {t2 - t1:.2f}s; "
           f"out mean={float(x0.float().mean()):.4f} "
           f"std={float(x0.float().std()):.4f} finite={finite} "
           f"kernel launches={ops.launch_counts()}")

@@ -1,4 +1,5 @@
-"""repro_torch.serve — continuously batched diffusion serving on one device.
+"""repro_torch.serve — continuously batched diffusion serving on one device,
+or sharded over a mesh's ranks.
 
 Turns the plan/execute sampler registry into a service: requests carrying
 any registered :class:`~repro_torch.core.samplers.SamplerSpec` are
@@ -51,8 +52,11 @@ with cooldown, a straggler watchdog, and a seeded chaos harness
 (:class:`FaultPlan`/:class:`FaultInjector`). ``ServeEngine.health()`` is
 the poll surface.
 
-Not in this slice: the reference's ``sharding`` module (mesh placement,
-``sample_sharded``, sharded CFG), ROADMAP A9's remaining item.
+Sharding (:mod:`repro_torch.serve.sharding`): ``ServeEngine(mesh=,
+data_axis=, cfg_axis=)`` places each microbatch's lanes on a mesh's data
+axis through ``sample_sharded`` (and the guided pair on a size-2 cfg
+axis); ``align_bucket_sizes`` rounds the buckets to the data axis,
+``auto_mesh`` / ``auto_cfg_mesh`` build a mesh over every rank.
 """
 
 from .batching import (MicroBatch, PAD_RID, Request, bucket_key,
@@ -61,6 +65,7 @@ from .batching import (MicroBatch, PAD_RID, Request, bucket_key,
 from .continuous import ContinuousBatcher, RunningBatch, bucket_label
 from .engine import ServeEngine, ServeResult
 from .faults import Fault, FaultInjector, FaultPlan, poison_lane
+from .sharding import align_bucket_sizes, auto_mesh, data_axis_size
 from .tiers import QualityTiers, default_tiers
 
 __all__ = [
@@ -76,9 +81,12 @@ __all__ = [
     "ServeEngine",
     "ServeResult",
     "bucket_label",
+    "align_bucket_sizes",
+    "auto_mesh",
     "bucket_key",
     "choose_bucket",
     "cond_struct",
+    "data_axis_size",
     "default_tiers",
     "fold_keys",
     "form_microbatches",

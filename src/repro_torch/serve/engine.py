@@ -2,7 +2,7 @@
 
 One :class:`ServeEngine` owns one model (``model_fn``), a FIFO request
 queue, and the serving loop, on one device (the card unless the caller
-asks for the CPU):
+asks for the CPU), or with ``mesh=`` on every rank of a mesh:
 
 - ``submit()`` enqueues a request: any registered :class:`SamplerSpec`
   (sampler family, NFE, tau, ...) plus a latent shape and, for
@@ -28,6 +28,12 @@ asks for the CPU):
 - ``scheduler="step"`` serves through the continuous batcher
   (:mod:`repro_torch.serve.continuous`) instead: one solver step of one
   running batch per call.
+- ``mesh=`` (a named ``DeviceMesh``; :mod:`repro_torch.serve.sharding`)
+  shards each microbatch's lanes over the mesh's ``data`` axis through
+  ``sample_sharded``, bucket sizes rounded up to multiples of that axis;
+  ``cfg_axis=`` also splits the guided pair over a size-2 axis. Every rank
+  runs the same engine on the same requests (the lanes' draws stay per
+  request id) and gets every result.
 
 The model is lane-batched: ``model_fn(x, t)`` takes ``x`` [L, *shape] and
 ``t`` [L] (one time per lane) and returns [L, *shape], each lane's output
@@ -46,9 +52,7 @@ guidance every guided evaluation is one network forward over a
 lanes are reported separately as ``padded_slots`` (they cost compute
 but serve nobody).
 
-Not in this slice: the mesh-sharded path (``mesh=``, ``cfg_axis=``,
-``sample_sharded``; ROADMAP A9, what is left) and tiers from an autotuner
-artifact (A10).
+Not in this slice: tiers from an autotuner artifact (A10).
 """
 
 from __future__ import annotations
@@ -62,12 +66,13 @@ import torch
 
 from ..core.denoiser import Denoiser
 from ..core.samplers import (SamplerSpec, build_plan, compile_cache_stats,
-                             sample_batched, warmup)
+                             sample_batched, sample_sharded, warmup)
 from ..device import resolve_device
 from ..runtime import StragglerMonitor
 from .batching import (MicroBatch, Request, bucket_key, form_microbatches,
                        request_draws)
 from .continuous import ContinuousBatcher, bucket_label
+from .sharding import align_bucket_sizes, data_axis_size
 from .tiers import QualityTiers, default_tiers
 
 __all__ = ["ServeEngine", "ServeResult"]
@@ -106,7 +111,8 @@ class ServeResult:
 
 
 class ServeEngine:
-    """Continuously microbatched diffusion sampling service on one device.
+    """Continuously microbatched diffusion sampling service on one device
+    (or, with ``mesh``, on every rank of a mesh).
 
     Args:
         model_fn: lane-batched model: a plain ``(x [L, *shape], t [L]) ->
@@ -117,8 +123,13 @@ class ServeEngine:
             lifetime.
         bucket_sizes: allowed microbatch lane counts; tails take the
             smallest that fits.
-        mesh, cfg_axis: the mesh-sharded path; not in this slice of the
-            port (raise when given).
+        mesh: a named ``DeviceMesh`` (``repro_torch.launch.mesh``): each
+            microbatch's lanes are sharded over its ``data_axis`` through
+            ``sample_sharded`` (bucket sizes rounded up to multiples of
+            that axis's size); every rank of the mesh runs this engine on
+            the same requests and gets every result. Solve scheduler only.
+        cfg_axis: a size-2 mesh axis carrying the guided pair (sharded
+            classifier-free guidance); needs ``mesh``.
         stream: solve with the trajectory and attach per-step x0
             previews to every result.
         on_result: optional callback invoked with each ServeResult as its
@@ -171,7 +182,8 @@ class ServeEngine:
 
     def __init__(self, model_fn: Callable, *,
                  bucket_sizes: Sequence[int] = (1, 2, 4, 8),
-                 mesh=None, cfg_axis: str | None = None,
+                 mesh=None, data_axis: str = "data",
+                 cfg_axis: str | None = None,
                  stream: bool = False,
                  on_result: Callable[[ServeResult], None] | None = None,
                  noise_seed: int = 7, solve_seed: int = 8,
@@ -196,14 +208,28 @@ class ServeEngine:
                 f"scheduler={scheduler!r}; expected 'solve' "
                 "(whole-solve microbatches) or 'step' (continuous "
                 "batching at solver-step granularity)")
-        if mesh is not None or cfg_axis is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving (mesh=, cfg_axis=, sample_sharded) is "
-                "the next slice of the port (ROADMAP A9, what is left); on "
-                "one device the engine runs the guided pair as one call "
-                "over the doubled batch")
+        if scheduler == "step" and mesh is not None:
+            raise ValueError(
+                "the step scheduler is single-device (one lane-batched "
+                "carry per running batch); use scheduler='solve' with a "
+                "mesh")
+        if cfg_axis is not None and mesh is None:
+            raise ValueError(
+                "cfg_axis needs a mesh (sharded CFG splits the cond/"
+                "uncond pair across a size-2 mesh axis); without one the "
+                "engine already runs the fused doubled-lane eval")
         self.model_fn = model_fn
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.cfg_axis = cfg_axis
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {mesh.device_type!r} mesh cannot serve on "
+                    f"{self.device}; build the mesh on the engine's device")
+            bucket_sizes = align_bucket_sizes(
+                bucket_sizes, data_axis_size(mesh, data_axis))
         self.bucket_sizes = tuple(sorted(set(int(b) for b in bucket_sizes)))
         self.stream = stream
         self.on_result = on_result
@@ -450,7 +476,8 @@ class ServeEngine:
         plan = build_plan(mb.spec)
         warmup(plan, self.model_fn, mb.shape, getattr(torch, mb.dtype),
                batch=mb.size, cond=mb.requests[0].cond,
-               trajectory=self.stream, device=self.device)
+               trajectory=self.stream, device=self.device, mesh=self.mesh,
+               data_axis=self.data_axis, cfg_axis=self.cfg_axis)
         self._warmed.add(ident)
         self._stats["warmups"] += 1
 
@@ -531,10 +558,17 @@ class ServeEngine:
         if self._inject is not None:
             x_T = self._inject.on_solve(self._stats["microbatches"],
                                         mb, x_T)
-        out = sample_batched(
-            plan, self.model_fn, x_T, noise=noise,
-            cond=mb.stacked_cond(self.device),
-            guidance_scale=mb.scales(), trajectory=self.stream)
+        if self.mesh is not None:
+            out = sample_sharded(
+                plan, self.model_fn, x_T, noise=noise, mesh=self.mesh,
+                data_axis=self.data_axis, cfg_axis=self.cfg_axis,
+                cond=mb.stacked_cond(self.device),
+                guidance_scale=mb.scales(), trajectory=self.stream)
+        else:
+            out = sample_batched(
+                plan, self.model_fn, x_T, noise=noise,
+                cond=mb.stacked_cond(self.device),
+                guidance_scale=mb.scales(), trajectory=self.stream)
         if self.stream:
             x0, traj = out
             previews = traj["x0"]

@@ -23,8 +23,8 @@ The port's own contracts hold bitwise on the CPU within one batch shape
 elementwise ``fused`` combine; across bucket sizes the reference itself
 allows 2e-5. The reference's mesh tests (``test_serve.py:112`` and
 ``:231-312``: ``align_bucket_sizes``, the one-device and 8-device meshes,
-``sample_sharded``) have no counterpart here: the sharded path is a later
-slice of the port (ROADMAP A9).
+``sample_sharded``) are mirrored in ``tests/test_torch_sharding.py``; this
+file holds only the engine's mesh refusals.
 """
 
 import numpy as np
@@ -565,9 +565,10 @@ def test_step_scheduler_occupancy_stats_both_schedulers():
 
 
 def test_engine_rejects_mesh_unknown_scheduler_and_no_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        engine(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # the reference's mesh refusals (src/repro/serve/engine.py:193-202)
+    with pytest.raises(ValueError, match="step scheduler is single-device"):
+        engine(mesh=object(), scheduler="step")
+    with pytest.raises(ValueError, match="cfg_axis needs a mesh"):
         engine(cfg_axis="cfg")
     with pytest.raises(ValueError, match="scheduler"):
         engine(scheduler="nope")

@@ -81,6 +81,7 @@ SOURCES = {
 #: the kernels each main path must launch
 PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "serve": ("sa_fused", "flash_attention"),
+                "tune": ("sa_fused", "flash_attention"),
                 "programs": ("sa_update", "sa_fused", "flash_attention"),
                 "guided": ("sa_fused", "flash_attention"),
                 "feature_cache": ("sa_fused", "flash_attention"),
@@ -424,19 +425,24 @@ def combine_times(timings: dict) -> dict:
     return {"launch_floor_ms": floor_ms,
             "launch_floor_call": "zero_() of a one-element CUDA tensor",
             "copy_yardsticks": copies, "combine_sweep": sweep,
-            "lane_entries": lane_times(floor_ms)}
+            "lane_entries": lane_times(floor_ms),
+            "lane_entries_tune": lane_times(floor_ms, TUNE_LANES,
+                                            TUNE_GMM_SHAPE)}
 
 
-def lane_times(floor_ms: float) -> dict:
-    """The lane-batched entries at the serve path's tick: SERVE_LANES
-    lanes of one (256, 16) request each (4,096 f32 elements), P = 3: ms
-    beside the plain loop, the library yardstick (one ``torch.bmm`` of the
+def lane_times(floor_ms: float, L: int = SERVE_LANES,
+               shape=REQ_SHAPE) -> dict:
+    """The lane-batched entries at ``L`` lanes of ``shape`` each, P = 3:
+    by default the serve path's tick (SERVE_LANES lanes of one (256, 16)
+    request, 4,096 f32 elements each), and the GMM autotuner's chunk
+    (TUNE_LANES lanes of one (512, 2) point set, 1,024 each). ms beside
+    the plain loop, the library yardstick (one ``torch.bmm`` of the
     per-lane coefficients over each lane's operands stacked as
     [L, P+2, n]), the byte bound and the launch floor."""
     import torch
     from repro_torch.kernels import ops
-    L, n, P = SERVE_LANES, math.prod(REQ_SHAPE), 3
-    x, buf, xi, c = _lane_inputs(L, REQ_SHAPE, P, torch.float32, seed=13)
+    n, P = math.prod(shape), 3
+    x, buf, xi, c = _lane_inputs(L, shape, P, torch.float32, seed=13)
     stacked = torch.cat([x.reshape(L, 1, n), xi.reshape(L, 1, n),
                          buf.reshape(L, P, n)], dim=1)
     c0 = c[:, 0].contiguous()
@@ -2012,6 +2018,299 @@ def phase_serve_path(state: dict) -> dict:
     return result
 
 
+#: the tune phase's GMM search: the reference's default search (NFE 8,
+#: 4,000 NFE-equivalents, chunk 16 x 4 seeds = 64 lanes of one (512, 2)
+#: point set) with the feature-cache unit, through the fused combine
+TUNE_GMM = {"nfe": 8, "budget": 4000, "seed": 0,
+            "fc_thresholds": (0.01, 0.05, 0.2),
+            "spec_kw": {"combine": "fused"}}
+#: a second search whose budget reaches every unit (the default one ends
+#: inside its first, as the reference's does): two mode patterns and the
+#: feature-cache unit, 3 groups
+TUNE_GMM_UNITS = {"nfe": 8, "budget": 6000, "seed": 0,
+                  "presets": ("tau-anneal", "predictor-tail"),
+                  "tau_values": (0.0, 0.5, 1.0), "cd_passes": 1,
+                  "evo_generations": 1, "fc_thresholds": (0.01, 0.05, 0.2),
+                  "spec_kw": {"combine": "fused"}}
+TUNE_LANES = 64
+TUNE_GMM_SHAPE = (512, 2)
+#: the DiT-XL/2 objective: 4 candidates x 2 seeds = the main path's 8
+#: lanes, NFE 8, about 20 candidates (16 NFE-equivalents each)
+TUNE_DIT = {"nfe": 8, "budget": 320, "seed": 0, "presets": ("nfe8-gmm",),
+            "n_seeds": 2, "chunk": 4,
+            "spec_kw": {"combine": "fused", "prediction": "x0"}}
+#: the DiT score's target: each seed's SA NFE-20 P3C3 PEC tau-1 solve
+TUNE_TARGET_NFE = 20
+TUNE_PROJ = 64
+
+
+def _search_groups(history, ev) -> int:
+    """Distinct (statics, step count) groups of a search history, under
+    the evaluator ``ev``'s spec mapping."""
+    from repro_torch.core.programs import StepProgram
+    from repro_torch.core.samplers import get_family
+    keys = set()
+    for h in history:
+        spec = (ev.spec_for_fc(h["fc"]["tau"], h["fc"]["thresh"]) if "fc" in h
+                else ev.spec_for(StepProgram.from_json(h["program"])))
+        keys.add((get_family(spec.name).statics(spec), spec.n_steps))
+    return len(keys)
+
+
+def _merge_held(*records) -> dict:
+    out: dict = {}
+    for rec in records:
+        for name, r in rec.items():
+            o = out.setdefault(name, {"calls": 0, "max_abs_err": 0.0,
+                                      "ok": True, "lane_calls": 0})
+            o["calls"] += r["calls"]
+            o["lane_calls"] += r.get("lane_calls", 0)
+            o["max_abs_err"] = max(o["max_abs_err"], r["max_abs_err"])
+            o["ok"] = o["ok"] and r["ok"]
+    return out
+
+
+def _tune_cli(argv) -> list:
+    """``launch.tune.main(argv)`` in this process; its printed lines."""
+    import io
+    from repro_torch.launch import tune as launch_tune
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_tune.main(argv)
+    return out.getvalue().strip().splitlines()
+
+
+def phase_tune_path(state: dict) -> dict:
+    """The port's program autotuner on the card (``tune/``,
+    ``launch.tune``, ``QualityTiers.from_artifact``): every chunk of
+    candidates is one candidate-stacked solve (each lane under its own
+    candidate's tables) through the lane entries of the combine kernels,
+    one compile-cache entry and one CUDA graph per (statics, step count)
+    group.
+
+    - GMM: the reference's default search (``TUNE_GMM``, fused, 64 lanes
+      of (512, 2); its budget ends inside the first unit), then one that
+      reaches both program units and the feature-cache unit
+      (``TUNE_GMM_UNITS``): candidates, dispatches, compiles, graphs (one
+      per group, gated), NFE-equivalents, candidates/s, the winners. Three
+      candidates scored in one chunk against each alone at the same chunk
+      width (bitwise, gated); a chunk held against the plain combines
+      (``held_against_plain``). Then ``launch.tune`` at its defaults
+      (einsum) with ``--max-units 1`` and ``--resume``, whose history must
+      equal an uninterrupted run's.
+    - DiT-XL/2 (the main path's tame model, 28 layers, d_model 1152, f32,
+      flash): a ``CallableObjective`` over (256, 16) latents, 2 seeds,
+      chunk 4 (8 lanes), NFE 8, fused, the ``nfe8-gmm`` preset and a
+      budget of 20 candidates, scored by the mean over seeds of the
+      sliced W2 (64 fixed directions) to each seed's SA NFE-20 solve from
+      the same x_T. The capture, seconds per replayed dispatch and
+      launches per dispatch (against ``expected_launches``), the same
+      chunk-vs-alone check (gated at GAP_LIMIT relative where not
+      bitwise), a chunk held against the plain versions, and the
+      artifact's winner served through ``QualityTiers.from_artifact`` as
+      ``quality_tier="best"`` against the same spec given explicitly
+      (bitwise, gated).
+    """
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import Denoiser
+    from repro_torch.core.metrics import sliced_w2_stat
+    from repro_torch.core.programs import program_preset_for_nfe
+    from repro_torch.core.samplers import (Sampler, SamplerSpec, build_plan,
+                                           compile_cache_stats,
+                                           sample_batched)
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    from repro_torch.serve import QualityTiers, ServeEngine
+    from repro_torch.tune import (CallableObjective, GMMObjective,
+                                  ProgramEvaluator, SearchConfig, load_state,
+                                  run_search)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    res: dict = {"phase": "tune_path"}
+    ops.reset_launch_counts()  # the tune main-path window starts here
+
+    # ---- GMM: the reference's default search, fused; then one whose
+    # budget reaches every unit
+    gmm_obj = GMMObjective(device="cuda")
+    for key, kw in (("gmm", TUNE_GMM), ("gmm_units", TUNE_GMM_UNITS)):
+        cfg = SearchConfig(**kw)
+        c0 = compile_cache_stats()
+        t = time.perf_counter()
+        found = run_search(cfg, artifact=os.path.join(workdir, key + ".json"),
+                           device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        graphs = compile_cache_stats()["graphs"] - c0["graphs"]
+        groups = _search_groups(found.state["history"], ProgramEvaluator(
+            gmm_obj, nfe=cfg.nfe, width=cfg.max_order, spec_kw=cfg.spec_kw))
+        st = found.stats
+        res[key] = {
+            "config": cfg.to_obj(), "lanes": cfg.chunk * cfg.n_seeds,
+            "lane_shape": list(TUNE_GMM_SHAPE), **st, "graphs": graphs,
+            "groups": groups, "nfe_equivalents": found.state["budget_spent"],
+            "seconds": secs, "candidates_per_s": st["candidates"] / secs,
+            "units_done": found.state["unit"], "exhausted": found.exhausted,
+            "best_score": found.best_score,
+            "best_program": json.loads(found.best_program.to_json()),
+            "best_fc": found.best_fc}
+        require(st["compiles"] == groups and graphs == groups,
+                f"tune {key}: {st['compiles']} compiles, {graphs} graphs for "
+                f"{groups} (statics, n_steps) groups")
+    require(res["gmm_units"]["best_fc"] is not None
+            and res["gmm_units"]["groups"] == 3,
+            f"tune: the units search {res['gmm_units']}")
+    cfg = SearchConfig(**TUNE_GMM)
+    ev = ProgramEvaluator(gmm_obj, nfe=8, chunk=cfg.chunk,
+                          spec_kw=cfg.spec_kw)
+    progs = [program_preset_for_nfe("tau-anneal", 8, tau=v)
+             for v in (1.0, 0.6, 0.2)]
+    batched = ev.evaluate(progs)
+    solo = np.array([ev.evaluate([p])[0] for p in progs])
+    res["gmm"]["chunk_vs_alone"] = {
+        "batched": batched.tolist(), "alone": solo.tolist(),
+        "bitwise": bool(np.array_equal(batched, solo))}
+    require(np.array_equal(batched, solo) and len(set(batched)) == 3,
+            f"tune: chunk scores {batched} vs alone {solo}")
+    held_gmm: dict = {}
+    with held_against_plain(held_gmm):
+        ev.evaluate([program_preset_for_nfe(n, 8) for n in
+                     ("tau-anneal", "predictor-tail")])
+    res["gmm"]["held_against_plain"] = held_gmm
+
+    # ---- launch.tune at its defaults (einsum), interrupted and resumed
+    art = os.path.join(workdir, "cli.json")
+    t = time.perf_counter()
+    part = _tune_cli(["--artifact", art, "--max-units", "1"])
+    resumed_lines = _tune_cli(["--artifact", art, "--resume"])
+    full_lines = _tune_cli(["--artifact", os.path.join(workdir, "full.json")])
+    cli_s = time.perf_counter() - t
+    resumed = load_state(art)
+    full = load_state(os.path.join(workdir, "full.json"))
+    res["cli"] = {"seconds_three_runs": cli_s,
+                  "evaluations": len(full["history"]),
+                  "history_equal": resumed["history"] == full["history"],
+                  "budget_spent": [resumed["budget_spent"],
+                                   full["budget_spent"]],
+                  "first_run_last_line": part[-1],
+                  "resumed_lines": resumed_lines[-4:],
+                  "full_lines": full_lines[-4:]}
+    require(res["cli"]["history_equal"]
+            and resumed["best"] == full["best"],
+            "tune: the resumed CLI run's history differs from the "
+            "uninterrupted run's")
+
+    # ---- DiT-XL/2 at full width
+    model, params, mu, schedule = _tame_dit_xl2(state)
+    L = model.cfg.n_layers
+    den = Denoiser(tame_networks(model, params, mu)[0], schedule,
+                   prediction="x0")
+    dirs = torch.randn((TUNE_PROJ, REQ_SHAPE[1]),
+                       generator=torch.Generator().manual_seed(21)).cuda()
+    target = {}
+
+    def score(x0):
+        return torch.mean(torch.stack([
+            sliced_w2_stat(x0[s], target["x0"][s], dirs)
+            for s in range(x0.shape[0])]))
+
+    dcfg = SearchConfig(**TUNE_DIT)
+    obj = CallableObjective(model=den, score=score, shape=REQ_SHAPE,
+                            n_seeds=dcfg.n_seeds, seed=dcfg.seed,
+                            device="cuda")
+    tspec = SamplerSpec.from_nfe("sa", TUNE_TARGET_NFE, tau=1.0,
+                                 combine="fused", prediction="x0")
+    tnoise = torch.randn((dcfg.n_seeds, tspec.n_steps) + REQ_SHAPE,
+                         generator=torch.Generator().manual_seed(22)).cuda()
+    target["x0"] = sample_batched(build_plan(tspec), den, obj.init(tspec),
+                                  noise=tnoise)
+    ev = ProgramEvaluator(obj, nfe=dcfg.nfe, width=dcfg.max_order,
+                          chunk=dcfg.chunk, spec_kw=dcfg.spec_kw)
+    warm = program_preset_for_nfe("nfe8-gmm", dcfg.nfe)
+    c0 = compile_cache_stats()
+    t = time.perf_counter()
+    ev.evaluate([warm])  # the entry, its eager warm-up and capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    t = time.perf_counter()
+    found = run_search(dcfg, objective=obj,
+                       artifact=os.path.join(workdir, "dit.json"))
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t
+    graphs = compile_cache_stats()["graphs"] - c0["graphs"]
+    groups = _search_groups(found.state["history"], ev)
+    spec = ev.spec_for(warm)
+    want = expected_launches(Sampler(spec), L)
+    chunk = [warm.replace(tau=(v,) * warm.length()) for v in
+             (1.0, 0.8, 0.5, 0.2)]
+    per_dispatch, times = [], []
+    for _ in range(3):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        ev.evaluate(chunk)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        after = ops.launch_counts()
+        per_dispatch.append({k: after[k] - before[k] for k in after})
+    batched = ev.evaluate(chunk[:3])
+    solo = np.array([ev.evaluate([p])[0] for p in chunk[:3]])
+    gap = float(np.max(np.abs(batched - solo) / np.abs(solo)))
+    held_dit: dict = {}
+    with held_against_plain(held_dit):
+        ev.evaluate(chunk)
+    # the winner served from the artifact, against its explicit spec
+    tiers = QualityTiers.from_artifact(os.path.join(workdir, "dit.json"))
+    best = tiers.resolve("best")
+    e_tier = ServeEngine(den, tiers=tiers, bucket_sizes=(1,))
+    e_tier.submit(None, REQ_SHAPE, rid=0, quality_tier="best")
+    (r_tier,) = e_tier.run()
+    e_spec = ServeEngine(den, bucket_sizes=(1,))
+    e_spec.submit(best, REQ_SHAPE, rid=0)
+    (r_spec,) = e_spec.run()
+    state["launches"]["tune"] = ops.launch_counts()  # window ends
+    held = _merge_held(held_gmm, held_dit)
+    state["held"]["tune"] = held
+    st = found.stats
+    res["dit"] = {
+        "arch": model.cfg.name, "layers": L, "d_model": model.cfg.d_model,
+        "weights": "tame", "config": dcfg.to_obj(),
+        "lanes": dcfg.chunk * dcfg.n_seeds, "latent": list(REQ_SHAPE),
+        "score": f"mean over seeds of sliced W2^2 ({TUNE_PROJ} fixed "
+                 f"directions) to the seed's SA NFE-{TUNE_TARGET_NFE} "
+                 "P3C3 PEC tau-1 solve from the same x_T",
+        **st, "graphs": graphs, "groups": groups,
+        "capture_dispatch_s": capture_s, "search_s": search_s,
+        "replayed_dispatch_s": times,
+        "launches_per_dispatch": per_dispatch, "expected_launches": want,
+        "chunk_vs_alone": {"batched": batched.tolist(),
+                           "alone": solo.tolist(),
+                           "bitwise": bool(np.array_equal(batched, solo)),
+                           "max_rel_gap": gap, "gap_limit": GAP_LIMIT},
+        "best_score": found.best_score,
+        "best_program": json.loads(found.best_program.to_json()),
+        "tier_best_bitwise": bool(torch.equal(r_tier.x0, r_spec.x0)),
+        "tier_best_nfe": best.nfe, "held_against_plain": held_dit}
+    held_bad = {k: r for k, r in held.items() if not r["ok"]}
+    res.update(held_against_plain=held, compile_cache=compile_cache_stats(),
+               ok=not held_bad)
+    emit(res)
+    require(graphs == groups == 1 and st["compiles"] == 1,
+            f"tune dit: {graphs} graphs, {st['compiles']} compiles, {groups} "
+            "groups")
+    require(all(d == want for d in per_dispatch),
+            f"tune dit: launches per dispatch {per_dispatch}, want {want}")
+    require(gap <= GAP_LIMIT, f"tune dit: chunk vs alone gap {gap}")
+    require(res["dit"]["tier_best_bitwise"],
+            "tune dit: quality_tier='best' differs from its explicit spec")
+    require(not held_bad, f"tune: kernel calls out of tolerance: {held_bad}")
+    require(set(held) >= set(PATH_KERNELS["tune"])
+            and held["sa_fused"]["lane_calls"] > 0
+            and held.get("sa_update", {}).get("lane_calls", 0) > 0,
+            f"tune: lane-kernel calls held {held}")
+    return res
+
+
 #: the paper's six baseline samplers (``core/samplers/baselines.py``)
 BASELINES = ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "euler_maruyama",
              "edm_heun", "edm_stochastic")
@@ -3210,6 +3509,7 @@ def main() -> int:
     phase_guided_path(state)
     phase_graph_path(state)
     phase_serve_path(state)
+    phase_tune_path(state)
     phase_baselines_path(state)
     phase_feature_cache_path(state)
     phase_sharded_path(state)

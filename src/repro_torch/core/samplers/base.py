@@ -54,6 +54,16 @@ rank returns the global batch. ``cfg_axis`` names a size-2 axis that
 carries the guided pair (sharded classifier-free guidance, one branch a
 rank; see :mod:`repro_torch.core.denoiser`). The mesh's identity joins the
 cache key.
+
+The autotuner's entry point: :func:`stacked_solve` solves L lanes, each
+under its OWN plan (a chunk of candidate programs, each repeated over its
+evaluation seeds), as one solve through one lane-batched entry: the
+counterpart of the reference's ``vmap`` over stacked ``plan.arrays``. The
+plans must share their statics, step count, grid and table shapes (orders
+and taus are table data); their tables are stacked on a lane axis
+(:func:`stack_plans`) that the executors read per lane, and the combines
+go through the lane entries of the combine kernels. The lane count and
+the stacked flag join the cache key.
 """
 
 from __future__ import annotations
@@ -338,10 +348,12 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
                 "model_fn(x, t) has no cond input")
     check_feature_cache_family(spec)
     if spec.feature_cache is not None and not (
-            isinstance(model_fn, Denoiser) and model_fn.cached is not None):
+            isinstance(model_fn, Denoiser) and model_fn.cached is not None
+            or _has_cached_eval(model_fn)):
         raise ValueError(
             "spec.feature_cache requires a Denoiser built with cached= (a "
-            "CachedNetwork exposing the split-segment evaluation)")
+            "CachedNetwork exposing the split-segment evaluation), or a "
+            "model exposing cached_call and init_feats")
     guided = isinstance(model_fn, Denoiser) and model_fn.guidance
     if not guided and not isinstance(guidance_scale, torch.Tensor) and \
             bool((np.asarray(guidance_scale, dtype=np.float64) != 1.0).any()):
@@ -351,6 +363,15 @@ def _check_model(plan: SamplerPlan, model_fn, cond, guidance_scale) -> None:
             "guidance_scale has no effect without a guidance-enabled "
             "Denoiser; wrap the network in Denoiser(..., guidance=True) "
             "and set spec.guidance")
+
+
+def _has_cached_eval(model_fn) -> bool:
+    """A plain model that carries the executor's cached-eval contract
+    itself (``cached_call(x, t, feats, refresh) -> (pred, feats)`` and
+    ``init_feats(x)``), as the autotuner's objectives build it."""
+    return (not isinstance(model_fn, Denoiser)
+            and hasattr(model_fn, "cached_call")
+            and hasattr(model_fn, "init_feats"))
 
 
 def _adapter_statics(plan: SamplerPlan, model_fn) -> tuple | None:
@@ -758,11 +779,15 @@ class _ModelCache:
                 self.stats["evictions"] += 1
         return entry
 
+    #: reached through the instance: a model that dies while the
+    #: interpreter tears the module's globals down still finds it
+    _matches = staticmethod(_token_matches)
+
     def _on_model_death(self, ref) -> None:
         """Weakref callback: the model behind ``ref`` was garbage-collected;
         evict its entries, graphs and buffers with them."""
         for key in [k for k in self.entries
-                    if _token_matches(k[self.token_idx], ref)]:
+                    if self._matches(k[self.token_idx], ref)]:
             if self.entries.pop(key, None) is not None:
                 self.stats["evictions"] += 1
 
@@ -810,13 +835,15 @@ def _mesh_ident(mesh, data_axis: str, cfg_axis: str | None) -> _MeshIdent:
 def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
               cond=None, *, trajectory: bool = False,
               batch: int | None = None,
-              mesh: _MeshIdent | None = None) -> _CacheEntry:
+              mesh: _MeshIdent | None = None,
+              stacked: bool = False) -> _CacheEntry:
     """LRU-cached executor entry.
 
     Keyed on (family name, executor statics, per-request latent shape,
     dtype, model token, model-adapter statics, cond shape and dtype,
     device, trajectory, lane count (None: unbatched; a sharded entry's
-    lanes are one rank's share), mesh identity (None: unsharded)), as the
+    lanes are one rank's share), mesh identity (None: unsharded), whether
+    the lanes carry their own tables (:func:`stacked_solve`)), as the
     reference keys its jitted executors. A cfg-sharded entry
     (``mesh.cfg_axis``) runs eager on every device and is counted in
     ``eager_entries``. The model token is a weak identity of
@@ -834,7 +861,7 @@ def _compiled(plan: SamplerPlan, model_fn, shape, dtype, device,
         device = torch.device("cuda", torch.cuda.current_device())
     key = (plan.spec.name, plan.statics, tuple(shape), str(dtype),
            _CACHE.lookup_token(model_fn), adapter, cond_struct(cond), device,
-           bool(trajectory), batch, mesh)
+           bool(trajectory), batch, mesh, bool(stacked))
     entry = _CACHE.get(key)
     if entry is not None:
         return entry
@@ -1003,6 +1030,90 @@ def _lane_solve(plan: SamplerPlan, model_fn, x_T, generators, noise, cond,
         return out
     x0, traj = out
     return x0, {k: v.transpose(0, 1).contiguous() for k, v in traj.items()}
+
+
+def stack_plans(plans, lane_group: int = 1) -> SamplerPlan:
+    """One plan for a solve whose lane l runs under ``plans[l]``: every
+    table gains a lane axis after its step axis (a 0-d table becomes
+    [L]), so step i's rows of every lane are one contiguous [L, ...]
+    block; host values (the flags the executor's loop branches on) stay
+    as they are, with ``stacked`` set and ``lane_group``: the lanes come
+    in groups of that many under one plan object (a candidate repeated
+    over its seeds), which the einsum combine contracts as that plan's
+    solo solve does. Refuses plans whose family,
+    statics, step count, grid, table shapes or host flags differ: one
+    loop and one graph serve every lane."""
+    first = plans[0]
+    sig = _signature(first)
+    for p in plans[1:]:
+        if (p.spec.name, p.statics) != (first.spec.name, first.statics):
+            raise ValueError(
+                f"stacked plans must share family and statics: "
+                f"{first.spec.name} {first.statics} vs {p.spec.name} "
+                f"{p.statics}")
+        if p.spec.n_steps != first.spec.n_steps:
+            raise ValueError(
+                f"stacked plans must share the step count: "
+                f"{first.spec.n_steps} vs {p.spec.n_steps}")
+        if not np.array_equal(p.ts, first.ts):
+            raise ValueError("stacked plans must share the solve grid ts")
+        if _signature(p) != sig:
+            raise ValueError(
+                "stacked plans must share table shapes and host flags: "
+                f"{sig} vs {_signature(p)}")
+    arrays = {k: torch.stack([p.arrays[k] for p in plans],
+                             dim=min(1, v.dim()))
+              if isinstance(v, torch.Tensor) else v
+              for k, v in first.arrays.items()}
+    G = int(lane_group)
+    if G < 1 or len(plans) % G or any(
+            p is not plans[l - l % G] for l, p in enumerate(plans)):
+        raise ValueError(
+            f"lane_group={lane_group}: the {len(plans)} lanes must come in "
+            "groups of that many lanes under one plan object")
+    arrays["stacked"] = True
+    arrays["lane_group"] = G
+    return SamplerPlan(spec=first.spec, arrays=arrays, host=first.host,
+                       statics=first.statics)
+
+
+@torch.no_grad()
+def stacked_solve(plans, model_fn, x_T: torch.Tensor, noise: torch.Tensor,
+                  lane_group: int = 1) -> torch.Tensor:
+    """Solve lane l of ``x_T`` [L, *shape] under ``plans[l]``, with its
+    step noise ``noise[l]`` (float32 [L, M, *shape]), as ONE solve: the
+    autotuner's chunk of candidates (each candidate's plan repeated over
+    its evaluation seeds), the counterpart of the reference's ``vmap``
+    over stacked ``plan.arrays``. The plans are stacked by
+    :func:`stack_plans` (which refuses plans that differ in more than
+    table values); the executor reads each lane's row of every table, and
+    the combines go through the lane entries of the combine kernels
+    (``ops.sa_update_lanes``, ``ops.sa_fused_update_lanes``);
+    ``lane_group`` (the evaluation seeds of one candidate) lets the
+    einsum combine round each group as ``sample_batched`` of its plan
+    alone does, and keys the graph like the lane count. Under the
+    residual feature cache each lane has its own threshold (table data)
+    and its own refresh flag.
+
+    The solve runs through the compile cache's lane-batched entry keyed
+    with the lane count and the stacked flag: on a CUDA device its first
+    call captures a CUDA graph (a failed capture raises), later calls of
+    any plans of the same signature replay it. The model is bound as on
+    every other lane-batched path (``t`` [L]). Returns ``x0`` [L, *shape],
+    a new tensor."""
+    L = int(x_T.shape[0])
+    if len(plans) != L:
+        raise ValueError(f"{len(plans)} plans for {L} lanes")
+    plan = stack_plans(plans, lane_group)
+    _check_model(plan, model_fn, None, 1.0)
+    entry = _compiled(plan, model_fn, x_T.shape[1:], x_T.dtype, x_T.device,
+                      batch=L, stacked=True)
+    run = entry.run_for(plan)
+    run.load_plan(plan)
+    entry.x.copy_(x_T)
+    _load_lane_noise(run, noise, None)
+    _load_scale(entry, 1.0)
+    return _solve(entry, run)
 
 
 class _Placement(NamedTuple):

@@ -143,15 +143,25 @@ def plan_ddim(spec: SamplerSpec):
     return c, {"ts": ts}
 
 
+def _reader(dev, x_T):
+    """``at(k, i)``: table ``k`` at step ``i``, broadcast over the latent.
+    A plan's tables give 0-d scalars (as they are); the candidate-stacked
+    solve's per-lane tables (:func:`repro_torch.core.samplers.base.
+    stacked_solve`: a lane axis after the step axis) give [L], viewed
+    [L, 1, ...] against the lanes' [L, *shape] states."""
+    return lambda k, i: lane_view(dev[k][i], x_T)
+
+
 def execute_ddim(statics, dev, model_fn, x_T, noise, traj=None):
     cdt = carry_dtype(statics[0])
+    at = _reader(dev, x_T)
     x = x_T.to(cdt)
     for i in range(dev["sig_hat"].shape[0]):
-        a_i, s_i = dev["alphas"][i], dev["sigmas"][i]
+        a_i, s_i = at("alphas", i), at("sigmas", i)
         x0 = model_fn(x, dev["ts"][i]).to(F32)
         eps = (x.to(F32) - a_i * x0) / s_i
-        x = (dev["alphas"][i + 1] * x0 + dev["dir_scale"][i] * eps
-             + dev["sig_hat"][i] * noise[i]).to(cdt)
+        x = (at("alphas", i + 1) * x0 + at("dir_scale", i) * eps
+             + at("sig_hat", i) * noise[i]).to(cdt)
         _record(traj, i, x, x0.to(cdt))
     return x
 
@@ -179,17 +189,18 @@ def plan_dpmpp2m(spec: SamplerSpec):
 def execute_dpmpp2m(statics, dev, model_fn, x_T, noise, traj=None):
     del noise  # deterministic
     cdt = carry_dtype(statics[0])
+    at = _reader(dev, x_T)
     x = x_T.to(cdt)
     x0_prev = None  # the one previous evaluation: a history of one
     for i in range(dev["h"].shape[0]):
         x0 = model_fn(x, dev["ts"][i]).to(F32)
-        a_n, s_n, s_i = (dev["alphas"][i + 1], dev["sigmas"][i + 1],
-                         dev["sigmas"][i])
-        phi = 1.0 - torch.exp(-dev["h"][i])
+        a_n, s_n, s_i = (at("alphas", i + 1), at("sigmas", i + 1),
+                         at("sigmas", i))
+        phi = 1.0 - torch.exp(-at("h", i))
         if i == 0:
             upd = a_n * phi * x0
         else:
-            r = dev["h_prev"][i] / dev["h"][i]
+            r = at("h_prev", i) / at("h", i)
             upd = a_n * phi * (x0 + (x0 - x0_prev.to(F32)) / (2.0 * r))
         x = ((s_n / s_i) * x.to(F32) + upd).to(cdt)
         x0_prev = x0.to(cdt)
@@ -226,13 +237,14 @@ def plan_euler_maruyama(spec: SamplerSpec):
 
 def execute_euler_maruyama(statics, dev, model_fn, x_T, noise, traj=None):
     cdt = carry_dtype(statics[0])
+    at = _reader(dev, x_T)
     x = x_T.to(cdt)
     for i in range(dev["drift_x"].shape[0]):
         x0 = model_fn(x, dev["ts"][i]).to(F32)
         xf = x.to(F32)
-        x = (xf + dev["drift_x"][i] * xf
-             - dev["drift_gain"][i] * (xf - dev["alphas"][i] * x0)
-             + dev["noise_amp"][i] * noise[i]).to(cdt)
+        x = (xf + at("drift_x", i) * xf
+             - at("drift_gain", i) * (xf - at("alphas", i) * x0)
+             + at("noise_amp", i) * noise[i]).to(cdt)
         _record(traj, i, x, x0.to(cdt))
     return x
 
@@ -258,32 +270,33 @@ def plan_edm_heun(spec: SamplerSpec):
     return c, {"ts": ts}
 
 
-def _to_scaled(dev, x_T, cdt):
-    return (x_T.to(F32) / dev["alph"][0]).to(cdt)
+def _to_scaled(at, x_T, cdt):
+    return (x_T.to(F32) / at("alph", 0)).to(cdt)
 
 
 def execute_edm_heun(statics, dev, model_fn, x_T, noise, traj=None):
     del noise  # deterministic
     cdt = carry_dtype(statics[0])
-    sig, alph, ts = dev["sig"], dev["alph"], dev["ts"]
+    at = _reader(dev, x_T)
+    ts = dev["ts"]
 
     def d(x_t, i):
-        x0 = model_fn((x_t * alph[i]).to(cdt), ts[i]).to(F32)
-        return (x_t - x0) / sig[i]
+        x0 = model_fn((x_t * at("alph", i)).to(cdt), ts[i]).to(F32)
+        return (x_t - x0) / at("sig", i)
 
-    x_t = _to_scaled(dev, x_T, cdt)
+    x_t = _to_scaled(at, x_T, cdt)
     for i, heun in enumerate(dev["heun"]):
         xf = x_t.to(F32)
         di = d(xf, i)
-        dt = sig[i + 1] - sig[i]
+        dt = at("sig", i + 1) - at("sig", i)
         x_next = xf + dt * di
         if heun:
             x_next = xf + dt * 0.5 * (di + d(x_next, i + 1))
         x_t = x_next.to(cdt)
         # x0: the preview from the first slope evaluation
-        _record(traj, i, (x_next * alph[i + 1]).to(cdt),
-                (xf - sig[i] * di).to(cdt))
-    return (x_t.to(F32) * alph[len(dev["heun"])]).to(cdt)
+        _record(traj, i, (x_next * at("alph", i + 1)).to(cdt),
+                (xf - at("sig", i) * di).to(cdt))
+    return (x_t.to(F32) * at("alph", len(dev["heun"]))).to(cdt)
 
 
 def plan_edm_stochastic(spec: SamplerSpec):
@@ -333,23 +346,25 @@ def _edm_slope(model_fn, cdt, ve):
 def execute_edm_stochastic(statics, dev, model_fn, x_T, noise, traj=None):
     precision, ve = statics
     cdt = carry_dtype(precision)
-    sig, alph, ts = dev["sig"], dev["alph"], dev["ts"]
+    at = _reader(dev, x_T)
+    ts = dev["ts"]
     d = _edm_slope(model_fn, cdt, ve)
-    x_t = _to_scaled(dev, x_T, cdt)
+    x_t = _to_scaled(at, x_T, cdt)
     for i, heun in enumerate(dev["heun"]):
-        s_hat = dev["s_hat"][i]
-        x_hat = x_t.to(F32) + dev["churn_amp"][i] * noise[i]
+        s_hat = at("s_hat", i)
+        x_hat = x_t.to(F32) + at("churn_amp", i) * noise[i]
         # Heun from s_hat to sig[i+1]; the model conditioned at grid t
         # (the churn offset in t is second-order)
         di = d(x_hat, s_hat, ts[i])
-        dt = sig[i + 1] - s_hat
+        dt = at("sig", i + 1) - s_hat
         x_next = x_hat + dt * di
         if heun:
-            x_next = x_hat + dt * 0.5 * (di + d(x_next, sig[i + 1], ts[i + 1]))
+            x_next = x_hat + dt * 0.5 * (di + d(x_next, at("sig", i + 1),
+                                                ts[i + 1]))
         x_t = x_next.to(cdt)
-        _record(traj, i, (x_next * alph[i + 1]).to(cdt),
+        _record(traj, i, (x_next * at("alph", i + 1)).to(cdt),
                 (x_hat - s_hat * di).to(cdt))
-    return (x_t.to(F32) * alph[len(dev["heun"])]).to(cdt)
+    return (x_t.to(F32) * at("alph", len(dev["heun"]))).to(cdt)
 
 
 # -------------------------------------------------- step-granular adapters
@@ -445,7 +460,7 @@ def _stepwise_euler_maruyama(spec: SamplerSpec) -> StepAdapter:
 def _edm_inner(cdt):
     def init_inner(dev, x_T):
         # the carry lives in the scaled space x~ = x / alpha_t
-        return {"x": _to_scaled(dev, x_T, cdt)}
+        return {"x": _to_scaled(_reader(dev, x_T), x_T, cdt)}
     return init_inner
 
 

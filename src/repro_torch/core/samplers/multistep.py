@@ -350,6 +350,20 @@ def _combine_rows(combine, cdt, decay_i, x_prev, packed, buf, noise_i, xi):
     return (decay_i * x_prev.to(f32) + acc + noise_i * xi.to(f32)).to(cdt)
 
 
+def _combine_groups(cdt, x, packed, rows, xi, G: int):
+    """The einsum combine of a candidate-stacked solve: lanes come in
+    groups of ``G`` under one plan (a candidate's seeds), and each group
+    runs the solo contraction of :func:`_combine_rows` over its [R, G,
+    *shape] rows, so its lanes round exactly as ``sample_batched`` of that
+    plan alone does (torch's contraction over [L, R] rows rounds
+    otherwise)."""
+    out = [_combine_rows("einsum", cdt, packed[g, 0], x[g:g + G], packed[g],
+                         rows[g:g + G].transpose(0, 1).contiguous(),
+                         packed[g, 1], xi[g:g + G])
+           for g in range(0, x.shape[0], G)]
+    return torch.cat(out)
+
+
 def _pc_residual(x_next, x_pred, lanes: bool = False) -> torch.Tensor:
     """Relative-RMS predictor-vs-corrector gap, the free step-change
     signal a step with a corrector already computes both states for: it
@@ -391,9 +405,22 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
     fc_thresh`` of the previous step's float32 residual: 0-d, or one per
     lane where ``model_fn.lanes`` (a lane-batched solve, whose lanes
     refresh each on its own residual, as the reference's vmapped solve
-    does)."""
+    does).
+
+    Per-lane tables (``dev["stacked"]``, the candidate-stacked solve of
+    :func:`repro_torch.core.samplers.base.stacked_solve`): every table
+    has a lane axis after its step axis, so step i's row of every lane is
+    one [L, ...] block (``fc_thresh`` is [L]): the scalars are read per
+    lane (``lane_view``), the combines take one coefficient row per lane
+    (the lane entries ``ops.sa_update_lanes`` / ``sa_fused_update_lanes``;
+    the einsum once per group of lanes that share a plan,
+    ``dev["lane_group"]``), and the history is laid out [L, P, *shape],
+    the lane entries' layout (the step tick's too), so no kernel call
+    transposes it. Every lane has its own residual and refresh flag
+    under the feature cache."""
     parameterization, modes, combine, denoise, ring, precision, fc = statics
-    P = dev["pred"].shape[1]  # buffer rows = max(pred order, corr order)
+    stacked = dev.get("stacked", False)
+    P = dev["pred"].shape[-1]  # buffer rows = max(pred order, corr order)
     M = dev["decay"].shape[0]
     flags = _step_modes(modes, dev, M)
     cdt = carry_dtype(precision)
@@ -401,6 +428,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
 
     x = x_T.to(cdt)
     lanes = getattr(model_fn, "lanes", False)
+    at = lambda v: lane_view(v, x)  # noqa: E731  (0-d: as it is)
     if fc:
         gated = dev["fc_gated"]
         feats = model_fn.init_feats(x)
@@ -415,28 +443,42 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
         def eval_model(x_in, t_in, refresh):
             return model_fn(x_in, t_in).to(cdt)
 
-    buf = torch.zeros((P,) + tuple(x.shape), dtype=cdt, device=x.device)
-    buf[0] = eval_model(x, dev["ts"][0], True)
+    # the history axis: [P, *x.shape], or [L, P, *shape] when stacked
+    ax = int(stacked)
+    buf = torch.zeros(x.shape[:ax] + (P,) + x.shape[ax:], dtype=cdt,
+                      device=x.device)
+    slot = lambda s: (slice(None),) * ax + (s,)  # noqa: E731
+
+    def push(e, rows):  # e as the newest row
+        return torch.cat([e.unsqueeze(ax), rows], dim=ax)
+
+    buf[slot(0)] = eval_model(x, dev["ts"][0], True)
+
+    def combine_rows(x_prev, packed, rows, xi, i):
+        """The einsum/kernel combine of newest-first ``rows`` (the lanes'
+        [L, R, *shape] when stacked)."""
+        if not stacked:
+            return _combine_rows(combine, cdt, dev["decay"][i], x_prev,
+                                 packed, rows, dev["noise"][i], xi)
+        if combine == "einsum":
+            return _combine_groups(cdt, x_prev, packed, rows, xi,
+                                   dev["lane_group"])
+        return _combine_lanes(combine, cdt, x_prev, packed, rows, xi)
 
     for i, (use_corrector, pece) in enumerate(flags):
         xi = noise[i].to(cdt)
-        decay_i = dev["decay"][i]
-        noise_i = dev["noise"][i]
         t_next = dev["ts"][i + 1]
         if not ring:
-            x_pred = _combine_rows(combine, cdt, decay_i, x,
-                                   dev["pred_packed"][i], buf, noise_i, xi)
+            x_pred = combine_rows(x, dev["pred_packed"][i], buf, xi, i)
             e_new = eval_model(x_pred, t_next, True)
             x_next = x_eval = x_pred
             if use_corrector:
-                rows = torch.cat([e_new[None], buf], dim=0)
-                x_next = _combine_rows(combine, cdt, decay_i, x,
-                                       dev["corr_packed"][i], rows,
-                                       noise_i, xi)
+                x_next = combine_rows(x, dev["corr_packed"][i],
+                                      push(e_new, buf), xi, i)
                 if pece:
                     e_new = eval_model(x_next, t_next, True)
                     x_eval = x_next
-            buf = torch.cat([e_new[None], buf[:-1]], dim=0)
+            buf = push(e_new, buf.narrow(ax, 0, P - 1))
             x = x_next
             if traj is not None:
                 traj["x"][i].copy_(x)
@@ -448,30 +490,34 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
         refresh = fc and (dev["fc_refresh"][i]
                           or (gated and prev_err >= dev["fc_thresh"]))
         if combine == "fused":
-            if use_corrector:
-                x_pred, corr_base = ops.sa_fused_update(
-                    x, buf, xi, dev["fused_packed"][i])
+            packed = dev["fused_packed"][i]
+            if stacked:
+                if use_corrector:
+                    x_pred, corr_base = ops.sa_fused_update_lanes(
+                        x, buf, xi, packed)
+                else:
+                    x_pred = ops.sa_update_lanes(x, buf, xi,
+                                                 packed[:, 0].contiguous())
+            elif use_corrector:
+                x_pred, corr_base = ops.sa_fused_update(x, buf, xi, packed)
             else:
-                x_pred = ops.sa_update(x, buf, xi, dev["fused_packed"][i, 0])
+                x_pred = ops.sa_update(x, buf, xi, packed[0])
             e_new = eval_model(x_pred, t_next, refresh)
             x_next = x_pred
             if use_corrector:
                 # post-eval corrector: only e_new is touched; the history
                 # is already folded into corr_base
-                x_next = (corr_base.to(f32) + dev["corr_new"][i]
+                x_next = (corr_base.to(f32) + at(dev["corr_new"][i])
                           * e_new.to(f32)).to(cdt)
         else:
-            rows = [buf[(i - j) % P] for j in range(P)]
-            x_pred = _combine_rows(combine, cdt, decay_i, x,
-                                   dev["pred_packed"][i], torch.stack(rows),
-                                   noise_i, xi)
+            ages = [(i - j) % P for j in range(P)]
+            rows = torch.stack([buf[slot(a)] for a in ages], dim=ax)
+            x_pred = combine_rows(x, dev["pred_packed"][i], rows, xi, i)
             e_new = eval_model(x_pred, t_next, refresh)
             x_next = x_pred
             if use_corrector:
-                x_next = _combine_rows(combine, cdt, decay_i, x,
-                                       dev["corr_packed"][i],
-                                       torch.stack([e_new] + rows),
-                                       noise_i, xi)
+                x_next = combine_rows(x, dev["corr_packed"][i],
+                                      push(e_new, rows), xi, i)
         if fc and gated and use_corrector:
             prev_err = _pc_residual(x_next, x_pred, lanes=lanes)
         x_eval = x_pred  # the state e_new was evaluated at
@@ -482,7 +528,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
         # the one history write, in place: e_new becomes age 0 of step
         # i+1 in slot (i+1) mod P, overwriting age P-1, which no combine
         # needs again
-        buf[(i + 1) % P] = e_new
+        buf[slot((i + 1) % P)] = e_new
         x = x_next
         if traj is not None:
             traj["x"][i].copy_(x)
@@ -491,7 +537,7 @@ def execute_multistep(statics, dev, model_fn, x_T, noise, traj=None):
 
     if denoise:
         # the newest eval: ring slot M mod P, concat row 0
-        return buf[M % P] if ring else buf[0]
+        return buf[slot(M % P if ring else 0)]
     return x
 
 

@@ -52,7 +52,10 @@ guidance every guided evaluation is one network forward over a
 lanes are reported separately as ``padded_slots`` (they cost compute
 but serve nobody).
 
-Not in this slice: tiers from an autotuner artifact (A10).
+``quality_tier=`` names a tier of the engine's :class:`QualityTiers`
+(``default_tiers()``, or ``QualityTiers.from_artifact`` of an autotuner
+search, whose winner is ``"best"``); it resolves to its spec at submit
+time, so a tier request is bitwise its explicit spec.
 """
 
 from __future__ import annotations

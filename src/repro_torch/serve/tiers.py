@@ -13,8 +13,9 @@ same bucket → same per-rid generator seeds).
 
 Tiers are plain data: build them from presets (:func:`default_tiers`),
 from a finished autotuner artifact (:meth:`QualityTiers.from_artifact` —
-the searched winner becomes ``"best"``, which waits for the port's
-autotuner, ROADMAP A10), or by hand from any specs.
+the searched winner becomes ``"best"``; the artifact may come from this
+package's autotuner or the reference's, whose format it shares), or by
+hand from any specs.
 """
 
 from __future__ import annotations
@@ -61,13 +62,31 @@ class QualityTiers:
                       fc_tier: str | None = "draft",
                       base: "QualityTiers | None" = None,
                       **overrides) -> "QualityTiers":
-        """Load a finished search artifact's winner(s) as tiers: the
-        reference builds the winner's spec with its autotuner
-        (``tune.search``), which the port does not have yet."""
-        raise NotImplementedError(
-            "QualityTiers.from_artifact needs the autotuner's search state "
-            "(tune.search), which comes with ROADMAP A10 of the port; build "
-            "the tiers with default_tiers() or from explicit specs")
+        """Load a finished search artifact's winner(s) as tiers.
+
+        The winner's spec is rebuilt exactly as the search evaluated it
+        (family, NFE, spec_kw from the artifact's echoed config), so
+        serving the tier reproduces the searched program bitwise;
+        ``overrides`` adjust serving-only fields (e.g. ``combine``,
+        ``precision``). When the artifact also records a feature-cache
+        winner (a search run with ``fc_thresholds``), its tuned
+        residual-threshold spec becomes the ``fc_tier`` tier — the
+        cheap-eval draft rung, autotuned instead of hand-set (pass
+        ``fc_tier=None`` to skip). The remaining tiers come from
+        ``base`` (default: :func:`default_tiers` for the artifact's
+        family on the winner's schedule)."""
+        from ..tune.search import (fc_spec_from_state, load_state,
+                                   spec_from_state)
+        state = load_state(path)
+        spec = spec_from_state(state, **overrides)
+        if base is None:
+            fam = (spec.name if get_family(spec.name).full_programs
+                   else "sa")
+            base = default_tiers(family=fam, schedule=spec.schedule)
+        tiers = base.with_tier(tier, spec)
+        if fc_tier and state.get("best_fc"):
+            tiers = tiers.with_tier(fc_tier, fc_spec_from_state(state))
+        return tiers
 
 
 def default_tiers(*, family: str = "sa", schedule="vp_linear",

@@ -461,6 +461,16 @@ def test_feature_cached_draft_tier_bitwise_equals_explicit_spec():
     assert bool(torch.isfinite(r_tier.x0).all())
 
 
-def test_tiers_from_artifact_waits_for_the_autotuner():
-    with pytest.raises(NotImplementedError, match="A10"):
-        QualityTiers.from_artifact("tune.json")
+def test_tiers_from_artifact_waits_for_the_autotuner(tmp_path):
+    """``QualityTiers.from_artifact`` reads the autotuner's artifact (its
+    winner served as ``best``: tests/test_torch_tune.py); it raises while
+    the artifact is missing or records no evaluated program yet."""
+    from repro_torch.tune import SearchConfig, run_search
+    art = str(tmp_path / "tune.json")
+    with pytest.raises(FileNotFoundError):
+        QualityTiers.from_artifact(art)
+    res = run_search(SearchConfig(budget=0, presets=("tau-anneal",)),
+                     artifact=art, device="cpu")
+    assert res.exhausted and res.best_program is None
+    with pytest.raises(ValueError, match="no evaluated program"):
+        QualityTiers.from_artifact(art)

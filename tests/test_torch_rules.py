@@ -58,7 +58,8 @@ def test_import_rule_walks_every_module_of_the_port():
     so modules added to the port are checked too."""
     files = {str(p.relative_to(PORT)) for p in _files() if PORT in p.parents}
     assert {"core/programs.py", "core/samplers/seeds.py",
-            "core/samplers/dpmpp.py"} <= files
+            "core/samplers/dpmpp.py", "tune/search.py",
+            "tune/evaluate.py", "launch/tune.py"} <= files
     assert files == {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
 
 

@@ -188,14 +188,10 @@ def test_spec_validation(bad, exc, match):
 
 
 def test_unported_entry_points_raise_loudly():
-    # trajectory=True, the baselines and the step protocol's feature cache
-    # are ported (held in tests/test_torch_stepwise.py,
-    # tests/test_torch_baselines.py and
-    # tests/test_torch_feature_cache_lanes.py); tiers from an autotuner
-    # artifact are not yet
-    from repro_torch.serve import QualityTiers
-    with pytest.raises(NotImplementedError, match="A10"):
-        QualityTiers.from_artifact("search.json")
+    # trajectory=True, the baselines, the step protocol's feature cache
+    # and tiers from an autotuner artifact are ported (held in
+    # tests/test_torch_stepwise.py, tests/test_torch_baselines.py,
+    # tests/test_torch_feature_cache_lanes.py and tests/test_torch_tune.py);
     # a feature-cached carry needs the Denoiser that shapes its features
     fc = tsamplers.make_sampler("sa", nfe=5, feature_cache=2)
     with pytest.raises(ValueError, match="model_fn="):

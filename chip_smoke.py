@@ -26,7 +26,12 @@ served by the step scheduler (``feature_cache_path``); the sharded path
 over ``torch.distributed`` (``sharded_path``: ``sample_sharded`` and the
 sharded engine at one NCCL rank, ``--cfg-shard``'s refusal, and sharded
 classifier-free guidance at two gloo ranks sharing the card, started as
-``chip_smoke.py --cfg-rank RANK DIR``); the port's sampling
+``chip_smoke.py --cfg-rank RANK DIR``); training the DiT denoiser
+(``train_path``: the checkpointed ``TrainLoop`` at DiT-XL/2 full width,
+which launches no kernel, a checkpoint restored bitwise, remat and
+resume checks at 4 layers, gradients on the card against the CPU, the
+trained model sampled through flash and sa_fused, and
+``examples/torch_train_denoiser.py`` on the card); the port's sampling
 entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -91,7 +96,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_edm_heun": ("flash_attention",),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
-                "rwkv6": ("rwkv6_wkv", "sa_fused")}
+                "rwkv6": ("rwkv6_wkv", "sa_fused"),
+                "train": ("sa_fused", "flash_attention")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -3478,6 +3484,352 @@ def phase_rwkv6_profile(state: dict) -> dict:
             "backbone_eval_ms": eval_ms}
 
 
+#: train_path: DiT-XL/2 full width, batch of latents, steps timed
+TRAIN_BATCH = 32
+TRAIN_STEPS = 8
+#: the reference example's CPU figures (examples/train_denoiser.py
+#: --steps 300: loss 1.1763 -> 0.5963), sliced-W2 per (tau, NFE) and of
+#: the prior noise; recorded beside the port's, not gated
+REF_EXAMPLE_W2 = {"tau=0.0,nfe=10": 0.0887, "tau=0.4,nfe=10": 0.0834,
+                  "tau=0.0,nfe=30": 0.0851, "tau=1.0,nfe=30": 0.0901,
+                  "prior": 0.0797}
+
+
+def _load_example():
+    """``examples/torch_train_denoiser.py`` as a module (it is loaded by
+    path: ``examples/`` is not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_denoiser",
+        os.path.join(ROOT, "examples", "torch_train_denoiser.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tree_equal(a, b) -> list:
+    """Keys of the leaves of two trees that differ in a bit."""
+    import torch
+    from repro_torch.tree import paths_and_leaves
+    bb = dict(paths_and_leaves(b))
+    return [k for k, x in paths_and_leaves(a) if not torch.equal(x, bb[k])]
+
+
+def _tempered_params(model, seed: int, device):
+    """Float32 weights with every leaf off zero (the adaLN-zero init
+    leaves the blocks without a gradient) and ``wq``/``wk`` scaled by 0.3
+    (attention logits of unit scale; the init's std ~30 saturates the
+    softmax, whose float32 gradient is ill-conditioned), drawn on the CPU
+    from ``seed``."""
+    import torch
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+    g = torch.Generator().manual_seed(seed)
+    p = init_params(g, model.param_defs(), torch.float32)
+    p = tree_map(lambda t: t + 0.02 * torch.randn(t.shape, generator=g), p)
+    for k in ("wq", "wk"):
+        p["blocks"]["attn"][k] *= 0.3
+    return tree_map(lambda t: t.to(device), p)
+
+
+class _StepTimes:
+    """A straggler monitor that also keeps every step's seconds."""
+
+    def __init__(self):
+        from repro_torch.runtime import StragglerMonitor
+        self.monitor = StragglerMonitor()
+        self.dts: list = []
+
+    def observe(self, step: int, dt: float) -> bool:
+        self.dts.append(dt)
+        return self.monitor.observe(step, dt)
+
+
+def phase_train_path(state: dict) -> dict:
+    """Training the DiT denoiser, then sampling it through the kernels.
+
+    (1) ``TRAIN_STEPS`` steps of the checkpointed ``TrainLoop`` at
+    DiT-XL/2 full width (28 x 1152, 16 heads of 72, d_ff 4608; the
+    config's bfloat16 stream and ``remat="full"``, float32 parameters and
+    AdamW state; a batch of ``TRAIN_BATCH`` latents [256, 16]), the plain
+    attention (the kernels have no backward) and no kernel launched; the
+    async save of the last step timed, restored bitwise, and removed; one
+    more step under torch.profiler. (2)
+    The same model at 4 layers on a float32 stream: remat "none" against
+    "full" bitwise; at DiT smoke width the card's gradients against the
+    port's CPU gradients (1e-5 relative per leaf); a run killed at step 3
+    of 6 (``save_every=2``) and resumed, bitwise the uninterrupted run.
+    (3) The trained full-width parameters, detached, sampled with ``sa``
+    at NFE 20 through flash and sa_fused (cold, steady and one held
+    solve). (4) ``examples/torch_train_denoiser.py --steps 300`` on the
+    card: its loss must fall (the mean of the last 50 below 0.85 x the
+    mean of the first 5); its sliced-W2 is recorded beside the
+    reference's CPU figures, not gated."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.data import ShardedBatchIterator, latent_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw, chain, clip_by_global_norm
+    from repro_torch.runtime import InjectedFailure, TrainLoop
+    from repro_torch.tree import paths_and_leaves, tree_leaves, tree_map
+    dev = torch.device("cuda")
+    ex = _load_example()
+    schedule = get_schedule("vp_linear")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "train_path"}
+
+    # ---- (1) full width -------------------------------------------------
+    cfg = dataclasses.replace(get_config("dit-xl-2"), use_flash=False)
+    model = TransformerLM(cfg)
+    dz, S = cfg.denoiser_latent, REQ_SHAPE[0]
+    opt = chain(clip_by_global_norm(1.0), adamw(1e-4, weight_decay=0.0))
+
+    def init_state():
+        p = init_params(torch.Generator(dev).manual_seed(0),
+                        model.param_defs(), torch.float32)
+        return {"params": p, "opt": opt.init(p),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def batches(model_, batch):
+        d = model_.cfg.denoiser_latent
+        return ShardedBatchIterator(
+            lambda rows, step, host: latent_batch(d, S, rows, step, host),
+            batch, device=dev)
+
+    tmp = tempfile.mkdtemp(prefix="train_path_")
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    times = _StepTimes()
+    train_step = ex.make_train_step(model, opt, schedule, ex.seeded_draw)
+    loop = TrainLoop(train_step, init_state, os.path.join(tmp, "full"),
+                     save_every=TRAIN_STEPS, monitor=times)
+    saver, saved = loop.saver, {}
+    real_save, real_wait = saver.save, saver.wait
+
+    def timed_save(step, tree):
+        t = time.perf_counter()
+        real_save(step, tree)
+        saved["host_copy_s"] = time.perf_counter() - t
+
+    def timed_wait():
+        t = time.perf_counter()
+        real_wait()
+        saved["drain_s"] = time.perf_counter() - t
+
+    saver.save, saver.wait = timed_save, timed_wait
+    ops.reset_launch_counts()  # the train_path window starts here
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained, hist = loop.run(batches(model, TRAIN_BATCH), TRAIN_STEPS,
+                             log_every=1, log=lambda m: print(m, flush=True))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    saver.close()
+    train_launches = ops.launch_counts()
+    losses = [h["loss"] for h in hist]
+    step_dir = os.path.join(tmp, "full", f"step_{TRAIN_STEPS:08d}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+    t = time.perf_counter()
+    restored, rstep = ckpt.restore(os.path.join(tmp, "full"), trained)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    restore_diff = _tree_equal(restored, trained)
+    del restored
+    shutil.rmtree(tmp, ignore_errors=True)
+    # one more step under torch.profiler: device time by kernel category
+    profile_step = _profile_solve(lambda: train_step(
+        trained, next(batches(model, TRAIN_BATCH))))
+    steady = statistics.median(times.dts[1:])
+    n_params = sum(t.numel() for t in tree_leaves(trained["params"]))
+    result["full_width"] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "head_dim": cfg.hd, "d_ff": cfg.d_ff,
+        "stream": str(cfg.dtype).removeprefix("torch."), "remat": cfg.remat,
+        "params": n_params, "batch": [TRAIN_BATCH, S, dz],
+        "optimizer": "clip 1.0 -> adamw(1e-4, wd 0), f32 state",
+        "steps": len(losses), "losses": losses,
+        "step_s": times.dts, "steady_step_s": steady,
+        "tokens_per_s": TRAIN_BATCH * S / steady, "run_s": run_s,
+        "max_memory_allocated": peak, "profile_one_step": profile_step,
+        "launches_while_training": train_launches,
+        "checkpoint": {"bytes": ckpt_bytes, "leaves": len(
+            paths_and_leaves(trained)), "host_copy_s": saved.get(
+            "host_copy_s"), "drain_s": saved.get("drain_s"),
+            "restore_s": restore_s, "restored_step": rstep,
+            "restore_bitwise": not restore_diff,
+            "tmp_free_gb_before": free_gb}}
+    emit(result)
+    require(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+            f"train_path: losses {losses}")
+    require(not any(train_launches.values()),
+            f"train_path: training launched kernels {train_launches}")
+    require(rstep == TRAIN_STEPS and not restore_diff,
+            f"train_path: restore differs at {restore_diff}")
+
+    # ---- (3) sample the trained full-width parameters --------------------
+    params = tree_map(torch.Tensor.detach, trained["params"])
+    del trained, loop, saver
+    sampler_model = TransformerLM(dataclasses.replace(cfg, use_flash=None))
+    den = Denoiser(lambda x, t_, c: sampler_model.denoise(params, x, t_),
+                   schedule, prediction="x0")
+    s = make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                     corrector_order=3, mode="PEC", combine="fused",
+                     schedule=schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(31)
+    xT = s.init_noise(g, SHAPE)
+    want = dict.fromkeys(ops.launch_counts(), 0) | {
+        "flash_attention": cfg.n_layers * s.nfe, "sa_fused": s.spec.n_steps}
+    solves = []
+    for _ in range(2):  # the entry's first call, then a replay
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, xT, torch.Generator(dev).manual_seed(32))
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        solves.append((out, time.perf_counter() - t,
+                       {k: after[k] - before[k] for k in after}))
+    held: dict = {}
+    with held_against_plain(held):
+        s.sample(den, xT, torch.Generator(dev).manual_seed(32))
+    out = solves[1][0]
+    result["sampled"] = {
+        "sampler": {"name": "sa", "nfe": s.nfe, "tau": 1.0,
+                    "predictor_order": 3, "corrector_order": 3,
+                    "mode": "PEC", "combine": "fused"},
+        "latent": list(SHAPE), "cold_s": solves[0][1],
+        "steady_s": solves[1][1],
+        "launches_per_solve": [l for _, _, l in solves],
+        "finite": bool(torch.isfinite(out).all()),
+        "repeat_bitwise": bool(torch.equal(solves[0][0], out)),
+        "x0_std": float(out.std()), "held_against_plain": held}
+    del params, den, sampler_model, solves, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (2) 4 layers at full width, float32 stream ----------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype=torch.float32,
+                               remat="none")
+    m_none, m_full = TransformerLM(cfg4), TransformerLM(
+        dataclasses.replace(cfg4, remat="full"))
+    p4 = _tempered_params(m_none, 4, dev)
+    x0 = torch.from_numpy(latent_batch(dz, S, 8, 0)["x0"]).to(dev)
+    tt, eps = ex.seeded_draw(0, x0)
+    l_none, g_none = ex.loss_and_grads(m_none, p4, x0, tt, eps, schedule)
+    l_full, g_full = ex.loss_and_grads(m_full, p4, x0, tt, eps, schedule)
+    remat_diff = _tree_equal(g_none, g_full)
+    remat_diff += [] if torch.equal(l_none, l_full) else ["loss"]
+    del p4, g_none, g_full
+
+    sm = TransformerLM(dataclasses.replace(
+        get_smoke("dit-xl-2"), n_layers=4, dtype=torch.float32,
+        use_flash=False))
+    p_cpu = _tempered_params(sm, 6, "cpu")
+    xs = torch.from_numpy(latent_batch(sm.cfg.denoiser_latent, 16, 4,
+                                       0)["x0"])
+    ts, es = ex.seeded_draw(0, xs)
+    _, g_cpu = ex.loss_and_grads(sm, p_cpu, xs, ts, es, schedule)
+    _, g_dev = ex.loss_and_grads(
+        sm, tree_map(lambda t: t.to(dev), p_cpu), xs.to(dev), ts.to(dev),
+        es.to(dev), schedule)
+    cpu_rel = {}
+    dev_leaves = dict(paths_and_leaves(g_dev))
+    for k, r in paths_and_leaves(g_cpu):
+        scale = float(r.abs().max())
+        err = float((dev_leaves[k].cpu() - r).abs().max())
+        cpu_rel[k] = err / scale if scale else (0.0 if err == 0 else
+                                                math.inf)
+
+    opt4 = chain(clip_by_global_norm(1.0), adamw(1e-4, weight_decay=0.0))
+    m_train = TransformerLM(dataclasses.replace(cfg4, remat="full"))
+
+    def init4():
+        p = _tempered_params(m_train, 7, dev)
+        return {"params": p, "opt": opt4.init(p),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    step4 = ex.make_train_step(m_train, opt4, schedule, ex.seeded_draw)
+    tmp = tempfile.mkdtemp(prefix="train_path_resume_")
+    try:
+        ref_state, ref_hist = TrainLoop(
+            step4, init4, os.path.join(tmp, "a"), save_every=2).run(
+            batches(m_train, 8), 6, log=None)
+        killed = False
+        try:
+            TrainLoop(step4, init4, os.path.join(tmp, "b"),
+                      save_every=2).run(batches(m_train, 8), 6, fail_at=3,
+                                        log=None)
+        except InjectedFailure:
+            killed = True
+        res_state, res_hist = TrainLoop(
+            step4, init4, os.path.join(tmp, "b"), save_every=2).run(
+            batches(m_train, 8), 6, log=None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resume_diff = _tree_equal(res_state, ref_state)
+    result["four_layers"] = {
+        "remat_none_vs_full_bitwise": not remat_diff,
+        "card_vs_cpu_grad_rel": max(cpu_rel.values()),
+        "card_vs_cpu_grad_rel_per_leaf": cpu_rel,
+        "resume": {"killed_at": 3, "of": 6, "save_every": 2,
+                   "killed": killed, "resumed_steps": len(res_hist),
+                   "metric_stream_bitwise": res_hist == ref_hist[2:],
+                   "final_state_bitwise": not resume_diff}}
+    del ref_state, res_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (4) the example, 300 steps on the card --------------------------
+    tmp = tempfile.mkdtemp(prefix="train_path_example_")
+    try:
+        t = time.perf_counter()
+        exo = ex.main(["--steps", "300", "--ckpt", os.path.join(tmp, "c"),
+                       "--fresh"])
+        example_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    el = exo["losses"]
+    first5, last50 = statistics.mean(el[:5]), statistics.mean(el[-50:])
+    result["example"] = {
+        "steps": len(el), "seconds": example_s, "loss_first": el[0],
+        "loss_last": el[-1], "mean_first5": first5, "mean_last50": last50,
+        "falls": last50 < 0.85 * first5, "sliced_w2": exo["sliced_w2"],
+        "prior_sliced_w2": exo["prior_sliced_w2"],
+        "reference_cpu_sliced_w2": REF_EXAMPLE_W2}
+    state["launches"]["train"] = ops.launch_counts()  # window ends
+    state["held"]["train"] = held
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smp, four = result["sampled"], result["four_layers"]
+    checks = {
+        "sample_launches": all(l == want for l in smp["launches_per_solve"]),
+        "sample_finite": smp["finite"],
+        "held": all(r["ok"] for r in held.values()) and held.get(
+            "flash_attention", {}).get("calls") == want["flash_attention"],
+        "remat_bitwise": four["remat_none_vs_full_bitwise"],
+        "card_vs_cpu": four["card_vs_cpu_grad_rel"] <= 1e-5,
+        "resume": killed and four["resume"]["metric_stream_bitwise"]
+        and four["resume"]["final_state_bitwise"],
+        "example_loss_falls": result["example"]["falls"]}
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit({k: v for k, v in result.items() if k != "full_width"})
+    require(result["ok"], f"train_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]} (want {want}; "
+            f"resume diff {resume_diff}; remat diff {remat_diff})")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
@@ -3517,6 +3869,7 @@ def main() -> int:
     phase_gmm()
     phase_rwkv6_path(state)
     emit(phase_rwkv6_profile(state))
+    phase_train_path(state)
 
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if state["launches"][path][k] == 0]

@@ -25,6 +25,7 @@ def full() -> LMConfig:
         gated_mlp=False,
         rope_type="none",
         denoiser_latent=LATENT_DIM,
+        remat="full",
     )
 
 

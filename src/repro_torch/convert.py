@@ -33,7 +33,7 @@ def _flatten(tree, prefix=()) -> dict:
 
 _LM_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
               "head_dim", "d_ff", "vocab_size", "act", "gated_mlp",
-              "rope_type", "attn_logit_softcap", "denoiser_latent",
+              "rope_type", "attn_logit_softcap", "remat", "denoiser_latent",
               "denoiser_cond")
 
 

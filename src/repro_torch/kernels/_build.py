@@ -8,7 +8,9 @@ Compilation happens at first use, or all at once through :func:`build`
 (one nvcc process per source, started together). The libraries expose a
 plain C interface: every pointer and the stream are ``c_void_p``, and each
 entry point returns ``cudaGetLastError()`` after its launch, which
-:func:`check` turns into an exception.
+:func:`check` turns into an exception. A kernel writes through raw
+pointers, outside autograd, so every wrapper first calls
+:func:`refuse_autograd`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check"]
+import torch
+
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "check",
+           "refuse_autograd"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -140,3 +145,16 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(
             f"{what}: kernel launch failed with CUDA error {rc} "
             "(cudaGetLastError after the launch)")
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``what``: grad
+    mode on and an input that requires grad. Its output would be cut off
+    from the graph, leaving the inputs without a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel has no "
+            "backward (nor has its TPU kernel in the reference). A model "
+            "that trains takes use_flash=False (RWKV6: use_kernel=False), "
+            "the plain PyTorch path; sample under torch.no_grad() or with "
+            "detached parameters.")

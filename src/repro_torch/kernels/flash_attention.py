@@ -50,6 +50,7 @@ def flash_attention(q, k, v, *, causal: bool = True):
     """The Hopper kernel: same contract as :func:`flash_attention_plain`,
     contiguous CUDA tensors of one dtype (float32 or bfloat16) only."""
     global launches
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention takes CUDA tensors, got {q.device}")
     if k.device != q.device or v.device != q.device:

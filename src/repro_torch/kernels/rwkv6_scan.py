@@ -72,6 +72,7 @@ def rwkv6_wkv(r, k, v, logw, u, S0, *, chunk: int = 64):
     logw float32 or bfloat16, u and S0 float32; hd in ``HEAD_DIMS`` and
     chunk in ``CHUNKS`` dividing T. Anything else raises."""
     global launches
+    _build.refuse_autograd("rwkv6_wkv", r, k, v, logw, u, S0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_wkv takes CUDA tensors, got {r.device}")
     for name, t in (("k", k), ("v", v), ("logw", logw), ("u", u), ("S0", S0)):

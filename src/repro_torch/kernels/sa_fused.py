@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .sa_update import check_lane_operands, check_operands, launch_combine
 
 __all__ = ["sa_fused_update", "sa_fused_update_plain",
@@ -61,6 +62,7 @@ def sa_fused_update(x, buf, xi, coeffs):
     """The Hopper kernel: same contract as :func:`sa_fused_update_plain`,
     CUDA tensors only (raises otherwise). coeffs must be float32 [2, P+2]."""
     global launches
+    _build.refuse_autograd("sa_fused_update", x, buf, xi, coeffs)
     check_operands(x, buf, xi, coeffs, rows=2)
     pred = torch.empty_like(x)
     corr = torch.empty_like(x)
@@ -74,6 +76,7 @@ def sa_fused_update_lanes(x, buf, xi, coeffs):
     :func:`sa_fused_update_lanes_plain`, CUDA tensors only (raises
     otherwise). coeffs must be float32 [L, 2, P+2]."""
     global launches
+    _build.refuse_autograd("sa_fused_update_lanes", x, buf, xi, coeffs)
     check_lane_operands(x, buf, xi, coeffs, rows=2)
     pred = torch.empty_like(x)
     corr = torch.empty_like(x)

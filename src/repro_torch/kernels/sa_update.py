@@ -185,6 +185,7 @@ def sa_update(x, buf, xi, coeffs):
     """The Hopper kernel: same contract as :func:`sa_update_plain`, CUDA
     tensors only (raises otherwise). coeffs must be float32 [P+2]."""
     global launches
+    _build.refuse_autograd("sa_update", x, buf, xi, coeffs)
     check_operands(x, buf, xi, coeffs.reshape(1, -1), rows=1)
     out = torch.empty_like(x)
     launch_combine("sa_update_launch", x, buf, xi, coeffs, (out,))
@@ -197,6 +198,7 @@ def sa_update_lanes(x, buf, xi, coeffs):
     :func:`sa_update_lanes_plain`, CUDA tensors only (raises otherwise).
     coeffs must be float32 [L, P+2]."""
     global launches
+    _build.refuse_autograd("sa_update_lanes", x, buf, xi, coeffs)
     check_lane_operands(x, buf, xi, coeffs.reshape(coeffs.shape[0], 1, -1),
                         rows=1)
     out = torch.empty_like(x)

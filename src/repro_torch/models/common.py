@@ -17,8 +17,9 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamDef", "init_params", "tree_defs_map", "layer_of", "rms_norm",
-           "layer_norm", "mlp_defs", "mlp_apply", "promote_matmul", "promote_einsum"]
+__all__ = ["ParamDef", "init_params", "tree_defs_map", "layer_of", "unstack",
+           "rms_norm", "layer_norm", "mlp_defs", "mlp_apply", "promote_matmul",
+           "promote_einsum"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +67,18 @@ def layer_of(tree, l: int):
     if isinstance(tree, torch.Tensor):
         return tree[l]
     return {k: layer_of(v, l) for k, v in tree.items()}
+
+
+def unstack(tree) -> list:
+    """The layers of a stacked [L, ...] parameter tree, each leaf
+    unbound once. Under autograd the backward then stacks the layers'
+    gradients into one [L, ...] gradient per leaf, where indexing each
+    layer (:func:`layer_of`) builds a full-size gradient per layer."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    per = {k: unstack(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[l] for k, v in per.items()} for l in range(n)]
 
 
 def promote_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

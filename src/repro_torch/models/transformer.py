@@ -12,24 +12,34 @@
 bidirectional attention and adaLN conditioning on the time and, with
 ``denoiser_cond`` set, a class/text vector (``_tcond``, float32 end to
 end), and projects back. The layer loop walks the stacked [L, ...] block
-parameters; the reference scans over them. ``denoise_cached`` replays the
-mid-segment of the stack from a cached residual (DeepCache). The LM entry
-points (forward, loss, prefill/decode) and MoE/MLA blocks come with later
-slices of the port.
+parameters, unbound once per call (so a backward stacks each leaf's
+gradient once); the reference scans over them. ``denoise_cached`` replays
+the mid-segment of the stack from a cached residual (DeepCache).
+
+Training differentiates ``denoise`` with autograd through the plain
+attention (``use_flash=False``, the reference's default): the kernels
+have no backward and refuse inputs that require grad. ``LMConfig.remat``
+recomputes each block in the backward (``torch.utils.checkpoint``), as
+the reference's ``jax.checkpoint`` policies do. The LM entry points
+(forward, loss, prefill/decode) and MoE/MLA blocks come with later slices
+of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..kernels.graph_gate import run_if
+from ..tree import tree_leaves
 from .attention import AttentionConfig, attn_defs, gqa_forward
-from .common import (ParamDef, layer_of, mlp_apply, mlp_defs,
-                     promote_matmul, rms_norm, tree_defs_map)
+from .common import (ParamDef, mlp_apply, mlp_defs, promote_matmul,
+                     rms_norm, tree_defs_map, unstack)
 
 __all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
 
@@ -54,6 +64,10 @@ class LMConfig:
     gated_mlp: bool = False
     rope_type: str = "none"
     attn_logit_softcap: float | None = None
+    #: activation checkpointing of each block under autograd: "none",
+    #: "full" (save nothing, recompute the block in the backward) or
+    #: "dots" (save the matmul outputs, recompute the rest)
+    remat: str = "none"
     #: residual-stream dtype (the reference's compute dtype)
     dtype: torch.dtype = torch.bfloat16
     #: latent width of the denoiser's continuous input/output heads
@@ -89,6 +103,30 @@ def timestep_embedding(t, dim: int, max_period: float = 10000.0):
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 
+def _remat_kwargs(remat: str) -> dict | None:
+    """``torch.utils.checkpoint.checkpoint``'s keywords for a remat policy
+    (None: no checkpointing), after the reference's ``_remat_policy``:
+    "full" saves nothing, "dots" the outputs of the matmuls."""
+    if remat == "none":
+        return None
+    if remat == "full":
+        return {}
+    if remat == "dots":
+        try:
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+        except ImportError as e:
+            raise NotImplementedError(
+                "remat='dots' needs torch.utils.checkpoint."
+                "create_selective_checkpoint_contexts, which this PyTorch "
+                "lacks; use 'full' or 'none'") from e
+        aten = torch.ops.aten
+        saved = [aten.mm.default, aten.bmm.default, aten.addmm.default]
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, saved)}
+    raise ValueError(f"remat={remat!r}; expected 'none', 'full' or 'dots'")
+
+
 class TransformerLM:
     def __init__(self, cfg: LMConfig):
         if cfg.denoiser_latent is None:
@@ -105,6 +143,7 @@ class TransformerLM:
                 f"(the DiT block); {cfg.name} asks for {other}")
         self.cfg = cfg
         self.acfg = cfg.attn_config()
+        self._remat_kw = _remat_kwargs(cfg.remat)
 
     # ------------------------------------------------------------------
     # parameters
@@ -183,11 +222,20 @@ class TransformerLM:
             tcond = tcond + c @ dp["y_proj"].float()
         return tcond
 
-    def _stack(self, params, x, tcond, lo: int, hi: int):
-        """Blocks ``[lo, hi)`` of the stack over the residual stream."""
-        blocks = params["blocks"]
+    def _stack(self, layers, x, tcond, lo: int, hi: int):
+        """Blocks ``[lo, hi)`` of the stack (``layers``: the unstacked
+        block parameters) over the residual stream; each block
+        checkpointed per ``cfg.remat`` where autograd records it."""
         for l in range(lo, hi):
-            x = self._block(layer_of(blocks, l), x, tcond)
+            p = layers[l]
+            if self._remat_kw is not None and torch.is_grad_enabled() and (
+                    x.requires_grad or tcond.requires_grad or any(
+                        t.requires_grad for t in tree_leaves(p))):
+                x = torch.utils.checkpoint.checkpoint(
+                    self._block, p, x, tcond, use_reentrant=False,
+                    **self._remat_kw)
+            else:
+                x = self._block(p, x, tcond)
         return x
 
     def _embed(self, dp, z, t, cond):
@@ -204,7 +252,8 @@ class TransformerLM:
         (float32): bidirectional attention + adaLN conditioning; ``cond``
         ([d_cond] or [B, d_cond]) joins ``t`` in the adaLN signal."""
         x, tcond = self._embed(params["denoiser"], z, t, cond)
-        x = self._stack(params, x, tcond, 0, self.cfg.n_layers)
+        x = self._stack(unstack(params["blocks"]), x, tcond, 0,
+                        self.cfg.n_layers)
         return self._head(params, x)
 
     # ---- step-to-step feature caching (DeepCache-style) ---------------
@@ -244,10 +293,11 @@ class TransformerLM:
         if not 0 <= a <= b <= L:
             raise ValueError(f"bad cache span ({a}, {b}) for L={L}")
         x, tcond = self._embed(params["denoiser"], z, t, cond)
-        x = self._stack(params, x, tcond, 0, a)
+        layers = unstack(params["blocks"])
+        x = self._stack(layers, x, tcond, 0, a)
         if isinstance(refresh, bool):
             if refresh:
-                y = self._stack(params, x, tcond, a, b)
+                y = self._stack(layers, x, tcond, a, b)
                 feats = (y - x).to(feats.dtype)
                 x = y
             else:
@@ -263,11 +313,11 @@ class TransformerLM:
             h = x + feats.to(x.dtype)  # the reuse, overwritten where fresh
 
             def deep():
-                y = self._stack(params, x, tcond, a, b)
+                y = self._stack(layers, x, tcond, a, b)
                 feats.copy_(torch.where(rows, (y - x).to(feats.dtype), feats))
                 h.copy_(torch.where(rows, y, h))
 
             run_if(refresh.any(), deep)
             x = h
-        x = self._stack(params, x, tcond, b, L)
+        x = self._stack(layers, x, tcond, b, L)
         return self._head(params, x), feats

@@ -31,8 +31,13 @@ classifier-free guidance at two gloo ranks sharing the card, started as
 which launches no kernel, a checkpoint restored bitwise, remat and
 resume checks at 4 layers, gradients on the card against the CPU, the
 trained model sampled through flash and sa_fused, and
-``examples/torch_train_denoiser.py`` on the card); the port's sampling
-entry point
+``examples/torch_train_denoiser.py`` on the card); the LM path served
+(``lm_path``: starcoder2-3b and RWKV6-3B at full width, batch 8, bf16
+stream and cache: starcoder2-3b's forward through causal flash at GQA
+12:1, prefill and greedy decode of both, RWKV6's aligned, ragged and
+short prefills through the WKV kernel's whole chunks, 4-layer
+consistency checks, ``launch.serve.main`` in both modes); the port's
+sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
 SEEDS, DPM-Solver++ and the six baselines' solves of the GMM oracle.
@@ -97,7 +102,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_dit": ("flash_attention",),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused"),
-                "train": ("sa_fused", "flash_attention")}
+                "train": ("sa_fused", "flash_attention"),
+                "lm": ("flash_attention", "rwkv6_wkv")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -3830,6 +3836,349 @@ def phase_train_path(state: dict) -> dict:
     return result
 
 
+#: lm_path: the LM served at full width (prompt, decode steps, batch) and
+#: its consistency checks (layers, prompt before decoding, batch)
+LM_BATCH = 8
+LM_PROMPT = 512
+LM_DECODE = 64
+LM_RAGGED = 200   # three WKV chunks of 64 and 8 tokens sequential
+LM_SHORT = 32     # launch.serve's default prompt: under one chunk
+LM_CHECK_LAYERS = 4
+LM_CHECK_PREFILL = 448
+LM_CHECK_CPU_SEQ = 128
+LM_CHECK_LIMIT = 1e-4
+#: the consistency checks' factor on starcoder2-3b's wq/wk: at the init's
+#: scale its attention logits have std ~100 (d_model 3072 over 24 heads),
+#: a softmax sharp enough to amplify float32 rounding past the gate (the
+#: check reports a 1e-7 weight nudge's effect beside its gaps); at 0.1
+#: the logits have std ~1
+LM_QK_SCALE = 0.1
+#: the LM's kernel calls: flash (B, H, K, S, T, hd, causal) on
+#: starcoder2-3b's forward, WKV (B, T, H, hd) with a carried state
+LM_FLASH_SHAPE = (8, 24, 2, 512, 512, 128, True)
+LM_WKV_SHAPE = (8, 512, 40, 64)
+
+
+def _lm_params(model, device, seed: int = 0, cpu_draw: bool = False):
+    """Float32 weights from ``seed`` (drawn on the card, or on the CPU and
+    moved when ``cpu_draw``: the same weights for a card-vs-CPU check);
+    a transformer's ``wq``/``wk`` scaled by ``LM_QK_SCALE`` when drawn on
+    the CPU (attention logits of unit scale)."""
+    import torch
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+    if not cpu_draw:
+        return init_params(torch.Generator(device).manual_seed(seed),
+                           model.param_defs(), torch.float32, device)
+    p = init_params(torch.Generator().manual_seed(seed), model.param_defs(),
+                    torch.float32)
+    if "attn" in p["blocks"]:
+        for k in ("wq", "wk"):
+            p["blocks"]["attn"][k] *= LM_QK_SCALE
+    return tree_map(lambda t: t.to(device), p)
+
+
+def _lm_served(model, params, prompt, n_decode: int) -> dict:
+    """Prefill ``prompt`` [B, S] into a fresh cache, then ``n_decode``
+    greedy decode steps, each synchronized and timed; launches of each."""
+    import torch
+    from repro_torch.kernels import ops
+    B, S = prompt.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(B, S + n_decode, device=prompt.device)
+    before = ops.launch_counts()
+    t = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    mid = ops.launch_counts()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    steps, toks = [], [tok]
+    for i in range(n_decode):
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache, S + i)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        toks.append(tok)
+    after = ops.launch_counts()
+    ms = sorted(1e3 * x for x in steps)
+    toks = torch.cat(toks, dim=1)
+    return {"batch": B, "prompt": S, "decode_steps": n_decode,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+            "decode_ms_per_token_p50": ms[len(ms) // 2],
+            "decode_ms_per_token_p90": ms[int(0.9 * (len(ms) - 1))],
+            "decode_tokens_per_s": B * n_decode / sum(steps),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "prefill_launches": {k: mid[k] - before[k] for k in mid},
+            "decode_launches": {k: after[k] - mid[k] for k in after},
+            "finite": bool(torch.isfinite(logits).all()),
+            "sample_ids": toks[0, :12].tolist()}
+
+
+def _lm_consistency(arch: str) -> dict:
+    """``LM_CHECK_LAYERS`` layers of ``arch`` at full width, float32 stream
+    and cache, on the card: forward's last logits against prefill's;
+    prefill(``LM_CHECK_PREFILL``) + decode steps to ``LM_PROMPT`` against
+    forward's logits at each of those positions; the card's forward
+    against the port's on the CPU over ``LM_CHECK_CPU_SEQ`` tokens, on the
+    same weights. Each as max |diff| over the reference logits' peak;
+    beside them, the card's forward with every weight nudged by 1e-7
+    relative (a yardstick of the network's own conditioning, not gated)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CHECK_LAYERS,
+                              dtype=torch.float32)
+    if hasattr(cfg, "cache_dtype"):
+        cfg = dataclasses.replace(cfg, cache_dtype=torch.float32)
+    model = build_model(cfg)
+    params = _lm_params(model, dev, seed=3, cpu_draw=True)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=g)
+    tk = toks.to(dev)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    with torch.no_grad():
+        fw, _ = model.forward(params, {"tokens": tk})
+        lg, _ = model.prefill(params, {"tokens": tk},
+                              model.init_cache(2, LM_PROMPT, device=dev))
+        last = rel(lg[:, 0], fw[:, -1])
+        k = LM_CHECK_PREFILL
+        cache = model.init_cache(2, LM_PROMPT, device=dev)
+        lg, cache = model.prefill(params, {"tokens": tk[:, :k]}, cache)
+        gaps = [rel(lg[:, 0], fw[:, k - 1])]
+        for i in range(k, LM_PROMPT - 1):
+            lg, cache = model.decode_step(params, tk[:, i:i + 1], cache, i)
+            gaps.append(rel(lg[:, 0], fw[:, i]))
+        n = LM_CHECK_CPU_SEQ
+        card, _ = model.forward(params, {"tokens": tk[:, :n]})
+        gn = torch.Generator(dev).manual_seed(9)
+        nudge = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=gn, device=dev)), params)
+        nudged, _ = model.forward(nudge, {"tokens": tk[:, :n]})
+        del nudge
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        del params
+        cpu, _ = model.forward(cpu_params, {"tokens": toks[:, :n]})
+    res = {"layers": LM_CHECK_LAYERS, "batch": 2,
+           "forward_vs_prefill_last": last,
+           "prefill_then_decode_vs_forward": max(gaps),
+           "decode_steps": len(gaps) - 1,
+           "card_vs_cpu_forward": rel(card.cpu(), cpu),
+           "weights_nudged_1e-7_yardstick": rel(nudged, card),
+           "cpu_seq": n, "logits_peak": float(fw.abs().max())}
+    res["ok"] = max(last, max(gaps), res["card_vs_cpu_forward"]) \
+        <= LM_CHECK_LIMIT
+    return res
+
+
+def lm_kernel_times() -> dict:
+    """Flash and WKV at the LM's shapes (f32), kernel against plain, with
+    SDPA beside flash and each one's bound."""
+    import torch
+    from repro_torch.kernels import ops
+    B, H, K, S, T, hd, causal = LM_FLASH_SHAPE
+    q, k, v = _attn_inputs(B, H, K, S, T, hd, torch.float32, seed=29)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kk = k.repeat_interleave(H // K, dim=1)
+    vv = v.repeat_interleave(H // K, dim=1)
+    # causal: the scores on and below the diagonal, each a q.k and a p.v
+    pairs = B * H * S * (S + 1) // 2
+    flash_bytes = 4 * (2 * B * H * S * hd + 2 * B * K * T * hd)
+    flash_ops = 4 * pairs * hd
+    out = {"flash_attention": {
+        "shape": list(LM_FLASH_SHAPE),
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=True, mode="plain"), inner=5, samples=20),
+        "library_ms": time_ms(lambda: sdpa(q, kk, vv, is_causal=True)),
+        "library": "scaled_dot_product_attention on K/V repeated to 24 "
+                   "heads",
+        "bound": bound(flash_bytes, 3 * flash_ops, PEAK_TF32_FLOP_PER_S)}}
+    Bw, Tw, Hw, hdw = LM_WKV_SHAPE
+    args = _wkv_inputs(Bw, Tw, Hw, hdw, torch.float32, torch.float32,
+                       seed=31, decay_shift=4.0)
+    out["rwkv6_wkv"] = {
+        "shape": list(LM_WKV_SHAPE), "chunk": WKV_CHUNK, "S0": "nonzero",
+        "ms": time_ms(lambda: ops.wkv(*args, chunk=WKV_CHUNK)),
+        "plain_ms": time_ms(lambda: ops.wkv(*args, chunk=WKV_CHUNK,
+                                            mode="plain"),
+                            inner=3, samples=10),
+        "library_ms": None,
+        "bound": bound(*wkv_bytes_ops(Bw, Tw, Hw, hdw, WKV_CHUNK))}
+    for t in out.values():
+        t["bound_ms"], t["bound_by"] = t.pop("bound")
+    return out
+
+
+def phase_lm_path(state: dict) -> dict:
+    """The LM path served at full width, then checked at 4 layers.
+
+    starcoder2-3b (30 layers, d_model 3072, 24 query / 2 KV heads of 128,
+    d_ff 12,288, vocab 49,152) and RWKV6-3B as an LM (32 layers, d_model
+    2560, 40 heads of 64, vocab 65,536), float32 weights from a seed, the
+    published bfloat16 stream and cache, batch ``LM_BATCH``:
+    starcoder2-3b's cache-free ``forward`` at ``LM_PROMPT`` tokens (flash,
+    causal, GQA 12:1, one launch a layer), then ``prefill`` of
+    ``LM_PROMPT`` tokens and ``LM_DECODE`` greedy ``decode_step`` s (the
+    cached attention is the plain one: no launch); RWKV6's ``prefill`` of
+    ``LM_PROMPT`` tokens (one WKV launch a layer), a ragged one of
+    ``LM_RAGGED`` (three chunks through the kernel, the tail sequential:
+    one launch a layer), one of ``LM_SHORT`` (under one chunk: no
+    launch) and ``LM_DECODE`` decode steps (no launch). One more forward
+    and two prefills with every kernel call held against its plain
+    version. Then the 4-layer consistency checks (``_lm_consistency``),
+    ``launch.serve.main`` on the card (``--mode lm`` for both archs at
+    full width, ``--mode diffusion --requests 8``), one decode step and one
+    prefill of each arch under torch.profiler, and the kernels' times at
+    the LM's shapes."""
+    import gc
+    import io
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "lm_path", "stream": "bfloat16 (published)",
+                    "cache": "bfloat16 (published)", "weights": "float32"}
+    held: dict = {}
+    checks: dict = {}
+    ops.reset_launch_counts()  # the LM main-path window starts here
+    t_phase = time.perf_counter()
+    for arch in ("starcoder2-3b", "rwkv6-3b"):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t = time.perf_counter()
+        params = _lm_params(model, dev)
+        torch.cuda.synchronize()
+        r: dict = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "vocab": cfg.vocab_size, "weights_s":
+                   time.perf_counter() - t,
+                   "params": sum(t_.numel() for t_ in _leaves(params))}
+        g = torch.Generator(dev).manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                               generator=g, device=dev)
+        per_layer = {"flash_attention": 0, "rwkv6_wkv": 0} | (
+            {"flash_attention": cfg.n_layers} if arch == "starcoder2-3b"
+            else {"rwkv6_wkv": cfg.n_layers})
+        with torch.no_grad():
+            if arch == "starcoder2-3b":
+                fw = {}
+                for i in range(2):
+                    _, secs, launches, _, _ = launch_window(
+                        lambda: model.forward(params, {"tokens": prompt}))
+                    fw[f"run{i}"] = {"seconds": secs, "launches": launches}
+                r["forward"] = fw
+                checks["forward_flash_launches"] = all(
+                    f["launches"] == only_launches(flash_attention=30)
+                    for f in fw.values())
+                with held_against_plain(held):
+                    model.forward(params, {"tokens": prompt})
+            served = _lm_served(model, params, prompt, LM_DECODE)
+            r["served"] = served
+            want_prefill = only_launches(
+                rwkv6_wkv=per_layer["rwkv6_wkv"])
+            checks[f"{arch}_prefill_launches"] = \
+                served["prefill_launches"] == want_prefill
+            checks[f"{arch}_decode_no_launch"] = \
+                served["decode_launches"] == only_launches()
+            checks[f"{arch}_finite"] = served["finite"]
+            r["profile_decode_step"] = _profile_solve(
+                lambda: model.decode_step(
+                    params, prompt[:, :1],
+                    model.init_cache(LM_BATCH, LM_PROMPT + 1, device=dev),
+                    LM_PROMPT))
+            if arch == "rwkv6-3b":
+                for name, T, launches in (
+                        ("ragged", LM_RAGGED, cfg.n_layers),
+                        ("short", LM_SHORT, 0)):
+                    out, secs, got, _, _ = launch_window(
+                        lambda: model.prefill(
+                            params, {"tokens": prompt[:, :T]},
+                            model.init_cache(LM_BATCH, device=dev)))
+                    r[f"prefill_{name}"] = {
+                        "tokens": T, "seconds": secs, "launches": got,
+                        "finite": bool(torch.isfinite(out[0]).all())}
+                    checks[f"rwkv6_{name}_prefill"] = got == only_launches(
+                        rwkv6_wkv=launches) and r[f"prefill_{name}"]["finite"]
+                with held_against_plain(held):
+                    for T in (LM_PROMPT, LM_RAGGED):
+                        model.prefill(params, {"tokens": prompt[:, :T]},
+                                      model.init_cache(LM_BATCH, device=dev))
+            r["profile_prefill"] = _profile_solve(
+                lambda: model.prefill(
+                    params, {"tokens": prompt},
+                    model.init_cache(LM_BATCH, LM_PROMPT, device=dev)))
+        result[arch] = r
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    result["consistency"] = {arch: _lm_consistency(arch)
+                             for arch in ("starcoder2-3b", "rwkv6-3b")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks["consistency"] = all(c["ok"] for c in
+                                result["consistency"].values())
+
+    cli = {}
+    for name, argv in (
+            ("lm_starcoder2-3b", ["--mode", "lm", "--arch", "starcoder2-3b",
+                                  "--batch", "8", "--gen", "8"]),
+            ("lm_rwkv6-3b", ["--mode", "lm", "--arch", "rwkv6-3b",
+                             "--batch", "8", "--prompt-len", "100",
+                             "--gen", "8"]),
+            ("diffusion", ["--mode", "diffusion", "--requests", "8"])):
+        buf = io.StringIO()
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        cli[name] = {"argv": argv, "seconds": time.perf_counter() - t,
+                         "launches": {k: after[k] - before[k] for k in after},
+                         "printed": buf.getvalue().strip().splitlines()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["launch_serve"] = cli
+    checks["serve_lm_rwkv6_wkv"] = cli["lm_rwkv6-3b"]["launches"] == \
+        only_launches(rwkv6_wkv=32)
+    checks["serve_lm_printed"] = all(
+        any(ln.startswith("sample token ids:") for ln in
+            cli[n]["printed"]) for n in ("lm_starcoder2-3b",
+                                             "lm_rwkv6-3b"))
+    checks["serve_diffusion_printed"] = any(
+        ln.startswith("served 8 requests") for ln in
+        cli["diffusion"]["printed"])
+    state["launches"]["lm"] = ops.launch_counts()  # window ends
+    state["held"]["lm"] = held
+    result["launches"] = state["launches"]["lm"]
+    checks["held"] = all(h["ok"] for h in held.values()) and held.get(
+        "flash_attention", {}).get("calls") == 30 and held.get(
+        "rwkv6_wkv", {}).get("calls") == 64
+    result["held_against_plain"] = held
+    result["kernel_times"] = lm_kernel_times()
+    result["seconds"] = time.perf_counter() - t_phase
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], f"lm_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
@@ -3870,6 +4219,7 @@ def main() -> int:
     phase_rwkv6_path(state)
     emit(phase_rwkv6_profile(state))
     phase_train_path(state)
+    phase_lm_path(state)
 
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if state["launches"][path][k] == 0]

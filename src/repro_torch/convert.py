@@ -1,13 +1,15 @@
-"""Carry parameters from the JAX reference into the port.
+"""Carry parameters and serving caches from the JAX reference into the port.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is leaf by leaf: every leaf the port's model declares is taken from the
 reference tree (numpy arrays, e.g. from ``jax.device_get(params)``) with
 its shape checked, and any leaf the model does not declare is an error.
-Without a model, an RWKV6 tree (``blocks/tm``) is built from its shapes.
-A transformer tree (``blocks/attn``) needs ``model=`` or the reference's
-config: the block's activation, gating, RoPE and logit soft-capping leave
-no trace in the shapes, and the port computes only the DiT's.
+Without a model, an RWKV6 tree (``blocks/tm``; an LM, or a denoiser when
+it has ``denoiser/``) is built from its shapes. A transformer tree
+(``blocks/attn``) needs ``model=`` or the reference's config: the block's
+activation, gating, RoPE and logit soft-capping leave no trace in the
+shapes. ``cache_from_jax`` carries a KV cache or an RWKV6 state across,
+so that one package can prefill and the other decode.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .models.common import ParamDef
 from .models.rwkv6 import RWKV6, RWKV6Config
 from .models.transformer import LMConfig, TransformerLM
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "cache_from_jax"]
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -31,27 +33,28 @@ def _flatten(tree, prefix=()) -> dict:
     return {prefix: tree}
 
 
-_LM_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
-              "head_dim", "d_ff", "vocab_size", "act", "gated_mlp",
-              "rope_type", "attn_logit_softcap", "remat", "denoiser_latent",
-              "denoiser_cond")
+#: the reference LMConfig's fields the port's takes as they are (its
+#: dtypes are JAX's and stay the port's defaults)
+_LM_FIELDS = ("name", "family", "n_layers", "d_model", "n_heads",
+              "n_kv_heads", "head_dim", "d_ff", "vocab_size", "act",
+              "gated_mlp", "rope_theta", "rope_type", "mrope_sections",
+              "tie_embeddings", "embed_scale", "attn_logit_softcap", "moe",
+              "mla", "n_dense_layers", "mtp", "mtp_weight", "input_mode",
+              "remat", "denoiser_latent", "denoiser_cond")
 
 
 def _dit_from_config(config) -> TransformerLM:
-    """The port's transformer for the reference's ``LMConfig``; raises
-    ``NotImplementedError`` for what the port does not compute."""
-    absent = {k: getattr(config, k) for k in ("moe", "mla")
-              if getattr(config, k, None) is not None}
-    if absent:
-        raise NotImplementedError(
-            f"the PyTorch port's transformer has no {sorted(absent)} "
-            f"({config.name})")
+    """The port's transformer (the DiT, or an LM) for the reference's
+    ``LMConfig``; raises
+    ``NotImplementedError`` for what the port does not compute (MoE, MLA,
+    multi-token prediction, M-RoPE)."""
     return TransformerLM(LMConfig(**{k: getattr(config, k)
                                      for k in _LM_FIELDS}))
 
 
 def _rwkv6_from_tree(tree) -> RWKV6:
-    """The RWKV6 denoiser whose parameter schema has the tree's shapes."""
+    """The RWKV6 (a denoiser when the tree has ``denoiser/``, else an LM)
+    whose parameter schema has the tree's shapes."""
     tm = tree["blocks"]["tm"]
     L, d = np.shape(tree["blocks"]["ln1"])
     return RWKV6(RWKV6Config(
@@ -60,14 +63,23 @@ def _rwkv6_from_tree(tree) -> RWKV6:
         vocab_size=np.shape(tree["embed"])[0],
         decay_lora=np.shape(tm["wa"])[2],
         tshift_lora=np.shape(tm["ts_w2"])[2],
-        denoiser_latent=np.shape(tree["denoiser"]["in_proj"])[0]))
+        denoiser_latent=(np.shape(tree["denoiser"]["in_proj"])[0]
+                         if "denoiser" in tree else None)))
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, exact in f32
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 
 
 def params_from_jax(tree, model=None, *, config=None,
                     device="cpu") -> dict:
     """The port's parameter dict from the reference tree, for ``model``;
     without one, for the transformer of the reference's ``config`` (its
-    ``LMConfig``) or, for an RWKV6 tree, the denoiser whose shapes the
+    ``LMConfig``) or, for an RWKV6 tree, the model whose shapes the
     tree has.
 
     Raises ``ValueError`` for a transformer tree given neither ``model``
@@ -87,7 +99,7 @@ def params_from_jax(tree, model=None, *, config=None,
             raise ValueError(f"leaf {'/'.join(path)}: reference shape "
                              f"{arr.shape}, port expects {pd.shape}")
         consumed.add(path)
-        return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
+        return _tensor(arr, device)
 
     def walk(defs, path=()):
         if isinstance(defs, ParamDef):
@@ -109,3 +121,13 @@ def params_from_jax(tree, model=None, *, config=None,
     if extra:
         raise ValueError(f"reference leaves not consumed by the port: {extra}")
     return params
+
+
+def cache_from_jax(tree, device="cpu") -> dict:
+    """The port's serving cache from the reference's, leaf by leaf (numpy
+    arrays, e.g. from ``jax.device_get(cache)``): a transformer's KV cache
+    ``{"blocks": {"k", "v"}}`` or an RWKV6 state ``{"S", "tm_shift",
+    "cm_shift"}``, same tree, shapes and dtypes (bfloat16 included)."""
+    if isinstance(tree, dict):
+        return {k: cache_from_jax(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)

@@ -116,7 +116,8 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
     if weights == "tame":
         if isinstance(cfg, LMConfig):
             model, params, mu = tame_dit(arch, smoke=smoke, seed=seed,
-                                         device=device, **opts)
+                                         latent=latent, device=device,
+                                         **opts)
         else:
             model, params, mu = tame_rwkv6(arch, smoke=smoke, seed=seed,
                                            latent=latent, device=device,

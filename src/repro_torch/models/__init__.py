@@ -1,9 +1,15 @@
-"""Models of the port: the denoiser backbones SA-Solver samples through
-(the DiT transformer with its attention, and RWKV6), their shared layers
-and their contractive test weights.
+"""Models of the port: the dense transformer (an LM, or the DiT denoiser
+SA-Solver samples through) with its attention, and RWKV6 (an LM, or a
+denoiser backbone), their shared layers and their contractive test
+weights. The shared, duck-typed API:
 
     param_defs() -> ParamDef tree (stacked [L, ...] block params)
-    denoise(params, z, t) -> x0-hat
+    forward(params, batch) -> (logits, aux)                 (LM mode)
+    loss_fn(params, batch) -> scalar
+    cache_shapes(batch, s_max) / init_cache(batch, s_max, device=None)
+    prefill(params, batch, cache) -> (last_logits, cache)
+    decode_step(params, tokens, cache, index) -> (logits, cache)
+    denoise(params, z, t) -> x0-hat                          (denoiser mode)
 
 ``build_model(cfg)`` dispatches on the config type.
 """

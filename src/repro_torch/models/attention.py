@@ -1,12 +1,21 @@
-"""GQA/MQA/MHA self-attention, the no-cache path the DiT denoiser runs.
+"""GQA/MQA/MHA self-attention with RoPE and logit soft-capping, with and
+without a KV cache.
 
-``gqa_forward`` projects q/k/v, attends, and projects back. The attention
-itself goes through ``kernels.ops.flash_attention`` (the Hopper kernel on
-a CUDA tensor, its plain version on a CPU tensor) or through ``_sdpa``,
-the plain PyTorch attention of the reference: ``AttentionConfig.use_flash``
-True or False picks one, and None (the default) takes the kernel for CUDA
-tensors and ``_sdpa`` for CPU tensors. RoPE/M-RoPE, logit soft-capping, MLA
-and the KV-cache decode path come with the LM-zoo slice of the port.
+``gqa_forward`` projects q/k/v, rotates q and k (RoPE), attends, and
+projects back. Without a cache (the DiT's bidirectional blocks, the LM's
+causal ``forward``) the attention goes through
+``kernels.ops.flash_attention`` (the Hopper kernel on a CUDA tensor, its
+plain version on a CPU tensor) or through ``_sdpa``, the plain PyTorch
+attention of the reference: ``AttentionConfig.use_flash`` True or False
+picks one, and None (the default) takes the kernel for CUDA tensors and
+``_sdpa`` for CPU tensors. A soft-capped config always takes ``_sdpa``,
+as in the reference. With a cache (prefill and decode) the new keys and
+values are written into the preallocated cache in place and ``_sdpa``
+attends over its valid positions.
+
+Cache layout (per layer; stacked over layers by the caller):
+    k, v  [B, S_max, K, hd]
+M-RoPE and DeepSeek's MLA come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,9 +26,9 @@ import math
 import torch
 
 from ..kernels import ops as kops
-from .common import ParamDef, promote_einsum
+from .common import ParamDef, apply_rope, promote_einsum
 
-__all__ = ["AttentionConfig", "attn_defs", "gqa_forward"]
+__all__ = ["AttentionConfig", "attn_defs", "cache_shape", "gqa_forward"]
 
 NEG_INF = -2.0**30
 
@@ -30,11 +39,21 @@ class AttentionConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int
+    rope_theta: float = 10000.0
+    rope_type: str = "rope"  # "rope" | "none" ("mrope" comes later)
     causal: bool = True
+    attn_logit_softcap: float | None = None
     #: route the no-cache path through kernels.ops.flash_attention (True),
     #: through _sdpa (False), or by the tensors' device (None: the kernel
     #: for CUDA tensors)
     use_flash: bool | None = None
+
+    def __post_init__(self):
+        if self.rope_type not in ("rope", "none"):
+            raise NotImplementedError(
+                f"rope_type={self.rope_type!r}: the PyTorch port computes "
+                "'rope' and 'none'; M-RoPE (qwen2-vl, mrope_sections) comes "
+                "with a later slice")
 
 
 def attn_defs(cfg: AttentionConfig) -> dict:
@@ -47,50 +66,112 @@ def attn_defs(cfg: AttentionConfig) -> dict:
     }
 
 
-def _sdpa(q, k, v, *, causal: bool, q_chunk: int = 256):
+def cache_shape(cfg: AttentionConfig, batch: int, s_max: int,
+                dtype=torch.bfloat16) -> dict:
+    """One layer's cache, ``{name: (shape, dtype)}`` (the caller stacks
+    the layers)."""
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None,
+          softcap=None, q_chunk: int = 256):
     """q [B,S,H,hd]; k,v [B,T,K,hd]. Long sequences run q-chunked (live
-    scores bounded to [B,H,q_chunk,T]); shorter ones in one block."""
+    scores bounded to [B,H,q_chunk,T]), each chunk at its own offset;
+    shorter ones in one block."""
     S = q.shape[1]
     if S > q_chunk and S % q_chunk == 0:
         return torch.cat([
-            _sdpa_block(q[:, c:c + q_chunk], k, v, causal=causal, q_offset=c)
+            _sdpa_block(q[:, c:c + q_chunk], k, v, causal=causal,
+                        q_offset=q_offset + c, kv_len=kv_len,
+                        softcap=softcap)
             for c in range(0, S, q_chunk)], dim=1)
-    return _sdpa_block(q, k, v, causal=causal)
+    return _sdpa_block(q, k, v, causal=causal, q_offset=q_offset,
+                       kv_len=kv_len, softcap=softcap)
 
 
-def _sdpa_block(q, k, v, *, causal: bool, q_offset: int = 0):
+def _sdpa_block(q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None,
+                softcap=None):
     """q [B,S,H,hd]; k,v [B,T,K,hd] (K divides H). Returns [B,S,H,hd_v].
-    ``q_offset`` is the absolute position of q[0] for causal masking."""
+
+    ``q_offset`` is the absolute position of q[0] for causal masking;
+    ``kv_len`` the number of valid cache positions (positions >= kv_len
+    are masked); ``softcap`` caps the logits at ``softcap * tanh(s /
+    softcap)``."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     scores = scores / math.sqrt(hd)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    tpos = torch.arange(T, device=q.device)
+    mask = None
     if causal:
-        tpos = torch.arange(T, device=q.device)
         spos = torch.arange(S, device=q.device) + q_offset
-        scores = scores.masked_fill(~(tpos[None, :] <= spos[:, None]), NEG_INF)
+        mask = tpos[None, :] <= spos[:, None]  # [S, T]
+    if kv_len is not None:
+        valid = (tpos < kv_len)[None, :]
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
 
 
+def _positions(seq: int, offset: int, device):
+    """[1, seq] absolute positions from ``offset``."""
+    return torch.arange(seq, device=device)[None, :] + offset
+
+
+# ---------------------------------------------------------------------------
+# GQA forward (train / prefill / decode)
+# ---------------------------------------------------------------------------
+
+
 def gqa_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
-                causal: bool | None = None) -> torch.Tensor:
-    """x [B,S,d] -> [B,S,d]: full self-attention, causal per ``cfg`` unless
-    ``causal`` overrides it. A bfloat16 stream times float32 weights
-    projects in float32, as in the reference."""
+                positions: torch.Tensor | None = None,
+                cache: dict | None = None, cache_index: int | None = None,
+                causal: bool | None = None):
+    """x [B,S,d] -> ``(y [B,S,d], cache)``. Without a cache: full
+    self-attention, causal per ``cfg`` unless ``causal`` overrides it.
+    With one: k/v are written at ``cache_index .. cache_index + S`` of
+    the cache in place, and the queries attend over its first
+    ``cache_index + S`` positions (prefill S > 1, decode S = 1); the
+    returned cache is the one given. A bfloat16 stream times float32
+    weights projects in float32, as in the reference."""
+    B, S, _ = x.shape
     causal = cfg.causal if causal is None else causal
+    offset = 0 if cache_index is None else int(cache_index)
     q = promote_einsum("bsd,dhk->bshk", x, p["wq"])
     k = promote_einsum("bsd,dhk->bshk", x, p["wk"])
     v = promote_einsum("bsd,dhk->bshk", x, p["wv"])
-    flash = q.is_cuda if cfg.use_flash is None else cfg.use_flash
-    if flash:
-        o = kops.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=causal)
-        out = o.transpose(1, 2)
+    if cfg.rope_type == "rope":
+        if positions is None:
+            positions = _positions(S, offset, x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        flash = q.is_cuda if cfg.use_flash is None else cfg.use_flash
+        if flash and cfg.attn_logit_softcap is None:
+            o = kops.flash_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), causal=causal)
+            out = o.transpose(1, 2)
+        else:
+            out = _sdpa(q, k, v, causal=causal,
+                        softcap=cfg.attn_logit_softcap)
     else:
-        out = _sdpa(q, k, v, causal=causal)
-    return promote_einsum("bshk,hkd->bsd", out, p["wo"])
+        cache["k"][:, offset:offset + S] = k.to(cache["k"].dtype)
+        cache["v"][:, offset:offset + S] = v.to(cache["v"].dtype)
+        out = _sdpa(q, cache["k"], cache["v"], causal=causal, q_offset=offset,
+                    kv_len=offset + S, softcap=cfg.attn_logit_softcap)
+    return promote_einsum("bshk,hkd->bsd", out, p["wo"]), cache

@@ -1,5 +1,6 @@
-"""Shared model machinery of the denoiser backbones: parameter schemas and
-initialisation, and the functional layers (RMSNorm, LayerNorm, MLP).
+"""Shared model machinery of the backbones: parameter schemas and
+initialisation, and the functional layers (RMSNorm, LayerNorm, the MLP
+with its activations, RoPE, the LM losses).
 
 Parameters are declared once as ``ParamDef(shape, axes, init, scale)``
 and materialised by :func:`init_params` into a nested dict of tensors with
@@ -11,15 +12,18 @@ leaf.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["ParamDef", "init_params", "tree_defs_map", "layer_of", "unstack",
-           "rms_norm", "layer_norm", "mlp_defs", "mlp_apply", "promote_matmul",
-           "promote_einsum"]
+           "rms_norm", "layer_norm", "ACTIVATIONS", "mlp_defs", "mlp_apply",
+           "promote_matmul", "promote_einsum", "rope_frequencies",
+           "apply_rope", "softmax_cross_entropy", "chunked_lm_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,15 +115,91 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     return (x * weight.float() + bias.float()).to(dt)
 
 
-def mlp_defs(d_model: int, d_ff: int) -> dict:
-    """The DiT MLP: ungated, GELU (the gated variants belong to the LM zoo)."""
-    return {
-        "wi": ParamDef((d_model, d_ff), ("embed", "mlp"), "scaled"),
-        "wo": ParamDef((d_ff, d_model), ("mlp", "embed"), "scaled"),
-    }
+def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
+    """The [hd/2] rotary frequencies, computed in float64 as the
+    reference does (rounded to float32 where they are used)."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
 
 
-def mlp_apply(p: dict, x):
-    # jax.nn.gelu, the reference's activation, defaults to the tanh form
-    h = F.gelu(promote_matmul(x, p["wi"]), approximate="tanh")
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: [..., S, H, hd]; positions: integer, broadcastable to [..., S].
+    The angles in float32, the rotation of the two halves of the head dim
+    in float32, the result in ``x``'s dtype."""
+    hd = x.shape[-1]
+    freqs = torch.as_tensor(rope_frequencies(hd, theta), dtype=torch.float32,
+                            device=x.device)
+    ang = positions[..., :, None].to(torch.float32) * freqs  # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+#: the reference's activations by name (``jax.nn.gelu`` defaults to the
+#: tanh form)
+ACTIVATIONS = {
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "silu": F.silu,
+    "relu": F.relu,
+    "relu2": _relu2,
+}
+
+
+def mlp_defs(d_model: int, d_ff: int, gated: bool = False) -> dict:
+    """The MLP's weights: ``wi`` and ``wo``, and the gate ``wg`` when
+    ``gated`` (the default, ungated, is the DiT's)."""
+    defs = {"wi": ParamDef((d_model, d_ff), ("embed", "mlp"), "scaled")}
+    if gated:
+        defs["wg"] = ParamDef((d_model, d_ff), ("embed", "mlp"), "scaled")
+    defs["wo"] = ParamDef((d_ff, d_model), ("mlp", "embed"), "scaled")
+    return defs
+
+
+def mlp_apply(p: dict, x, act: str = "gelu", gated: bool = False):
+    """``act(x wg) * (x wi)`` when gated, else ``act(x wi)``, then ``wo``
+    (the defaults are the DiT's MLP); a bfloat16 stream times float32
+    weights computes in float32."""
+    f = ACTIVATIONS[act]
+    h = promote_matmul(x, p["wi"])
+    h = f(promote_matmul(x, p["wg"])) * h if gated else f(h)
     return promote_matmul(h, p["wo"])
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits [..., V] (any dtype; upcast), labels int [...]: the mean
+    negative log-likelihood over ``mask`` (all positions without one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def chunked_lm_loss(hidden, head_w, labels, mask=None, *, chunk: int = 512):
+    """Sequence-chunked LM loss: the logits of one S-chunk at a time, so
+    the live logits are [B, chunk, V], not [B, S, V]. hidden [B, S, d]
+    (post-norm), head_w [d, V]. Returns the mean nll over ``mask``. S that
+    ``chunk`` does not divide, or not above one chunk, takes the whole
+    head at once, as in the reference."""
+    B, S, d = hidden.shape
+    if S % chunk or S <= chunk:
+        logits = promote_matmul(hidden, head_w).float()
+        return softmax_cross_entropy(logits, labels, mask)
+    sums = cnts = 0.0
+    for c0 in range(0, S, chunk):
+        logits = promote_matmul(hidden[:, c0:c0 + chunk], head_w).float()
+        nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+            logits, -1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+        mc = torch.ones_like(nll) if mask is None \
+            else mask[:, c0:c0 + chunk].float()
+        sums = sums + torch.sum(nll * mc)
+        cnts = cnts + torch.sum(mc)
+    return sums / torch.clamp(cnts, min=1.0)

@@ -1,5 +1,5 @@
-"""RWKV-6 "Finch" (arXiv:2404.05892) as an SA-Solver denoiser backbone:
-attention-free, with data-dependent decay and token-shift ddlerp.
+"""RWKV-6 "Finch" (arXiv:2404.05892): attention-free LM with data-dependent
+decay and token-shift ddlerp, also an SA-Solver denoiser backbone.
 
 Time-mixing recurrence, per head with state S in R^{hd x hd}:
 
@@ -10,17 +10,27 @@ where w_t = exp(-exp(w0 + lora(x-shifted))) in (0, 1) is the per-channel
 data-dependent decay. Two equivalent evaluation paths:
 
   - ``wkv_sequential``: the exact recurrence, one token at a time (the
-    oracle, and the path for T not above one chunk);
+    oracle, decode, and the path for T not above one chunk);
   - ``wkv_chunked``: chunks of C tokens with intra-chunk pairwise
     log-decay differences, all exponents <= 0 (overflow-safe).
 
 ``RWKV6Config.use_kernel`` routes the chunked path through
 ``kernels.ops.wkv`` (the Hopper kernel on a CUDA tensor, its plain version
-on a CPU tensor) when True, through the plain paths above when False,
-and by the tensors' device when None (the default): the kernel for CUDA
-tensors, which raises for a T that chunks do not divide. ``denoise`` runs the causal stack forward and on the
-time-reversed sequence and averages the two. The LM entry points
-(forward, loss, prefill, decode_step) come with a later slice.
+on a CPU tensor): True sends every chunked call there (the reference's
+``use_pallas``: it raises for a T that chunks do not divide); False keeps
+the reference's plain routing; None (the default) takes the kernel on
+CUDA tensors for the whole chunks of T and finishes the ``T mod C``
+tokens left with ``wkv_sequential`` from the kernel's state
+(``wkv_whole_chunks``), so any T runs, and the plain routing on CPU
+tensors.
+
+LM entry points: ``forward``/``loss_fn`` over a zero state, ``prefill``
+(the prompt through the chunked path) and ``decode_step`` (one token
+through the recurrence) against the per-layer state cache
+``{"S": [L, B, H, hd, hd], "tm_shift": [L, B, d], "cm_shift": [L, B, d]}``,
+O(1) in the context length; both return a new cache. ``denoise`` runs the
+causal stack forward and on the time-reversed sequence and averages the
+two.
 """
 
 from __future__ import annotations
@@ -32,11 +42,12 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.rwkv6_scan import rwkv6_wkv_plain
-from .common import ParamDef, layer_norm, layer_of, tree_defs_map
+from .common import (ParamDef, layer_norm, layer_of, promote_matmul,
+                     softmax_cross_entropy, tree_defs_map)
 from .transformer import timestep_embedding
 
 __all__ = ["RWKV6Config", "RWKV6", "wkv_sequential", "wkv_chunked",
-           "group_norm"]
+           "wkv_whole_chunks", "group_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +68,8 @@ class RWKV6Config:
     dtype: torch.dtype = torch.bfloat16
     #: run the chunked WKV through kernels.ops.wkv (the counterpart of the
     #: reference's ``use_pallas``): True, False, or None for the kernel on
-    #: CUDA tensors and the plain paths on CPU tensors
+    #: the whole chunks of CUDA tensors (``wkv_whole_chunks``) and the
+    #: plain paths on CPU tensors
     use_kernel: bool | None = None
     #: latent width of the denoiser's continuous input/output heads
     denoiser_latent: int | None = None
@@ -94,6 +106,25 @@ def wkv_chunked(r, k, v, logw, u, S0, chunk: int = 32):
     return rwkv6_wkv_plain(r, k, v, logw, u, S0, chunk=chunk)
 
 
+def wkv_whole_chunks(r, k, v, logw, u, S0, chunk: int):
+    """Any T: the whole chunks of T through ``kernels.ops.wkv`` (the
+    kernel on a CUDA tensor, its plain version on a CPU tensor), then the
+    ``T mod chunk`` tokens left through ``wkv_sequential`` from the state
+    those chunks leave; T below one chunk runs ``wkv_sequential`` alone.
+    The reference's function for every T, rounded in another order."""
+    T = r.shape[1]
+    n = T - T % chunk
+    if n == 0:
+        return wkv_sequential(r, k, v, logw, u, S0)
+    if n == T:
+        return kops.wkv(r, k, v, logw, u, S0, chunk=chunk)
+    head = [a[:, :n].contiguous() for a in (r, k, v, logw)]
+    y, S = kops.wkv(*head, u, S0, chunk=chunk)
+    y_tail, S = wkv_sequential(r[:, n:], k[:, n:], v[:, n:], logw[:, n:],
+                               u, S)
+    return torch.cat([y, y_tail], dim=1), S
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -117,10 +148,6 @@ def group_norm(x, gamma, beta, n_groups, eps=64e-5):
 
 class RWKV6:
     def __init__(self, cfg: RWKV6Config):
-        if cfg.denoiser_latent is None:
-            raise NotImplementedError(
-                "the PyTorch port runs RWKV6 in denoiser mode only "
-                "(denoiser_latent set); the LM path comes later")
         self.cfg = cfg
 
     # -- parameters ------------------------------------------------------
@@ -162,7 +189,7 @@ class RWKV6:
     def param_defs(self) -> dict:
         cfg = self.cfg
         d, dz = cfg.d_model, cfg.denoiser_latent
-        return {
+        out = {
             "embed": ParamDef((cfg.vocab_size, d), ("vocab", "embed"),
                               "normal", 0.02),
             "ln_in": ParamDef((d,), (None,), "ones"),
@@ -175,13 +202,15 @@ class RWKV6:
             "ln_fb": ParamDef((d,), (None,), "zeros"),
             "lm_head": ParamDef((d, cfg.vocab_size), ("embed", "vocab"),
                                 "scaled"),
-            "denoiser": {
+        }
+        if dz is not None:
+            out["denoiser"] = {
                 "in_proj": ParamDef((dz, d), (None, "embed"), "scaled"),
                 "out_proj": ParamDef((d, dz), ("embed", None), "zeros"),
                 "t_mlp1": ParamDef((256, d), (None, "embed"), "scaled"),
                 "t_mlp2": ParamDef((d, d), ("embed", None), "scaled"),
-            },
-        }
+            }
+        return out
 
     # -- blocks ----------------------------------------------------------
     def _time_mix(self, p, x, shift_state, S0, *, chunked: bool):
@@ -204,9 +233,11 @@ class RWKV6:
         v = (xv @ p["wv"]).reshape(B, T, H, hd)
         g = F.silu(xg @ p["wg"])
 
-        kernel = r.is_cuda if cfg.use_kernel is None else cfg.use_kernel
-        if kernel and chunked:
+        if chunked and cfg.use_kernel:
             y, S = kops.wkv(r, k, v, logw, p["u"], S0, chunk=cfg.chunk_size)
+        elif chunked and cfg.use_kernel is None and r.is_cuda:
+            y, S = wkv_whole_chunks(r, k, v, logw, p["u"], S0,
+                                    cfg.chunk_size)
         elif chunked and T % cfg.chunk_size == 0 and T > cfg.chunk_size:
             y, S = wkv_chunked(r, k, v, logw, p["u"], S0, cfg.chunk_size)
         else:
@@ -247,9 +278,10 @@ class RWKV6:
         return x, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     # -- public API --------------------------------------------------------
-    def cache_shapes(self, batch: int) -> dict:
+    def cache_shapes(self, batch: int, s_max: int = 0) -> dict:
         """Per-layer recurrent state, ``{name: (shape, dtype)}``: O(1) in
-        the sequence length."""
+        the sequence length (``s_max`` is taken for the transformer's
+        signature and unused)."""
         cfg = self.cfg
         L, H, hd, d = cfg.n_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
         return {
@@ -258,15 +290,54 @@ class RWKV6:
             "cm_shift": ((L, batch, d), torch.float32),
         }
 
-    def init_cache(self, batch: int, device=None) -> dict:
+    def init_cache(self, batch: int, s_max: int = 0, device=None) -> dict:
         return {k: torch.zeros(shape, dtype=dt, device=device)
                 for k, (shape, dt) in self.cache_shapes(batch).items()}
+
+    def _lm(self, params, x, cache, *, chunked: bool):
+        """Embedded tokens through the stack and the LM head ->
+        ``(logits float32, new cache)``."""
+        x, cache = self._run(params, x, cache, chunked=chunked)
+        return promote_matmul(x, params["lm_head"]).float(), cache
+
+    def forward(self, params, batch):
+        """batch ``tokens`` [B, S] -> ``(logits [B, S, V] float32, aux)``
+        from a zero state; aux is a float32 zero."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens].to(self.cfg.dtype)
+        cache = self.init_cache(x.shape[0], device=x.device)
+        logits, _ = self._lm(params, x, cache, chunked=True)
+        return logits, x.new_zeros((), dtype=torch.float32)
+
+    def loss_fn(self, params, batch):
+        """Next-token loss against ``batch["labels"]``, the mean over
+        ``batch.get("mask")``."""
+        logits, _ = self.forward(params, batch)
+        return softmax_cross_entropy(logits, batch["labels"],
+                                     batch.get("mask"))
+
+    def prefill(self, params, batch, cache):
+        """The prompt ``batch["tokens"]`` [B, S] from ``cache``'s state ->
+        ``(last logits [B, 1, V], new cache)``."""
+        x = params["embed"][batch["tokens"]].to(self.cfg.dtype)
+        x, cache = self._run(params, x, cache, chunked=True)
+        return promote_matmul(x[:, -1:], params["lm_head"]).float(), cache
+
+    def decode_step(self, params, tokens, cache, index=None):
+        """tokens [B, 1] -> ``(logits [B, 1, V], new cache)``; ``index``
+        is unused (the state carries the whole context)."""
+        del index
+        x = params["embed"][tokens].to(self.cfg.dtype)
+        return self._lm(params, x, cache, chunked=False)
 
     def denoise(self, params, z, t):
         """z [B, S, dz], t scalar (or [B]) -> x0 prediction [B, S, dz]
         (float32). The causal recurrence runs forward and on the reversed
         sequence, and the two are averaged (the bidirectional adaptation)."""
         cfg = self.cfg
+        if cfg.denoiser_latent is None:
+            raise ValueError(f"{cfg.name} is built as an LM; denoise needs "
+                             "denoiser_latent set")
         dp = params["denoiser"]
         B = z.shape[0]
         t = torch.as_tensor(t, dtype=torch.float32,

@@ -105,7 +105,8 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
              adaln_scale: float = 0.003, out_div: float = 50.0,
              t_damp: tuple[float, float] = (0.1, 0.3),
              use_flash: bool | None = None,
-             denoiser_cond: int | None = None, device="cuda"):
+             denoiser_cond: int | None = None, latent: int = 16,
+             device="cuda"):
     """Build a DiT (smoke or full config) whose denoise map is contractive.
 
     The residual stream is float32, as in the reference's construction.
@@ -115,14 +116,16 @@ def tame_dit(arch: str = "dit-s", *, smoke: bool = True,
     unless ``device`` says otherwise; ``use_flash`` as on ``LMConfig``
     (None: the flash kernel on the card, the plain attention on the CPU);
     ``denoiser_cond`` makes the DiT class-conditional with a conditioning
-    vector of that width (``y_proj``).
+    vector of that width (``y_proj``); ``latent`` is the denoiser latent
+    width of an LM config (starcoder2-3b), which leaves it unset.
     """
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(
         cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
         dtype=torch.float32, use_flash=use_flash,
-        denoiser_cond=denoiser_cond)
+        denoiser_cond=denoiser_cond,
+        denoiser_latent=cfg.denoiser_latent or latent)
     return _tame(TransformerLM(cfg), seed, device, adaln_scale=adaln_scale,
                  out_div=out_div, t_damp=t_damp)
 

@@ -1,28 +1,43 @@
-"""Transformer backbone in denoiser mode (DiT): the part of the reference's
-``models/transformer.py`` that SA-Solver samples through.
+"""Decoder-only transformer: the LM (dense, GQA with RoPE and a KV cache)
+and the DiT denoiser, one class by config, after the reference's
+``models/transformer.py``.
 
     param_defs()                    -> ParamDef tree (blocks stacked [L, ...])
+    forward(params, batch)          -> (logits [B, S, V] float32, aux)
+    loss_fn(params, batch)          -> scalar next-token loss
+    cache_shapes(batch, s_max)      -> {name: (shape, dtype)} per layer stack
+    init_cache(batch, s_max, device=None) -> zero KV cache
+    prefill(params, batch, cache)   -> (last logits [B, 1, V], cache)
+    decode_step(params, tokens, cache, index) -> (logits [B, 1, V], cache)
     denoise(params, z, t, cond)     -> x0 prediction [B, S, dz]
     denoise_cached(params, z, t, cond, feats=, refresh=)
                                     -> (x0 prediction, features)
                                     (refresh: a bool, or a device flag
                                     per batch or per row)
 
-``denoise`` embeds the continuous latent, runs the block stack with
+LM mode (``denoiser_latent`` None) embeds tokens (or takes embeddings,
+``input_mode="embeds"``), runs the causal block stack (pre-norm
+attention and MLP) and projects through the LM head (or the tied
+embedding). ``prefill`` writes the prompt's keys and values into the
+preallocated cache in place and returns that cache; ``decode_step``
+writes one position at ``index``. Without a cache the attention runs
+through the flash kernel on the card (``AttentionConfig.use_flash``);
+with one, through the plain attention over the cache.
+
+Denoiser mode embeds the continuous latent, runs the block stack with
 bidirectional attention and adaLN conditioning on the time and, with
 ``denoiser_cond`` set, a class/text vector (``_tcond``, float32 end to
-end), and projects back. The layer loop walks the stacked [L, ...] block
-parameters, unbound once per call (so a backward stacks each leaf's
-gradient once); the reference scans over them. ``denoise_cached`` replays
-the mid-segment of the stack from a cached residual (DeepCache).
+end), and projects back. ``denoise_cached`` replays the mid-segment of
+the stack from a cached residual (DeepCache).
 
-Training differentiates ``denoise`` with autograd through the plain
-attention (``use_flash=False``, the reference's default): the kernels
-have no backward and refuse inputs that require grad. ``LMConfig.remat``
+The layer loop walks the stacked [L, ...] block parameters, unbound once
+per call (so a backward stacks each leaf's gradient once); the reference
+scans over them. Training differentiates through the plain attention
+(``use_flash=False``, the reference's default): the kernels have no
+backward and refuse inputs that require grad. ``LMConfig.remat``
 recomputes each block in the backward (``torch.utils.checkpoint``), as
-the reference's ``jax.checkpoint`` policies do. The LM entry points
-(forward, loss, prefill/decode) and MoE/MLA blocks come with later slices
-of the port.
+the reference's ``jax.checkpoint`` policies do. MoE, MLA, multi-token
+prediction and M-RoPE come with later slices of the port and are refused.
 """
 
 from __future__ import annotations
@@ -37,9 +52,10 @@ import torch.utils.checkpoint
 
 from ..kernels.graph_gate import run_if
 from ..tree import tree_leaves
-from .attention import AttentionConfig, attn_defs, gqa_forward
-from .common import (ParamDef, mlp_apply, mlp_defs, promote_matmul,
-                     rms_norm, tree_defs_map, unstack)
+from .attention import AttentionConfig, attn_defs, cache_shape, gqa_forward
+from .common import (ParamDef, chunked_lm_loss, layer_of, mlp_apply,
+                     mlp_defs, promote_matmul, rms_norm,
+                     softmax_cross_entropy, tree_defs_map, unstack)
 
 __all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
 
@@ -47,37 +63,48 @@ __all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str = "lm"
-    family: str = "dense"
+    family: str = "dense"  # dense | moe | audio | vlm
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
     n_kv_heads: int = 4
     head_dim: int | None = None  # default d_model // n_heads
     d_ff: int = 1024
-    #: size of the (unused in denoiser mode) token embedding and LM head,
-    #: kept so the parameter tree is the reference's
     vocab_size: int = 1024
-    #: the reference's block options, at the only values the port computes
-    #: (the DiT's: GELU-tanh, ungated MLP, no RoPE, no logit soft-capping);
-    #: TransformerLM refuses any other
-    act: str = "gelu"
-    gated_mlp: bool = False
-    rope_type: str = "none"
+    act: str = "silu"
+    gated_mlp: bool = True
+    rope_theta: float = 10000.0
+    rope_type: str = "rope"  # rope | none ("mrope" comes later: refused)
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
+    tie_embeddings: bool = False
+    embed_scale: bool = False  # gemma: scale embeddings by sqrt(d)
     attn_logit_softcap: float | None = None
+    #: the reference's MoE / MLA / first-k-dense / multi-token-prediction
+    #: fields; TransformerLM refuses any of them set (later slices)
+    moe: object | None = None
+    mla: object | None = None
+    n_dense_layers: int = 0
+    mtp: bool = False
+    mtp_weight: float = 0.3
+    #: "tokens" (default) or "embeds" (audio/vlm stub frontends)
+    input_mode: str = "tokens"
     #: activation checkpointing of each block under autograd: "none",
     #: "full" (save nothing, recompute the block in the backward) or
     #: "dots" (save the matmul outputs, recompute the rest)
     remat: str = "none"
     #: residual-stream dtype (the reference's compute dtype)
     dtype: torch.dtype = torch.bfloat16
+    #: KV-cache dtype
+    cache_dtype: torch.dtype = torch.bfloat16
     #: latent width of the denoiser's continuous input/output heads
+    #: (denoiser mode: time-conditioned, bidirectional); None: an LM
     denoiser_latent: int | None = None
     #: width of the denoiser's class/text conditioning vector (``y_proj``
     #: maps it into the adaLN signal); None: unconditional
     denoiser_cond: int | None = None
-    #: run the blocks' attention through the flash kernel (True), through
-    #: the plain attention (False), or by the tensors' device (None: the
-    #: kernel for CUDA tensors); the reference carries this on
+    #: run the no-cache attention through the flash kernel (True),
+    #: through the plain attention (False), or by the tensors' device
+    #: (None: the kernel for CUDA tensors); the reference carries this on
     #: AttentionConfig only
     use_flash: bool | None = None
 
@@ -89,7 +116,17 @@ class LMConfig:
         return AttentionConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+            rope_theta=self.rope_theta, rope_type=self.rope_type,
+            causal=True, attn_logit_softcap=self.attn_logit_softcap,
             use_flash=self.use_flash)
+
+
+#: LMConfig fields the port does not compute yet, each with its default
+#: and the reference arch that needs it
+_UNPORTED = {"moe": (None, "dbrx, deepseek-v3"),
+             "mla": (None, "deepseek-v3"),
+             "n_dense_layers": (0, "deepseek-v3"),
+             "mtp": (False, "deepseek-v3")}
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -129,18 +166,15 @@ def _remat_kwargs(remat: str) -> dict | None:
 
 class TransformerLM:
     def __init__(self, cfg: LMConfig):
-        if cfg.denoiser_latent is None:
-            raise NotImplementedError(
-                "the PyTorch port runs the transformer in denoiser mode "
-                "only (denoiser_latent set); the LM zoo comes later")
-        computed = {"act": "gelu", "gated_mlp": False, "rope_type": "none",
-                    "attn_logit_softcap": None}
-        other = {k: getattr(cfg, k) for k, v in computed.items()
-                 if getattr(cfg, k) != v}
-        if other:
-            raise NotImplementedError(
-                f"the PyTorch port's transformer computes {computed} only "
-                f"(the DiT block); {cfg.name} asks for {other}")
+        for field, (default, archs) in _UNPORTED.items():
+            if getattr(cfg, field) != default:
+                raise NotImplementedError(
+                    f"{cfg.name}: {field}={getattr(cfg, field)!r}; the "
+                    f"PyTorch port's transformer has no {field} yet ("
+                    f"{archs}: a later slice)")
+        if cfg.input_mode not in ("tokens", "embeds"):
+            raise ValueError(f"input_mode={cfg.input_mode!r}; expected "
+                             "'tokens' or 'embeds'")
         self.cfg = cfg
         self.acfg = cfg.attn_config()
         self._remat_kw = _remat_kwargs(cfg.remat)
@@ -150,14 +184,16 @@ class TransformerLM:
     # ------------------------------------------------------------------
     def _block_defs(self) -> dict:
         cfg = self.cfg
-        return {
+        d = {
             "ln1": ParamDef((cfg.d_model,), (None,), "zeros"),
             "ln2": ParamDef((cfg.d_model,), (None,), "zeros"),
             "attn": attn_defs(self.acfg),
-            "mlp": mlp_defs(cfg.d_model, cfg.d_ff),
-            "adaln": ParamDef((cfg.d_model, 6 * cfg.d_model),
-                              ("embed", None), "zeros"),
+            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp),
         }
+        if cfg.denoiser_latent is not None:
+            d["adaln"] = ParamDef((cfg.d_model, 6 * cfg.d_model),
+                                  ("embed", None), "zeros")
+        return d
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -169,10 +205,13 @@ class TransformerLM:
             "blocks": tree_defs_map(
                 lambda pd: ParamDef((L,) + pd.shape, (None,) + pd.axes,
                                     pd.init, pd.scale), self._block_defs()),
-            "lm_head": ParamDef((cfg.d_model, cfg.vocab_size),
-                                ("embed", "vocab"), "scaled"),
         }
+        if not cfg.tie_embeddings:
+            out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                      ("embed", "vocab"), "scaled")
         dz = cfg.denoiser_latent
+        if dz is None:
+            return out
         out["denoiser"] = {
             "in_proj": ParamDef((dz, cfg.d_model), (None, "embed"), "scaled"),
             "out_proj": ParamDef((cfg.d_model, dz), ("embed", None), "zeros"),
@@ -196,12 +235,22 @@ class TransformerLM:
         dt = x.dtype
         h = rms_norm(x, p["ln1"]) * (1 + s1[:, None, :]).to(dt) \
             + b1[:, None, :].to(dt)
-        a = gqa_forward(p["attn"], self.acfg, h, causal=False)
+        a, _ = gqa_forward(p["attn"], self.acfg, h, causal=False)
         x = x + g1[:, None, :].to(dt) * a.to(dt)
         h = rms_norm(x, p["ln2"]) * (1 + s2[:, None, :]).to(dt) \
             + b2[:, None, :].to(dt)
-        m = mlp_apply(p["mlp"], h)
+        m = mlp_apply(p["mlp"], h, self.cfg.act, self.cfg.gated_mlp)
         return x + g2[:, None, :].to(dt) * m.to(dt)
+
+    def _lm_block(self, p, x, positions=None, cache=None, cache_index=None):
+        """One causal pre-norm block -> ``(x, cache)``."""
+        a, cache = gqa_forward(p["attn"], self.acfg, rms_norm(x, p["ln1"]),
+                               positions=positions, cache=cache,
+                               cache_index=cache_index)
+        x = x + a.to(x.dtype)
+        m = mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.act,
+                      self.cfg.gated_mlp)
+        return x + m.to(x.dtype), cache
 
     def _tcond(self, dp, t, batch: int, cond=None):
         """adaLN conditioning signal, float32 end to end: the bf16 policy
@@ -222,23 +271,122 @@ class TransformerLM:
             tcond = tcond + c @ dp["y_proj"].float()
         return tcond
 
+    def _apply(self, fn, p, *args):
+        """``fn(p, *args)``, checkpointed per ``cfg.remat`` where autograd
+        records it."""
+        if self._remat_kw is not None and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (*args, *tree_leaves(p))
+                if isinstance(t, torch.Tensor)):
+            return torch.utils.checkpoint.checkpoint(
+                fn, p, *args, use_reentrant=False, **self._remat_kw)
+        return fn(p, *args)
+
     def _stack(self, layers, x, tcond, lo: int, hi: int):
         """Blocks ``[lo, hi)`` of the stack (``layers``: the unstacked
-        block parameters) over the residual stream; each block
-        checkpointed per ``cfg.remat`` where autograd records it."""
+        block parameters) over the residual stream."""
         for l in range(lo, hi):
-            p = layers[l]
-            if self._remat_kw is not None and torch.is_grad_enabled() and (
-                    x.requires_grad or tcond.requires_grad or any(
-                        t.requires_grad for t in tree_leaves(p))):
-                x = torch.utils.checkpoint.checkpoint(
-                    self._block, p, x, tcond, use_reentrant=False,
-                    **self._remat_kw)
-            else:
-                x = self._block(p, x, tcond)
+            x = self._apply(self._block, layers[l], x, tcond)
         return x
 
-    def _embed(self, dp, z, t, cond):
+    def _run_stack(self, params, x, *, positions=None, caches=None,
+                   cache_index=None):
+        """The causal block stack over ``x``; with ``caches`` (the stacked
+        per-layer KV cache) each layer writes its keys and values at
+        ``cache_index`` in place. Returns ``(x, caches)``."""
+        for l, p in enumerate(unstack(params["blocks"])):
+            if caches is None:
+                x = self._apply(lambda p_, x_: self._lm_block(
+                    p_, x_, positions)[0], p, x)
+            else:
+                x, _ = self._lm_block(p, x, positions,
+                                      layer_of(caches["blocks"], l),
+                                      cache_index)
+        return x, caches
+
+    # ------------------------------------------------------------------
+    # LM: embedding / head
+    # ------------------------------------------------------------------
+    def _embed(self, params, batch):
+        cfg = self.cfg
+        if cfg.input_mode == "embeds" or "embeds" in batch:
+            x = batch["embeds"].to(cfg.dtype)
+        else:
+            x = params["embed"][batch["tokens"]].to(cfg.dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
+        return x
+
+    def _head_weight(self, params):
+        if self.cfg.tie_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def _logits(self, params, x):
+        h = rms_norm(x, params["ln_f"])
+        return (h @ self._head_weight(params).to(h.dtype)).float()
+
+    # ------------------------------------------------------------------
+    # LM: public API
+    # ------------------------------------------------------------------
+    def forward(self, params, batch):
+        """batch: ``tokens`` [B, S] (or ``embeds`` [B, S, d]), optional
+        ``positions``. Returns ``(logits [B, S, V] float32, aux)``, aux
+        the float32 zero of a dense stack."""
+        x = self._embed(params, batch)
+        x, _ = self._run_stack(params, x, positions=batch.get("positions"))
+        return self._logits(params, x), x.new_zeros((), dtype=torch.float32)
+
+    def loss_fn(self, params, batch):
+        """Causal LM loss against ``batch["labels"]`` ([B, S], next
+        token), the mean over ``batch.get("mask")``. Large vocabularies
+        (>= 32,000) at S a multiple of 512 above 512 take the
+        sequence-chunked head (``common.chunked_lm_loss``)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        x, _ = self._run_stack(params, x, positions=batch.get("positions"))
+        S = x.shape[1]
+        if cfg.vocab_size >= 32000 and S > 512 and S % 512 == 0:
+            h = rms_norm(x, params["ln_f"])
+            return chunked_lm_loss(h, self._head_weight(params).to(h.dtype),
+                                   batch["labels"], batch.get("mask"))
+        return softmax_cross_entropy(self._logits(params, x),
+                                     batch["labels"], batch.get("mask"))
+
+    def cache_shapes(self, batch: int, s_max: int) -> dict:
+        """``{"blocks": {"k"/"v": ((L, B, s_max, K, hd), cache_dtype)}}``."""
+        L = self.cfg.n_layers
+        per_layer = cache_shape(self.acfg, batch, s_max, self.cfg.cache_dtype)
+        return {"blocks": {k: ((L,) + shape, dt)
+                           for k, (shape, dt) in per_layer.items()}}
+
+    def init_cache(self, batch: int, s_max: int, device=None) -> dict:
+        """A zero KV cache of ``s_max`` positions on ``device``."""
+        return {"blocks": {k: torch.zeros(shape, dtype=dt, device=device)
+                           for k, (shape, dt) in
+                           self.cache_shapes(batch, s_max)["blocks"].items()}}
+
+    def prefill(self, params, batch, cache):
+        """Run the prompt, writing the cache from position 0 in place.
+        Returns the last position's logits [B, 1, V] and the cache."""
+        x = self._embed(params, batch)
+        x, cache = self._run_stack(params, x, positions=batch.get("positions"),
+                                   caches=cache, cache_index=0)
+        return self._logits(params, x[:, -1:, :]), cache
+
+    def decode_step(self, params, tokens, cache, index):
+        """tokens [B, 1] (or embeds [B, 1, d]) at position ``index`` (an
+        int) -> ``(logits [B, 1, V], cache)``, the cache written at
+        ``index`` in place."""
+        batch = {"tokens": tokens} if tokens.dim() == 2 else {"embeds": tokens}
+        x = self._embed(params, batch)
+        x, cache = self._run_stack(params, x, caches=cache,
+                                   cache_index=int(index))
+        return self._logits(params, x), cache
+
+    # ------------------------------------------------------------------
+    # denoiser mode
+    # ------------------------------------------------------------------
+    def _denoise_embed(self, dp, z, t, cond):
         cfg = self.cfg
         x = z.to(cfg.dtype) @ dp["in_proj"].to(cfg.dtype)
         return x, self._tcond(dp, t, z.shape[0], cond)
@@ -251,7 +399,7 @@ class TransformerLM:
         """z [B, S, dz], t scalar (or [B]) -> x0 prediction [B, S, dz]
         (float32): bidirectional attention + adaLN conditioning; ``cond``
         ([d_cond] or [B, d_cond]) joins ``t`` in the adaLN signal."""
-        x, tcond = self._embed(params["denoiser"], z, t, cond)
+        x, tcond = self._denoise_embed(params["denoiser"], z, t, cond)
         x = self._stack(unstack(params["blocks"]), x, tcond, 0,
                         self.cfg.n_layers)
         return self._head(params, x)
@@ -292,7 +440,7 @@ class TransformerLM:
         a, b = self.cache_span() if span is None else span
         if not 0 <= a <= b <= L:
             raise ValueError(f"bad cache span ({a}, {b}) for L={L}")
-        x, tcond = self._embed(params["denoiser"], z, t, cond)
+        x, tcond = self._denoise_embed(params["denoiser"], z, t, cond)
         layers = unstack(params["blocks"])
         x = self._stack(layers, x, tcond, 0, a)
         if isinstance(refresh, bool):

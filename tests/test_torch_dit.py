@@ -171,19 +171,31 @@ def test_params_from_jax_rejects_unconsumed_and_missing_leaves():
 def test_params_from_jax_refuses_a_zoo_denoiser():
     """A transformer tree's shapes do not say its activation, gating, RoPE
     or soft-capping: without ``model=`` or the reference config the
-    converter refuses it, and with starcoder2-3b's config (GELU, ungated,
-    RoPE) it raises, since the port computes only the DiT block; a DiT
-    config still converts and denoises as the reference does."""
+    converter refuses it. With starcoder2-3b's config (GELU, ungated,
+    RoPE) it converts, and that zoo denoiser denoises as the reference
+    does; a config whose blocks the port does not compute yet (dbrx's
+    MoE) raises; a DiT config still converts and denoises as the
+    reference does."""
     jcfg = dataclasses.replace(j_get_smoke("starcoder2-3b"),
-                               denoiser_latent=8)
+                               denoiser_latent=8, dtype=jnp.float32)
     assert jcfg.rope_type == "rope"
     jm = j_build_model(jcfg)
-    jp = jax.device_get(j_init_params(jax.random.PRNGKey(0), jm.param_defs(),
-                                      jnp.float32))
+    jp = j_init_params(jax.random.PRNGKey(0), jm.param_defs(), jnp.float32)
+    jp["denoiser"]["out_proj"] = 0.05 * jax.random.normal(
+        jax.random.PRNGKey(2), jp["denoiser"]["out_proj"].shape)
+    jp = jax.device_get(jp)
     with pytest.raises(ValueError, match="config="):
         params_from_jax(jp)
-    with pytest.raises(NotImplementedError, match="rope_type"):
-        params_from_jax(jp, config=jcfg)
+    tp = params_from_jax(jp, config=jcfg)
+    tm = TransformerLM(dataclasses.replace(
+        get_smoke("starcoder2-3b"), denoiser_latent=8, dtype=torch.float32))
+    z = np.random.default_rng(1).standard_normal((2, 16, 8)).astype(np.float32)
+    ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.5))
+    got = tm.denoise(tp, torch.from_numpy(z), 0.5)
+    assert float(np.abs(ref).max()) > 0.01
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="moe"):
+        params_from_jax(jp, config=j_get_smoke("dbrx-132b"))
     jcfg = dataclasses.replace(j_get_smoke("dit-s"), dtype=jnp.float32)
     jm = j_build_model(jcfg)
     jp = j_init_params(jax.random.PRNGKey(1), jm.param_defs(), jnp.float32)
@@ -192,7 +204,6 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     tp = params_from_jax(jax.device_get(jp), config=jcfg)
     tm = TransformerLM(dataclasses.replace(get_smoke("dit-s"),
                                            dtype=torch.float32))
-    z = np.random.default_rng(0).standard_normal((2, 16, 8)).astype(np.float32)
     ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.5))
     got = tm.denoise(tp, torch.from_numpy(z), 0.5)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
@@ -202,11 +213,35 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     ("act", "silu"), ("gated_mlp", True), ("rope_type", "rope"),
     ("attn_logit_softcap", 30.0)])
 def test_transformer_refuses_block_options_it_does_not_compute(field, value):
+    """The DiT block's options beyond the DiT's own values are computed
+    now (the LM slice): the smoke DiT with ``field`` at ``value`` denoises
+    as the reference's with the same option, within 1e-5 at float32.
+    What the port still does not compute is refused by name: MoE, MLA,
+    the first-k-dense split, multi-token prediction and M-RoPE."""
     cfg = get_smoke("dit-s")
     assert (cfg.act, cfg.gated_mlp, cfg.rope_type,
             cfg.attn_logit_softcap) == ("gelu", False, "none", None)
-    with pytest.raises(NotImplementedError, match=field):
-        TransformerLM(dataclasses.replace(cfg, **{field: value}))
+    jcfg = dataclasses.replace(j_get_smoke("dit-s"), dtype=jnp.float32,
+                               **{field: value})
+    jm = j_build_model(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(3), jm.param_defs(), jnp.float32)
+    jp["blocks"]["adaln"] = 0.05 * jax.random.normal(
+        jax.random.PRNGKey(4), jp["blocks"]["adaln"].shape)
+    jp["denoiser"]["out_proj"] = 0.05 * jax.random.normal(
+        jax.random.PRNGKey(5), jp["denoiser"]["out_proj"].shape)
+    tm = TransformerLM(dataclasses.replace(cfg, dtype=torch.float32,
+                                           **{field: value}))
+    tp = params_from_jax(jax.device_get(jp), tm)
+    z = np.random.default_rng(2).standard_normal((2, 16, 8)).astype(np.float32)
+    ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.4))
+    got = tm.denoise(tp, torch.from_numpy(z), 0.4)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+    for name, val in (("moe", object()), ("mla", object()),
+                      ("n_dense_layers", 1), ("mtp", True),
+                      ("mrope", None)):
+        bad = {"rope_type": "mrope"} if name == "mrope" else {name: val}
+        with pytest.raises(NotImplementedError, match=name):
+            TransformerLM(dataclasses.replace(cfg, **bad))
 
 
 # ------------------------------------------------------------------ tame

@@ -249,8 +249,13 @@ def test_full_config_is_rwkv6_3b():
                                            torch.bfloat16)
     shapes = _flat_shapes(RWKV6(cfg).param_defs()).values()
     assert sum(int(np.prod(s)) for s in shapes) == 3_107_153_920
-    with pytest.raises(NotImplementedError, match="denoiser mode"):
-        RWKV6(get_config("rwkv6-3b"))
+    # the published config is the LM: the same tree without the denoiser
+    # heads (in_proj and out_proj 16 x 2560, t_mlp1 256 x 2560, t_mlp2
+    # 2560 x 2560)
+    lm = _flat_shapes(RWKV6(get_config("rwkv6-3b")).param_defs())
+    assert not any(k.startswith("denoiser/") for k in lm)
+    assert sum(int(np.prod(s)) for s in lm.values()) == \
+        3_107_153_920 - (2 * 16 + 256 + 2560) * 2560
 
 
 def test_params_from_jax_takes_rwkv6_trees():

@@ -36,7 +36,14 @@ trained model sampled through flash and sa_fused, and
 stream and cache: starcoder2-3b's forward through causal flash at GQA
 12:1, prefill and greedy decode of both, RWKV6's aligned, ragged and
 short prefills through the WKV kernel's whole chunks, 4-layer
-consistency checks, ``launch.serve.main`` in both modes); the port's
+consistency checks, ``launch.serve.main`` in both modes); training the LM
+(``lm_train_path``: starcoder2-3b and RWKV6-3B trained at full width
+through ``launch.train``'s step, which launches no kernel, the card's
+gradients against the CPU's at 4 layers, the driver's CLI killed and
+resumed bit for bit, ``examples/torch_lm_train_resume.py``); the rest of
+the dense zoo served (``lm_zoo_path``: starcoder2-15b, granite-34b cut to
+the layers the card holds, gemma-7b through flash's head-dim-256
+instance, musicgen-large, every flash call held); the port's
 sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -103,7 +110,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_rwkv6": ("rwkv6_wkv",),
                 "rwkv6": ("rwkv6_wkv", "sa_fused"),
                 "train": ("sa_fused", "flash_attention"),
-                "lm": ("flash_attention", "rwkv6_wkv")}
+                "lm": ("flash_attention", "rwkv6_wkv"),
+                "lm_zoo": ("flash_attention",)}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -287,9 +295,11 @@ def _ptxas_summary(lines) -> list[str]:
 
 
 #: the instances whose registers must not spill (DiT-XL/2's attention,
-#: RWKV6-3B's WKV)
-NO_SPILL = {"flash_attention": "flash_kernel<f32,72>",
-            "rwkv6_wkv": "wkv_kernel<64,64>"}
+#: gemma-7b's at head dim 256, RWKV6-3B's WKV)
+NO_SPILL = (("flash_attention", "flash_kernel<f32,72>"),
+            ("flash_attention", "flash_kernel<f32,256>"),
+            ("flash_attention", "flash_kernel<bf16,256>"),
+            ("rwkv6_wkv", "wkv_kernel<64,64>"))
 
 
 def phase_build() -> dict:
@@ -302,7 +312,7 @@ def phase_build() -> dict:
                            "path": os.path.relpath(r["path"], ROOT),
                            "ptxas": _ptxas_summary(r["ptxas"])}
                        for n, r in log.items()}}
-    for source, instance in NO_SPILL.items():
+    for source, instance in NO_SPILL:
         lines = [ln for ln in res["sources"][source]["ptxas"]
                  if ln.startswith(instance + ":")]
         require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
@@ -551,11 +561,18 @@ def phase_kernels(timings: dict) -> dict:
         (2, 4, 2, 200, 200, 64, True),
         (2, 4, 2, 130, 130, 128, False),
         # every head dim with a kernel instance
-        *[(2, 4, 2, 96, 96, hd, True) for hd in (16, 32, 64, 72, 80, 96, 128)],
+        *[(2, 4, 2, 96, 96, hd, True)
+          for hd in (16, 32, 64, 72, 80, 96, 128, 256)],
         # the edges of the kernel's 64-key tiles and 128-row query tiles
         *[(2, 4, 4, n, n, 72, causal)
           for n in (1, 63, 64, 65, 127, 128, 129) for causal in (False, True)],
         (2, 8, 2, 129, 129, 72, False),     # GQA 4:1 at a ragged edge
+        # head dim 256 (gemma-7b): the edges of its 32-key tiles and 64-row
+        # query tiles, GQA 4:1, gemma's heads at a prompt of 512
+        *[(2, 4, 4, n, n, 256, causal)
+          for n in (1, 31, 32, 33, 63, 64, 65) for causal in (False, True)],
+        (2, 8, 2, 129, 129, 256, False),
+        (8, 16, 16, 512, 512, 256, True),
     ]
     for (B, H, K, S, T, hd, causal) in attn:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1330,7 +1347,7 @@ def phase_guided_path(state: dict) -> dict:
 
 #: steady solves of each kind (eager, replay) per ``graph_path``
 #: configuration, in turns
-GRAPH_REPEATS = 10
+GRAPH_REPEATS = 5
 #: the guidance scales ``graph_path`` sweeps through one entry
 GRAPH_SCALES = (1.0, 1.5, 4.0)
 
@@ -2327,7 +2344,7 @@ def phase_tune_path(state: dict) -> dict:
 BASELINES = ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "euler_maruyama",
              "edm_heun", "edm_stochastic")
 #: steady replays of each baseline in ``baselines_path`` (p50/p90)
-BASELINE_REPEATS = 5
+BASELINE_REPEATS = 3
 #: the served baselines (the stochastic pair: one evaluation a tick, two)
 SERVED_BASELINES = ("ddpm_ancestral", "edm_stochastic")
 #: NFE of the baselines' GMM round trip (the reference's own,
@@ -3501,13 +3518,12 @@ REF_EXAMPLE_W2 = {"tau=0.0,nfe=10": 0.0887, "tau=0.4,nfe=10": 0.0834,
                   "prior": 0.0797}
 
 
-def _load_example():
-    """``examples/torch_train_denoiser.py`` as a module (it is loaded by
-    path: ``examples/`` is not a package)."""
+def _load_example(name: str = "torch_train_denoiser"):
+    """``examples/<name>.py`` as a module (it is loaded by path:
+    ``examples/`` is not a package)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "torch_train_denoiser",
-        os.path.join(ROOT, "examples", "torch_train_denoiser.py"))
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -3519,6 +3535,19 @@ def _tree_equal(a, b) -> list:
     from repro_torch.tree import paths_and_leaves
     bb = dict(paths_and_leaves(b))
     return [k for k, x in paths_and_leaves(a) if not torch.equal(x, bb[k])]
+
+
+def _rel_per_leaf(got, ref) -> dict:
+    """max |got - ref| / max |ref| per leaf key (got moved to ref's
+    device)."""
+    from repro_torch.tree import paths_and_leaves
+    g = dict(paths_and_leaves(got))
+    out = {}
+    for k, r in paths_and_leaves(ref):
+        scale = float(r.abs().max())
+        err = float((g[k].to(r.device) - r).abs().max())
+        out[k] = err / scale if scale else (0.0 if err == 0 else math.inf)
+    return out
 
 
 def _tempered_params(model, seed: int, device):
@@ -3747,13 +3776,7 @@ def phase_train_path(state: dict) -> dict:
     _, g_dev = ex.loss_and_grads(
         sm, tree_map(lambda t: t.to(dev), p_cpu), xs.to(dev), ts.to(dev),
         es.to(dev), schedule)
-    cpu_rel = {}
-    dev_leaves = dict(paths_and_leaves(g_dev))
-    for k, r in paths_and_leaves(g_cpu):
-        scale = float(r.abs().max())
-        err = float((dev_leaves[k].cpu() - r).abs().max())
-        cpu_rel[k] = err / scale if scale else (0.0 if err == 0 else
-                                                math.inf)
+    cpu_rel = _rel_per_leaf(g_dev, g_cpu)
 
     opt4 = chain(clip_by_global_norm(1.0), adamw(1e-4, weight_decay=0.0))
     m_train = TransformerLM(dataclasses.replace(cfg4, remat="full"))
@@ -3840,7 +3863,7 @@ def phase_train_path(state: dict) -> dict:
 #: its consistency checks (layers, prompt before decoding, batch)
 LM_BATCH = 8
 LM_PROMPT = 512
-LM_DECODE = 64
+LM_DECODE = 32
 LM_RAGGED = 200   # three WKV chunks of 64 and 8 tokens sequential
 LM_SHORT = 32     # launch.serve's default prompt: under one chunk
 LM_CHECK_LAYERS = 4
@@ -3854,8 +3877,10 @@ LM_CHECK_LIMIT = 1e-4
 #: the logits have std ~1
 LM_QK_SCALE = 0.1
 #: the LM's kernel calls: flash (B, H, K, S, T, hd, causal) on
-#: starcoder2-3b's forward, WKV (B, T, H, hd) with a carried state
+#: starcoder2-3b's and gemma-7b's forwards, WKV (B, T, H, hd) with a
+#: carried state
 LM_FLASH_SHAPE = (8, 24, 2, 512, 512, 128, True)
+LM_FLASH_SHAPE_HD256 = (8, 16, 16, 512, 512, 256, True)
 LM_WKV_SHAPE = (8, 512, 40, 64)
 
 
@@ -3879,17 +3904,23 @@ def _lm_params(model, device, seed: int = 0, cpu_draw: bool = False):
 
 
 def _lm_served(model, params, prompt, n_decode: int) -> dict:
-    """Prefill ``prompt`` [B, S] into a fresh cache, then ``n_decode``
-    greedy decode steps, each synchronized and timed; launches of each."""
+    """Prefill ``prompt`` (tokens [B, S], or ``{"embeds": [B, S, d]}`` for
+    an embeddings-input model, whose decode steps take the embedding of
+    the token chosen) into a fresh cache, then ``n_decode`` greedy decode
+    steps, each synchronized and timed; launches of each."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import ops
-    B, S = prompt.shape
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    embeds = "embeds" in batch
+    B, S = next(iter(batch.values())).shape[:2]
+    dev = next(iter(batch.values())).device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cache = model.init_cache(B, S + n_decode, device=prompt.device)
+    cache = model.init_cache(B, S + n_decode, device=dev)
     before = ops.launch_counts()
     t = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    logits, cache = model.prefill(params, batch, cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     mid = ops.launch_counts()
@@ -3897,7 +3928,8 @@ def _lm_served(model, params, prompt, n_decode: int) -> dict:
     steps, toks = [], [tok]
     for i in range(n_decode):
         t = time.perf_counter()
-        logits, cache = model.decode_step(params, tok, cache, S + i)
+        step_in = F.embedding(tok, params["embed"]) if embeds else tok
+        logits, cache = model.decode_step(params, step_in, cache, S + i)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t)
@@ -3979,13 +4011,13 @@ def _lm_consistency(arch: str) -> dict:
     return res
 
 
-def lm_kernel_times() -> dict:
-    """Flash and WKV at the LM's shapes (f32), kernel against plain, with
-    SDPA beside flash and each one's bound."""
+def _causal_flash_times(shape, seed: int) -> dict:
+    """Causal flash at ``shape`` (B, H, K, S, T, hd, causal), f32: kernel,
+    plain and SDPA (on K/V repeated to H heads) ms, and the bound."""
     import torch
     from repro_torch.kernels import ops
-    B, H, K, S, T, hd, causal = LM_FLASH_SHAPE
-    q, k, v = _attn_inputs(B, H, K, S, T, hd, torch.float32, seed=29)
+    B, H, K, S, T, hd, causal = shape
+    q, k, v = _attn_inputs(B, H, K, S, T, hd, torch.float32, seed=seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kk = k.repeat_interleave(H // K, dim=1)
     vv = v.repeat_interleave(H // K, dim=1)
@@ -3993,15 +4025,26 @@ def lm_kernel_times() -> dict:
     pairs = B * H * S * (S + 1) // 2
     flash_bytes = 4 * (2 * B * H * S * hd + 2 * B * K * T * hd)
     flash_ops = 4 * pairs * hd
-    out = {"flash_attention": {
-        "shape": list(LM_FLASH_SHAPE),
+    return {
+        "shape": list(shape),
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: ops.flash_attention(
             q, k, v, causal=True, mode="plain"), inner=5, samples=20),
         "library_ms": time_ms(lambda: sdpa(q, kk, vv, is_causal=True)),
-        "library": "scaled_dot_product_attention on K/V repeated to 24 "
-                   "heads",
-        "bound": bound(flash_bytes, 3 * flash_ops, PEAK_TF32_FLOP_PER_S)}}
+        "library": f"scaled_dot_product_attention on K/V repeated to {H} "
+                   "heads" if H != K else "scaled_dot_product_attention",
+        "bound": bound(flash_bytes, 3 * flash_ops, PEAK_TF32_FLOP_PER_S)}
+
+
+def lm_kernel_times() -> dict:
+    """Flash and WKV at the LM's shapes (f32), kernel against plain, with
+    SDPA beside flash and each one's bound; flash also at gemma-7b's head
+    dim 256."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {"flash_attention": _causal_flash_times(LM_FLASH_SHAPE, seed=29),
+           "flash_attention_hd256": _causal_flash_times(
+               LM_FLASH_SHAPE_HD256, seed=37)}
     Bw, Tw, Hw, hdw = LM_WKV_SHAPE
     args = _wkv_inputs(Bw, Tw, Hw, hdw, torch.float32, torch.float32,
                        seed=31, decay_shift=4.0)
@@ -4179,6 +4222,414 @@ def phase_lm_path(state: dict) -> dict:
     return result
 
 
+#: lm_train_path: the LM trained at full width through launch.train's
+#: step (steps, batch x tokens, the peak LR, warmed up over 10 steps as
+#: the driver warms it; at the driver's default 3e-4 both archs' losses
+#: diverge by the third step, where the LR is 6e-5: Adam's first steps
+#: move every element by about the LR), and its checks: the card's gradients against the CPU's at
+#: ``LM_GRAD_LAYERS`` layers of full width, over a batch of
+#: ``LM_GRAD_BATCH`` x ``LM_GRAD_SEQ`` tokens, within ``LM_GRAD_LIMIT`` of
+#: each leaf's scale; the driver's CLI killed and resumed at smoke width
+LM_TRAIN_ARCHS = ("starcoder2-3b", "rwkv6-3b")
+LM_TRAIN_STEPS = 4
+LM_TRAIN_BATCH = 8
+LM_TRAIN_SEQ = 512
+LM_TRAIN_LR = 3e-5
+LM_GRAD_LAYERS = 4
+LM_GRAD_BATCH = 2
+LM_GRAD_SEQ = 128
+LM_GRAD_LIMIT = 1e-5
+#: the CLI's resume check: --steps, --fail-at, --save-every (smoke width)
+LM_RESUME = (12, 7, 5)
+
+
+def _temper_lm(params: dict) -> dict:
+    """Temper LM weights in place, as the CPU tests do: a transformer's
+    attention projections rescaled to the usual fan-in (the reference's
+    ``scaled`` init divides a [d, H, hd] projection by sqrt(H), not
+    sqrt(d): at starcoder2-3b's width q, k and v have std 11-39, each
+    layer adds ~190 to the residual stream, and at 30 layers the float32
+    gradient norm overflows), so that q, k, v and each layer's output
+    have std ~1; RWKV6's ``w0`` lowered by 2 (decays of ~exp(-0.2) a
+    token) and ``wr``/``wk`` scaled by 0.1 (receptance-key scores of std
+    below 1): at the init the cumulative log-decay of a chunk reaches
+    ~-300, and float32 sums taken in other orders move the gradients far
+    past the 1e-5 gate."""
+    blocks = params["blocks"]
+    if "attn" in blocks:
+        a = blocks["attn"]
+        d, H, K = a["wq"].shape[1], a["wq"].shape[2], a["wk"].shape[2]
+        a["wq"] *= math.sqrt(H / d)
+        a["wk"] *= math.sqrt(K / d)
+        a["wv"] *= math.sqrt(K / d)
+        a["wo"] *= 1 / math.sqrt(H)
+    else:
+        blocks["tm"]["w0"] -= 2.0
+        for k in ("wr", "wk"):
+            blocks["tm"][k] *= 0.1
+    return params
+
+
+def phase_lm_train_path(state: dict) -> dict:
+    """Training the LM through ``launch.train``, on the card.
+
+    (1) starcoder2-3b (30 layers, d_model 3072, 24 query / 2 KV heads of
+    128, vocab 49,152) and RWKV6-3B (32 layers, d_model 2560, vocab
+    65,536) at published widths and depths: ``LM_TRAIN_STEPS`` steps of
+    the driver's step (float32 weights and AdamW state, every buffer
+    donated; the configs' bfloat16 stream and ``remat="full"``; the plain
+    attention and WKV paths: no kernel launched) on its
+    ``synthetic_lm_batch`` stream of ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ``
+    tokens, from the driver's init tempered (``_temper_lm``; the
+    gradient norm at the untempered init is recorded): s/step, tokens/s,
+    peak memory, the losses (the first batch's must fall: it is
+    evaluated again after the steps), and one more step under
+    torch.profiler. (2) ``LM_GRAD_LAYERS`` layers
+    at full width on a float32 stream: the loss and every gradient leaf
+    on the card against the port's on the CPU, on the same tempered
+    weights, within ``LM_GRAD_LIMIT`` of each leaf's scale. (3) The
+    driver's CLI at smoke width on the card: ``--fail-at`` and then
+    ``--resume auto`` give the uninterrupted run's loss stream and state
+    bit for bit. (4) ``examples/torch_lm_train_resume.py`` on the card:
+    its retrained steps repeat run 1's losses bit for bit."""
+    import gc
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenTaskConfig, synthetic_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build_model, init_params
+    from repro_torch.optim import global_norm
+    from repro_torch.runtime import InjectedFailure
+    from repro_torch.tree import paths_and_leaves, tree_leaves, tree_map
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "lm_train_path", "stream": "bfloat16 "
+                    "(published)", "weights_and_adamw": "float32",
+                    "remat": "full", "lr": LM_TRAIN_LR, "warmup_steps": 10}
+    checks: dict = {}
+    ops.reset_launch_counts()  # the lm_train window starts here
+    t_phase = time.perf_counter()
+
+    # ---- (1) published widths and depths -------------------------------
+    for arch in LM_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        model = build_model(lt.train_config(cfg))
+        opt = lt.make_optimizer(LM_TRAIN_LR, LM_TRAIN_STEPS)
+        step = lt.make_train_step(model, opt)
+        batches = lt.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        st = lt.make_init_state(model, opt, dev)()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        # the driver's own init: the gradient norm on the first batch
+        # (recorded; the steps below start from the tempered weights)
+        _, g0 = lt.loss_and_grads(model, st["params"], next(batches))
+        raw_gnorm = float(global_norm(g0))
+        del g0
+        torch.cuda.empty_cache()  # its blocks would fragment the steps
+        _temper_lm(st["params"])
+        batches.step = 0
+        losses, gnorms, dts = [], [], []
+        for i in range(LM_TRAIN_STEPS):
+            b = next(batches)
+            first = b if i == 0 else first
+            t = time.perf_counter()
+            st, m = step(st, b)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(t_.numel() for t_ in tree_leaves(st["params"]))
+        with torch.no_grad():  # the first batch again, after the steps
+            first_again = float(model.loss_fn(st["params"], first))
+        prof = _profile_solve(lambda: step(st, next(batches)))
+        steady = statistics.median(dts[1:])
+        result[arch] = {
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "params": n_params,
+            "batch": [LM_TRAIN_BATCH, LM_TRAIN_SEQ], "init_s": init_s,
+            "step_s": dts, "steady_step_s": steady,
+            "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / steady,
+            "losses": losses, "gnorms": gnorms,
+            "first_batch_loss_after": first_again,
+            "driver_init_gnorm": raw_gnorm,
+            "max_memory_allocated_gb": peak / 1e9,
+            "profile_one_step": prof}
+        checks[f"{arch}_finite"] = all(map(math.isfinite, losses + gnorms))
+        checks[f"{arch}_loss_falls"] = first_again < losses[0]
+        del st, step, opt, model, batches, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"progress": "lm_train_path", "arch": arch,
+              "steady_step_s": steady, "losses": losses,
+              "max_memory_allocated_gb": peak / 1e9})
+
+    sections = {"full_width": time.perf_counter() - t_phase}
+
+    # ---- (2) gradients at 4 layers: the card against the CPU -----------
+    t_sec = time.perf_counter()
+    grads = {}
+    for arch in LM_TRAIN_ARCHS:
+        cfg = dataclasses.replace(
+            lt.train_config(get_config(arch)), n_layers=LM_GRAD_LAYERS,
+            dtype=torch.float32)
+        model = build_model(cfg)
+        # drawn on the card (a CPU draw of ~680 M values takes seconds),
+        # tempered, and copied to the CPU: the same weights on both sides
+        p_cpu = tree_map(lambda x: x.cpu(), _temper_lm(init_params(
+            torch.Generator(dev).manual_seed(11), model.param_defs(),
+            torch.float32)))
+        b = synthetic_lm_batch(TokenTaskConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_GRAD_SEQ), LM_GRAD_BATCH, 0)
+        b_cpu = {k: torch.from_numpy(b[k]) for k in ("tokens", "labels")}
+        t = time.perf_counter()
+        l_dev, g_dev = lt.loss_and_grads(
+            model, tree_map(lambda x: x.to(dev), p_cpu),
+            {k: v.to(dev) for k, v in b_cpu.items()})
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t
+        t = time.perf_counter()
+        l_cpu, g_cpu = lt.loss_and_grads(model, p_cpu, b_cpu)
+        cpu_s = time.perf_counter() - t
+        rel = _rel_per_leaf(g_dev, g_cpu)
+        loss_rel = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+        worst = max(rel, key=rel.get)
+        grads[arch] = {"layers": LM_GRAD_LAYERS, "batch": [
+            LM_GRAD_BATCH, LM_GRAD_SEQ], "loss_rel": loss_rel,
+            "max_rel": rel[worst], "worst_leaf": worst,
+            "rel_per_leaf": rel, "card_s": dev_s, "cpu_s": cpu_s,
+            "zero_leaves": [k for k, g in paths_and_leaves(g_cpu)
+                            if not bool(g.abs().max() > 0)]}
+        checks[f"{arch}_card_vs_cpu"] = max(loss_rel, rel[worst]) \
+            <= LM_GRAD_LIMIT
+        del g_dev, g_cpu, p_cpu, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    result["card_vs_cpu_gradients"] = grads
+    sections["card_vs_cpu"] = time.perf_counter() - t_sec
+
+    # ---- (3) the CLI killed and resumed ----------------------------------
+    t_sec = time.perf_counter()
+    steps, fail_at, save_every = LM_RESUME
+    resume = {}
+    tmp = tempfile.mkdtemp(prefix="lm_train_path_")
+    try:
+        for arch in LM_TRAIN_ARCHS:
+            def cli(d, *extra):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return lt.main([
+                        "--arch", arch, "--smoke", "--steps", str(steps),
+                        "--batch", "4", "--seq", "64", "--save-every",
+                        str(save_every), "--ckpt", os.path.join(tmp, d),
+                        *extra])
+            ref_state, ref_hist = cli(arch + "_a")
+            killed = False
+            try:
+                cli(arch + "_b", "--fail-at", str(fail_at))
+            except InjectedFailure:
+                killed = True
+            st, hist = cli(arch + "_b", "--resume", "auto")
+            diff = _tree_equal(st, ref_state)
+            start = fail_at - fail_at % save_every
+            resume[arch] = {"steps": steps, "fail_at": fail_at,
+                            "save_every": save_every, "killed": killed,
+                            "resumed_steps": len(hist),
+                            "loss_stream_bitwise": hist == ref_hist[start:],
+                            "state_bitwise": not diff, "differs": diff[:5],
+                            "losses": [h["loss"] for h in ref_hist]}
+            checks[f"{arch}_resume"] = killed and not diff and \
+                hist == ref_hist[start:]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["resume_smoke"] = resume
+    sections["resume_smoke"] = time.perf_counter() - t_sec
+
+    # ---- (4) the example ---------------------------------------------------
+    ex = _load_example("torch_lm_train_resume")
+    tmp = tempfile.mkdtemp(prefix="lm_train_path_example_")
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            exo = ex.main(["--ckpt", os.path.join(tmp, "c")])
+        example_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["example"] = {"seconds": example_s, **exo,
+                         "printed": buf.getvalue().strip().splitlines()[-3:]}
+    checks["example"] = exo["retrained_exact"] and bool(
+        exo["retrained_steps"]) and all(map(math.isfinite, exo["losses"]))
+
+    state["launches"]["lm_train"] = ops.launch_counts()  # window ends
+    result["launches"] = state["launches"]["lm_train"]
+    checks["no_kernel_launched"] = not any(result["launches"].values())
+    result["seconds"] = time.perf_counter() - t_phase
+    result["section_seconds"] = sections
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], f"lm_train_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
+#: lm_zoo_path: the rest of the dense zoo served at published width,
+#: batch 8, prompt, decode steps, and the bytes kept free beside a
+#: model's f32 weights (activations, logits, the cache) when the depth
+#: is cut to what the card holds
+LM_ZOO = ("starcoder2-15b", "granite-34b", "gemma-7b", "musicgen-large")
+LM_ZOO_DECODE = 16
+LM_ZOO_RESERVE = 8e9
+
+
+def _zoo_depth(cfg) -> int:
+    """The published depth of ``cfg``, or the most layers whose float32
+    weights fit in the card's free memory less ``LM_ZOO_RESERVE``."""
+    import torch
+    from repro_torch.models import build_model
+    defs = build_model(cfg).param_defs()
+    size = lambda tree: sum(math.prod(d.shape) for d in _leaves(tree))
+    blocks = 4 * size(defs["blocks"])
+    rest = 4 * size({k: v for k, v in defs.items() if k != "blocks"})
+    free, _ = torch.cuda.mem_get_info()
+    fit = int((free - LM_ZOO_RESERVE - rest) // (blocks / cfg.n_layers))
+    return max(1, min(cfg.n_layers, fit))
+
+
+def phase_lm_zoo_path(state: dict) -> dict:
+    """The rest of the dense zoo served on the card: starcoder2-15b
+    (GQA 12:1), granite-34b (MQA), gemma-7b (head dim 256, tied and
+    scaled embeddings, GeGLU, vocab 256,000) and musicgen-large
+    (embeddings in, no RoPE) at published widths, float32 weights from a
+    seed (``wq``/``wk`` scaled by ``LM_QK_SCALE``), the published bfloat16
+    stream and cache, batch ``LM_BATCH``, at published depth where the
+    weights fit (``_zoo_depth``; each cut reported). Per arch: a
+    cache-free ``forward`` of ``LM_PROMPT`` tokens (one flash launch a
+    layer: gemma's the head-dim-256 instance), one more with every flash
+    call held against the plain version, a prefill of ``LM_PROMPT`` and
+    ``LM_ZOO_DECODE`` greedy decode steps (no launch), and
+    ``launch.serve`` over the same config (``main --mode lm`` at
+    published depth, ``serve_lm`` with the cut config otherwise)."""
+    import gc
+    import io
+    import types
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, init_params
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "lm_zoo_path", "stream": "bfloat16 "
+                    "(published)", "cache": "bfloat16 (published)",
+                    "weights": "float32", "qk_scale": LM_QK_SCALE}
+    held: dict = {}
+    checks: dict = {}
+    ops.reset_launch_counts()  # the lm_zoo window starts here
+    t_phase = time.perf_counter()
+    for arch in LM_ZOO:
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=_zoo_depth(published))
+        model = build_model(cfg)
+        t = time.perf_counter()
+        params = init_params(torch.Generator(dev).manual_seed(0),
+                             model.param_defs(), torch.float32, dev)
+        for k in ("wq", "wk"):
+            params["blocks"]["attn"][k] *= LM_QK_SCALE
+        torch.cuda.synchronize()
+        r: dict = {"layers": cfg.n_layers, "published_layers":
+                   published.n_layers, "d_model": cfg.d_model,
+                   "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+                   "vocab": cfg.vocab_size, "input_mode": cfg.input_mode,
+                   "weights_s": time.perf_counter() - t,
+                   "params": sum(t_.numel() for t_ in _leaves(params))}
+        g = torch.Generator(dev).manual_seed(7)
+        if cfg.input_mode == "embeds":
+            batch = {"embeds": torch.randn(
+                (LM_BATCH, LM_PROMPT, cfg.d_model), generator=g, device=dev)}
+        else:
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=g,
+                device=dev)}
+        with torch.no_grad():
+            out, secs, launches, _, _ = launch_window(
+                lambda: model.forward(params, batch))
+            r["forward"] = {"seconds": secs, "launches": launches,
+                            "finite": bool(torch.isfinite(out[0]).all())}
+            del out
+            checks[f"{arch}_forward"] = r["forward"]["finite"] and \
+                launches == only_launches(flash_attention=cfg.n_layers)
+            with held_against_plain(held):
+                model.forward(params, batch)
+            served = _lm_served(model, params, batch, LM_ZOO_DECODE)
+        r["served"] = served
+        checks[f"{arch}_served"] = served["finite"] and \
+            served["prefill_launches"] == only_launches() and \
+            served["decode_launches"] == only_launches()
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if cfg.n_layers == published.n_layers:
+                argv = ["--mode", "lm", "--arch", arch, "--batch",
+                        str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+                        "--gen", str(LM_ZOO_DECODE + 1)]
+                serve.main(argv)
+            else:
+                argv = f"serve_lm(cfg=<{arch} at {cfg.n_layers} layers>)"
+                serve.serve_lm(types.SimpleNamespace(
+                    arch=arch, smoke=False, batch=LM_BATCH,
+                    prompt_len=LM_PROMPT, gen=LM_ZOO_DECODE + 1), dev,
+                    cfg=cfg)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        r["launch_serve"] = {
+            "argv": argv, "seconds": time.perf_counter() - t,
+            "launches": {k: after[k] - before[k] for k in after},
+            "printed": buf.getvalue().strip().splitlines()}
+        checks[f"{arch}_launch_serve"] = any(
+            ln.startswith("sample token ids:")
+            for ln in r["launch_serve"]["printed"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        result[arch] = r
+        emit({"progress": "lm_zoo_path", "arch": arch,
+              "layers": cfg.n_layers, "forward_s": r["forward"]["seconds"],
+              "prefill_s": served["prefill_s"],
+              "peak_gb": served["peak_gb"]})
+    state["launches"]["lm_zoo"] = ops.launch_counts()  # window ends
+    state["held"]["lm_zoo"] = held
+    result["launches"] = state["launches"]["lm_zoo"]
+    result["depth_cuts"] = {a: [result[a]["layers"],
+                                result[a]["published_layers"]]
+                            for a in LM_ZOO if result[a]["layers"]
+                            != result[a]["published_layers"]}
+    want_flash = sum(result[a]["layers"] for a in LM_ZOO)
+    checks["held"] = all(h["ok"] for h in held.values()) and held.get(
+        "flash_attention", {}).get("calls") == want_flash
+    result["held_against_plain"] = held
+    result["seconds"] = time.perf_counter() - t_phase
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], f"lm_zoo_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
@@ -4200,26 +4651,38 @@ def main() -> int:
 
     dev = phase_device()
     emit(dev)
-    emit(phase_build())
     timings: dict = {}
-    emit(phase_kernels(timings))
     state: dict = {"launches": {}, "held": {}}
-    phase_main_path(state)
-    emit(phase_profile(state))
-    phase_programs_path(state)
-    phase_guided_path(state)
-    phase_graph_path(state)
-    phase_serve_path(state)
-    phase_tune_path(state)
-    phase_baselines_path(state)
-    phase_feature_cache_path(state)
-    phase_sharded_path(state)
-    phase_sample_defaults(state)
-    phase_gmm()
-    phase_rwkv6_path(state)
-    emit(phase_rwkv6_profile(state))
-    phase_train_path(state)
-    phase_lm_path(state)
+    # each phase's wall seconds (the script has 1,200 in all)
+    seconds: dict = {}
+    for name, run, emits in (
+            ("build", phase_build, True),
+            ("kernels", lambda: phase_kernels(timings), True),
+            ("main_path", lambda: phase_main_path(state), False),
+            ("profile", lambda: phase_profile(state), True),
+            ("programs_path", lambda: phase_programs_path(state), False),
+            ("guided_path", lambda: phase_guided_path(state), False),
+            ("graph_path", lambda: phase_graph_path(state), False),
+            ("serve_path", lambda: phase_serve_path(state), False),
+            ("tune_path", lambda: phase_tune_path(state), False),
+            ("baselines_path", lambda: phase_baselines_path(state), False),
+            ("feature_cache_path", lambda: phase_feature_cache_path(state),
+             False),
+            ("sharded_path", lambda: phase_sharded_path(state), False),
+            ("sample_defaults", lambda: phase_sample_defaults(state), False),
+            ("gmm", phase_gmm, False),
+            ("rwkv6_path", lambda: phase_rwkv6_path(state), False),
+            ("rwkv6_profile", lambda: phase_rwkv6_profile(state), True),
+            ("train_path", lambda: phase_train_path(state), False),
+            ("lm_path", lambda: phase_lm_path(state), False),
+            ("lm_train_path", lambda: phase_lm_train_path(state), False),
+            ("lm_zoo_path", lambda: phase_lm_zoo_path(state), False)):
+        t = time.perf_counter()
+        out = run()
+        seconds[name] = time.perf_counter() - t
+        if emits:
+            emit(out)
+    emit({"phase_seconds": seconds, "total": sum(seconds.values())})
 
     for path, names in PATH_KERNELS.items():
         missing = [k for k in names if state["launches"][path][k] == 0]

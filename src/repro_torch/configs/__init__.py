@@ -2,10 +2,11 @@
 
 Each module exposes ``full()`` (the published config) and ``smoke()`` (a
 reduced same-family config for CPU tests). ``get_config(name)`` /
-``get_smoke(name)`` / ``ARCHS`` are the public API. The port carries the
-paper's two denoiser archs, RWKV6-3B (an LM, or a denoiser backbone with
-``denoiser_latent`` set) and the dense LM starcoder2-3b; the rest of the
-LM zoo comes with later slices.
+``get_smoke(name)`` / ``ARCHS`` are the public API, in the reference's
+order. The port carries the dense LMs (granite-34b, starcoder2-15b,
+starcoder2-3b, gemma-7b, musicgen-large), RWKV6-3B (an LM, or a denoiser
+backbone with ``denoiser_latent`` set) and the paper's two denoiser archs;
+the MoE, MLA, M-RoPE and hybrid archs come with later slices.
 """
 
 from __future__ import annotations
@@ -14,7 +15,17 @@ import importlib
 
 __all__ = ["ARCHS", "get_config", "get_smoke"]
 
-ARCHS = ("dit-xl-2", "dit-s", "rwkv6-3b", "starcoder2-3b")
+ARCHS = (
+    "granite-34b",
+    "starcoder2-15b",
+    "starcoder2-3b",
+    "gemma-7b",
+    "musicgen-large",
+    "rwkv6-3b",
+    # the paper's own denoiser architectures
+    "dit-xl-2",
+    "dit-s",
+)
 
 _MODULES = {name: name.replace("-", "_") for name in ARCHS}
 
@@ -23,7 +34,8 @@ def _mod(name: str):
     if name not in _MODULES:
         raise KeyError(
             f"unknown arch {name!r}; the PyTorch port has {sorted(_MODULES)} "
-            "(the rest of the LM zoo comes with later slices)")
+            "(the rest of the LM zoo, its MoE, MLA, M-RoPE and hybrid "
+            "archs, comes with later slices)")
     return importlib.import_module(f".{_MODULES[name]}", __package__)
 
 

@@ -44,7 +44,10 @@
 // - Work split. One block per (b, h, q tile), 4 warps; each warp takes 32
 //   query rows, two 16-row m-tiles of mma.m16n8k8 (16 rows for hd > 80,
 //   where the registers do not hold two). A loop over 64-key tiles inside
-//   the block takes the place of the TPU's sequential innermost grid axis.
+//   the block takes the place of the TPU's sequential innermost grid axis
+//   (32-key tiles at hd 256: block_keys). At hd 256 a thread holds 128 f32
+//   accumulators of O and one block fits an SM (166,400 bytes of shared
+//   memory): the instance is right, not tuned.
 //   The running max and sum and the output accumulator stay in registers;
 //   the [S, T] scores never leave the SM. At the DiT shape: 256 blocks of
 //   128 rows and 95 KB of shared memory, 2 per SM: one wave on 132 SMs.
@@ -93,8 +96,11 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;  // 128
-constexpr int BK = 64;                 // keys per tile
-constexpr int NT = BK / 8;             // 8-key column tiles of S = k-steps of P*V
+
+// keys per tile: 64; 32 above head dim 128, where the Q tile and three
+// 64-key tiles would need (64 + 192) * 260 * 4 = 266,240 bytes of shared
+// memory, over the 232,448 a block can have (at 32: 166,400)
+template <int HD> __host__ __device__ constexpr int block_keys() { return HD <= 128 ? 64 : 32; }
 
 // shared row stride of Q, K and V tiles, in floats (see the note above)
 template <int HD> __host__ __device__ constexpr int row_stride() { return HD + 4; }
@@ -106,7 +112,7 @@ template <int HD> __host__ __device__ constexpr int block_rows() {
 }
 // the Q tile, two K tiles (double-buffered) and one V tile
 template <int HD> __host__ __device__ constexpr int smem_floats() {
-  return (block_rows<HD>() + 3 * BK) * row_stride<HD>();
+  return (block_rows<HD>() + 3 * block_keys<HD>()) * row_stride<HD>();
 }
 
 // N-byte asynchronous copy global -> shared; reads nothing and writes zeros
@@ -180,6 +186,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int KS = HD / 8;  // 8-column tiles of P*V
+  constexpr int BK = block_keys<HD>();
+  constexpr int NT = BK / 8;  // 8-key column tiles of S = k-steps of P*V
   constexpr int MT = m_tiles<HD>();
   constexpr int BQ = block_rows<HD>();
   constexpr int SR = row_stride<HD>();
@@ -428,6 +436,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
     case 80: return launch<T, 80>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     case 96: return launch<T, 96>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -39,15 +39,19 @@ class ParamDef:
             return torch.zeros(self.shape, dtype=dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
-        z = torch.randn(self.shape, generator=generator, device=device)
+        # drawn and scaled in place (the values of ``scale * randn``): a
+        # stacked leaf of a large config is tens of GB, and a scaled copy
+        # beside it would not fit on the card
+        z = torch.empty(self.shape, device=device).normal_(
+            generator=generator)
         if self.init == "normal":
-            return (self.scale * z).to(dtype)
+            return z.mul_(self.scale).to(dtype)
         if self.init == "scaled":
             # fan-in scaled, with the reference's convention: the fan-in is
             # shape[-2] for any rank >= 2, so a 3-D [d, H, hd] projection
             # scales by 1/sqrt(H), not 1/sqrt(d)
             fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
-            return (self.scale / math.sqrt(fan_in) * z).to(dtype)
+            return z.mul_(self.scale / math.sqrt(fan_in)).to(dtype)
         raise ValueError(self.init)
 
 

@@ -31,6 +31,11 @@ through the recurrence) against the per-layer state cache
 O(1) in the context length; both return a new cache. ``denoise`` runs the
 causal stack forward and on the time-reversed sequence and averages the
 two.
+
+Training differentiates ``loss_fn`` through the plain WKV paths
+(``use_kernel=False``: the kernel has no backward and refuses inputs that
+require grad), the layers unbound once per call and, under
+``remat="full"``, each recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -39,11 +44,13 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..kernels import ops as kops
 from ..kernels.rwkv6_scan import rwkv6_wkv_plain
+from ..tree import tree_leaves
 from .common import (ParamDef, layer_norm, layer_of, promote_matmul,
-                     softmax_cross_entropy, tree_defs_map)
+                     softmax_cross_entropy, tree_defs_map, unstack)
 from .transformer import timestep_embedding
 
 __all__ = ["RWKV6Config", "RWKV6", "wkv_sequential", "wkv_chunked",
@@ -61,8 +68,9 @@ class RWKV6Config:
     decay_lora: int = 64
     tshift_lora: int = 32
     chunk_size: int = 32
-    #: the reference's rematerialisation policy, kept so the configs match;
-    #: the port runs no backward pass yet, so it has no effect
+    #: the reference's rematerialisation policy: "full" recomputes each
+    #: layer in the backward (``torch.utils.checkpoint``); any other value
+    #: saves every activation, as the reference's scan does
     remat: str = "none"
     #: residual-stream dtype
     dtype: torch.dtype = torch.bfloat16
@@ -265,14 +273,24 @@ class RWKV6:
         x = x + cm_out
         return x, {"S": S, "tm_shift": tm_shift, "cm_shift": cm_shift}
 
+    def _layer(self, p, x, cache, *, chunked: bool):
+        """``_block``, checkpointed under ``remat="full"`` where autograd
+        records it."""
+        if self.cfg.remat == "full" and torch.is_grad_enabled() and any(
+                t.requires_grad for t in tree_leaves(p)):
+            return torch.utils.checkpoint.checkpoint(
+                self._block, p, x, cache, chunked=chunked,
+                use_reentrant=False)
+        return self._block(p, x, cache, chunked=chunked)
+
     def _run(self, params, x, caches, *, chunked: bool):
-        """The block stack over the stacked [L, ...] block params (the
-        reference scans over them); returns (x, per-layer caches stacked)."""
+        """The block stack over the stacked [L, ...] block params, unbound
+        once per call (the reference scans over them); returns (x,
+        per-layer caches stacked)."""
         x = layer_norm(x, params["ln_in"], params["ln_inb"])
         outs = []
-        for l in range(self.cfg.n_layers):
-            x, out = self._block(layer_of(params["blocks"], l), x,
-                                 layer_of(caches, l), chunked=chunked)
+        for l, p in enumerate(unstack(params["blocks"])):
+            x, out = self._layer(p, x, layer_of(caches, l), chunked=chunked)
             outs.append(out)
         x = layer_norm(x, params["ln_f"], params["ln_fb"])
         return x, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
@@ -302,9 +320,10 @@ class RWKV6:
 
     def forward(self, params, batch):
         """batch ``tokens`` [B, S] -> ``(logits [B, S, V] float32, aux)``
-        from a zero state; aux is a float32 zero."""
-        tokens = batch["tokens"]
-        x = params["embed"][tokens].to(self.cfg.dtype)
+        from a zero state; aux is a float32 zero. The embedding is a
+        gather whose backward sums each row in order (indexing's adds with
+        atomics on the CPU: not bitwise reproducible)."""
+        x = F.embedding(batch["tokens"], params["embed"]).to(self.cfg.dtype)
         cache = self.init_cache(x.shape[0], device=x.device)
         logits, _ = self._lm(params, x, cache, chunked=True)
         return logits, x.new_zeros((), dtype=torch.float32)
@@ -319,7 +338,7 @@ class RWKV6:
     def prefill(self, params, batch, cache):
         """The prompt ``batch["tokens"]`` [B, S] from ``cache``'s state ->
         ``(last logits [B, 1, V], new cache)``."""
-        x = params["embed"][batch["tokens"]].to(self.cfg.dtype)
+        x = F.embedding(batch["tokens"], params["embed"]).to(self.cfg.dtype)
         x, cache = self._run(params, x, cache, chunked=True)
         return promote_matmul(x[:, -1:], params["lm_head"]).float(), cache
 
@@ -327,7 +346,7 @@ class RWKV6:
         """tokens [B, 1] -> ``(logits [B, 1, V], new cache)``; ``index``
         is unused (the state carries the whole context)."""
         del index
-        x = params["embed"][tokens].to(self.cfg.dtype)
+        x = F.embedding(tokens, params["embed"]).to(self.cfg.dtype)
         return self._lm(params, x, cache, chunked=False)
 
     def denoise(self, params, z, t):

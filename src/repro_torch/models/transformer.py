@@ -311,7 +311,9 @@ class TransformerLM:
         if cfg.input_mode == "embeds" or "embeds" in batch:
             x = batch["embeds"].to(cfg.dtype)
         else:
-            x = params["embed"][batch["tokens"]].to(cfg.dtype)
+            # a gather whose backward sums each row in order (indexing's
+            # adds with atomics on the CPU: not bitwise reproducible)
+            x = F.embedding(batch["tokens"], params["embed"]).to(cfg.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         return x

@@ -14,6 +14,14 @@ is an integer (a 0-d tensor on the parameters' device keeps the update
 free of host reads) and the step arithmetic is float32, as in the
 reference. Updates are computed without autograd. ZeRO-1 state sharding
 (the reference's ``zero1_specs``) comes with ``parallel/`` (ROADMAP A12).
+
+``update(..., donate=True)`` and ``apply_updates(..., donate=True)`` are
+the counterpart of a jitted step's donated buffers: the caller hands over
+the gradients and the optimiser state (``update``) or the parameters
+(``apply_updates``), and the results are written into their tensors one
+leaf at a time, with the same arithmetic, so bit for bit the functional
+results. A step then holds one copy of parameters, gradients and moments
+(four f32 trees) instead of the functional step's old and new copies.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ __all__ = [
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable  # (grads, state, params, step) -> (updates, state)
+    #: (grads, state, params, step, *, donate=False) -> (updates, state)
+    update: Callable
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -56,9 +65,13 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
         return ()
 
     @torch.no_grad()
-    def update(grads, state, params=None, step=None):
+    def update(grads, state, params=None, step=None, *, donate=False):
         g = global_norm(grads)
         scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
+        if donate:
+            for x in tree_leaves(grads):
+                x.mul_(scale)
+            return grads, state
         return tree_map(lambda x: x * scale, grads), state
 
     return Optimizer(init, update)
@@ -80,7 +93,7 @@ def adamw(
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, *, donate=False):
         ps = tree_leaves(params)
         step = torch.as_tensor(step, device=ps[0].device)
         step_f = step.to(torch.float32) + 1.0
@@ -98,9 +111,29 @@ def adamw(
             return ((-lr_t * u).to(p.dtype), m32.to(state_dtype),
                     v32.to(state_dtype))
 
-        out = [upd(g, m, v, p) for g, m, v, p in zip(
-            leaves_like(params, grads), leaves_like(params, state["m"]),
-            leaves_like(params, state["v"]), ps)]
+        def upd_(g, m, v, p):
+            """``upd`` written into ``m``, ``v`` and ``g`` (returned as the
+            update), op for op the same arithmetic, with two temporaries
+            of the leaf's size at a time."""
+            g32 = g.float()
+            m.mul_(b1).add_((1 - b1) * g32)
+            t = (1 - b2) * g32
+            v.mul_(b2).add_(t.mul_(g32))
+            t = torch.div(v, bc2).sqrt_().add_(eps)
+            u = torch.div(m, bc1).div_(t)
+            del t
+            u.add_(weight_decay * p.float()).mul_(-lr_t)
+            return g.copy_(u) if g.dtype == p.dtype else u.to(p.dtype)
+
+        leaves = zip(leaves_like(params, grads),
+                     leaves_like(params, state["m"]),
+                     leaves_like(params, state["v"]), ps)
+        if donate and state_dtype == torch.float32:
+            # each leaf's results into its own gradient and moments (a
+            # narrower state is updated in float32 and rounded, as above)
+            out = [upd_(*leaf) for leaf in leaves]
+            return unflatten_like(params, out), state
+        out = [upd(*leaf) for leaf in leaves]
         col = lambda i: unflatten_like(params, [o[i] for o in out])
         return col(0), {"m": col(1), "v": col(2)}
 
@@ -127,7 +160,8 @@ def adafactor(
         return tree_map(st, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, *, donate=False):
+        del donate  # functional: the donated trees are left as they are
         ps = tree_leaves(params)
         step = torch.as_tensor(step, device=ps[0].device)
         step_f = step.to(torch.float32) + 1.0
@@ -167,10 +201,10 @@ def chain(*opts: Optimizer) -> Optimizer:
     def init(params):
         return tuple(o.init(params) for o in opts)
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, *, donate=False):
         new_states = []
         for o, s in zip(opts, state):
-            grads, s = o.update(grads, s, params, step)
+            grads, s = o.update(grads, s, params, step, donate=donate)
             new_states.append(s)
         return grads, tuple(new_states)
 
@@ -178,7 +212,13 @@ def chain(*opts: Optimizer) -> Optimizer:
 
 
 @torch.no_grad()
-def apply_updates(params, updates):
+def apply_updates(params, updates, *, donate=False):
+    """``params + updates`` leaf by leaf; ``donate``: added into the
+    parameters' own tensors, which are returned."""
+    if donate:
+        for p, u in zip(tree_leaves(params), leaves_like(params, updates)):
+            p.add_(u.to(p.dtype))
+        return params
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 

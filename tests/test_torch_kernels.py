@@ -197,6 +197,32 @@ def test_flash_attention_ragged_lengths(reference, S, causal, dtype):
     assert_close(_to_np(got), _to_np(pallas), dtype)
 
 
+@pytest.mark.parametrize("S,causal", [(48, True), (48, False), (33, True),
+                                      (33, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_at_head_dim_256(reference, S,
+                                                              causal, dtype):
+    """gemma-7b's head dim, which has a kernel instance: GQA 2:1, both
+    masks, a ragged length, against the Pallas kernel in interpret mode
+    and the reference oracle. float32 is held at 1e-5 of the output's
+    scale, max(1, max|ref|), as the WKV is: each score sums 256 products,
+    which XLA and PyTorch block in other orders, and an output entry near
+    zero (cancellation) carries that round-off (up to 2.3e-6 from either,
+    over 1e-6 absolute plus relative on 2-13 entries)."""
+    assert 256 in t_flash_mod.HEAD_DIMS
+    rng = np.random.default_rng(256 + S)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, 1, 4, 2, S, S, 256, dtype)
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = j_flash(qj, kj, vj, causal=causal, bq=16, bk=16)
+    ref = flash_attention_ref(qj, kj, vj, causal=causal)
+    for want in (pallas, ref):
+        if dtype == "float32":
+            assert_scale_close(got, _to_np(want), 1e-5)
+        else:
+            assert_close(_to_np(got), _to_np(want), dtype)
+
+
 @pytest.mark.parametrize("hd", [32, 72])
 def test_flash_attention_noncausal(reference, hd):
     rng = np.random.default_rng(2)
@@ -724,7 +750,8 @@ def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
 #: (B, H, K, S = T, hd, causal) for the kernel on the card: the main path's
 #: shape, every head dim with a kernel instance, lengths at the edges of the
 #: kernel's 64-key tiles and 128-row query tiles (64 rows for hd > 80) under
-#: both masks, GQA 4:1
+#: both masks, GQA 4:1; at hd 256 (32-key tiles) the edges of its tiles,
+#: GQA 4:1 and gemma-7b's heads at a prompt of 512
 FLASH_CARD_CASES = [
     (8, 16, 16, 256, 72, False), (2, 16, 4, 256, 72, True),
     (2, 4, 4, 257, 72, False), (2, 4, 2, 200, 64, True),
@@ -732,7 +759,10 @@ FLASH_CARD_CASES = [
     *[(2, 4, 2, 96, hd, True) for hd in t_flash_mod.HEAD_DIMS],
     *[(2, 4, 4, n, 72, causal) for n in (1, 63, 64, 65, 127, 128, 129)
       for causal in (False, True)],
-    (2, 8, 2, 129, 72, False)]
+    (2, 8, 2, 129, 72, False),
+    *[(2, 4, 4, n, 256, causal) for n in (1, 31, 32, 33, 63, 64, 65)
+      for causal in (False, True)],
+    (2, 8, 2, 129, 256, False), (1, 16, 16, 512, 256, True)]
 
 
 @pytest.mark.gpu

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as j_ARCHS
 from repro.configs import get_config as j_get_config
 from repro.configs import get_smoke as j_get_smoke
 from repro.models import build_model as j_build_model
@@ -130,6 +131,22 @@ def test_starcoder2_3b_config_is_the_reference():
     # the reference's analytic count leaves out the 2L + 1 norm vectors
     assert n == j_build_model(j_get_config("starcoder2-3b")).cfg \
         .param_count()[0] + 61 * 3072 == 3_180_518_400
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "granite-34b",
+                                  "gemma-7b", "musicgen-large"])
+def test_dense_zoo_configs_are_the_reference(arch):
+    """The rest of the dense zoo: ``full()`` and ``smoke()`` field for
+    field the reference's, in the reference's order in ``ARCHS``, on the
+    port's bfloat16 stream and cache."""
+    for get, j_get in ((get_config, j_get_config), (get_smoke, j_get_smoke)):
+        cfg, jcfg = get(arch), j_get(arch)
+        for f in dataclasses.fields(jcfg):
+            if f.name not in ("dtype", "cache_dtype"):  # JAX dtypes
+                assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        assert cfg.dtype == cfg.cache_dtype == torch.bfloat16
+    order = [a for a in j_ARCHS if a in ARCHS]
+    assert list(ARCHS) == order
 
 
 def _leaves(defs):

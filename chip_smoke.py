@@ -43,7 +43,12 @@ gradients against the CPU's at 4 layers, the driver's CLI killed and
 resumed bit for bit, ``examples/torch_lm_train_resume.py``); the rest of
 the dense zoo served (``lm_zoo_path``: starcoder2-15b, granite-34b cut to
 the layers the card holds, gemma-7b through flash's head-dim-256
-instance, musicgen-large, every flash call held); the port's
+instance, musicgen-large, every flash call held); the MoE family
+(``moe_path``: dbrx-132b with f32 weights and deepseek-v3-671b with MLA,
+its dense prefix and MTP on bf16 weights, served at published width and
+cut depth, dbrx's flash calls held, consistency at 4 / 2 layers with
+every routing choice compared, the smoke CLI trained and resumed, and
+an SA solve over the MoE denoiser through flash and sa_fused); the port's
 sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -111,7 +116,9 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "rwkv6": ("rwkv6_wkv", "sa_fused"),
                 "train": ("sa_fused", "flash_attention"),
                 "lm": ("flash_attention", "rwkv6_wkv"),
-                "lm_zoo": ("flash_attention",)}
+                "lm_zoo": ("flash_attention",),
+                "moe": ("flash_attention",),
+                "sample_moe": ("sa_fused", "flash_attention")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -3550,6 +3557,19 @@ def _rel_per_leaf(got, ref) -> dict:
     return out
 
 
+def _scale_qk(params: dict, factor: float) -> dict:
+    """Scale a transformer's query and key projections in place, in every
+    stack: GQA's ``wq``/``wk``, MLA's ``wq_b``/``wk_b`` (logits of a
+    smaller scale); a tree without attention (RWKV6) is left alone."""
+    from repro_torch.models.common import block_stacks
+    for blocks in block_stacks(params):
+        a = blocks.get("attn", {})
+        for k in ("wq", "wk", "wq_b", "wk_b"):
+            if k in a:
+                a[k] *= factor
+    return params
+
+
 def _tempered_params(model, seed: int, device):
     """Float32 weights with every leaf off zero (the adaLN-zero init
     leaves the blocks without a gradient) and ``wq``/``wk`` scaled by 0.3
@@ -3562,8 +3582,7 @@ def _tempered_params(model, seed: int, device):
     g = torch.Generator().manual_seed(seed)
     p = init_params(g, model.param_defs(), torch.float32)
     p = tree_map(lambda t: t + 0.02 * torch.randn(t.shape, generator=g), p)
-    for k in ("wq", "wk"):
-        p["blocks"]["attn"][k] *= 0.3
+    _scale_qk(p, 0.3)
     return tree_map(lambda t: t.to(device), p)
 
 
@@ -3897,10 +3916,38 @@ def _lm_params(model, device, seed: int = 0, cpu_draw: bool = False):
                            model.param_defs(), torch.float32, device)
     p = init_params(torch.Generator().manual_seed(seed), model.param_defs(),
                     torch.float32)
-    if "attn" in p["blocks"]:
-        for k in ("wq", "wk"):
-            p["blocks"]["attn"][k] *= LM_QK_SCALE
+    _scale_qk(p, LM_QK_SCALE)
     return tree_map(lambda t: t.to(device), p)
+
+
+def _seeded_params(model, dev, dtype, seed: int) -> dict:
+    """Weights of ``model`` from ``seed`` on the card, query and key
+    projections scaled by ``LM_QK_SCALE``. float32 through
+    ``init_params`` (drawn in place); a narrower dtype a block of a leaf's
+    leading axis at a time (at most 2**28 values), drawn in float32 and
+    rounded: a float32 leaf of deepseek-v3's MoE stack beside its
+    bfloat16 copy would not fit."""
+    import torch
+    from repro_torch.models.common import init_params, tree_defs_map
+    g = torch.Generator(dev).manual_seed(seed)
+    if dtype == torch.float32:
+        return _scale_qk(init_params(g, model.param_defs(), dtype, dev),
+                         LM_QK_SCALE)
+
+    def draw(d):
+        if d.init in ("zeros", "ones"):
+            return d.materialize(g, dtype, dev)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale if d.init == "normal" else d.scale / math.sqrt(fan_in)
+        out = torch.empty(d.shape, dtype=dtype, device=dev)
+        rows = max(1, 2**28 // max(1, math.prod(d.shape[1:])))
+        for i in range(0, d.shape[0], rows):
+            blk = out[i:i + rows]
+            blk.copy_(torch.empty(blk.shape, device=dev).normal_(
+                generator=g).mul_(std))
+        return out
+
+    return _scale_qk(tree_defs_map(draw, model.param_defs()), LM_QK_SCALE)
 
 
 def _lm_served(model, params, prompt, n_decode: int) -> dict:
@@ -4254,19 +4301,28 @@ def _temper_lm(params: dict) -> dict:
     token) and ``wr``/``wk`` scaled by 0.1 (receptance-key scores of std
     below 1): at the init the cumulative log-decay of a chunk reaches
     ~-300, and float32 sums taken in other orders move the gradients far
-    past the 1e-5 gate."""
-    blocks = params["blocks"]
-    if "attn" in blocks:
+    past the 1e-5 gate. Both stacks of a MoE model (``blocks`` and
+    ``moe_blocks``) are tempered; MLA's latent projections ``wq_b``,
+    ``wk_b`` and ``wv_b`` ([r, H, k], divided by sqrt(H)) are rescaled to
+    the fan-in r, its ``wo`` to H x v."""
+    from repro_torch.models.common import block_stacks
+    for blocks in block_stacks(params):
+        if "tm" in blocks:
+            blocks["tm"]["w0"] -= 2.0
+            for k in ("wr", "wk"):
+                blocks["tm"][k] *= 0.1
+            continue
         a = blocks["attn"]
-        d, H, K = a["wq"].shape[1], a["wq"].shape[2], a["wk"].shape[2]
-        a["wq"] *= math.sqrt(H / d)
-        a["wk"] *= math.sqrt(K / d)
-        a["wv"] *= math.sqrt(K / d)
+        if "wq_b" in a:
+            r, H = a["wk_b"].shape[1], a["wk_b"].shape[2]
+            for k in ("wq_b", "wk_b", "wv_b"):
+                a[k] *= math.sqrt(H / r)
+        else:
+            d, H, K = a["wq"].shape[1], a["wq"].shape[2], a["wk"].shape[2]
+            a["wq"] *= math.sqrt(H / d)
+            a["wk"] *= math.sqrt(K / d)
+            a["wv"] *= math.sqrt(K / d)
         a["wo"] *= 1 / math.sqrt(H)
-    else:
-        blocks["tm"]["w0"] -= 2.0
-        for k in ("wr", "wk"):
-            blocks["tm"][k] *= 0.1
     return params
 
 
@@ -4490,18 +4546,22 @@ LM_ZOO_DECODE = 16
 LM_ZOO_RESERVE = 8e9
 
 
-def _zoo_depth(cfg) -> int:
-    """The published depth of ``cfg``, or the most layers whose float32
-    weights fit in the card's free memory less ``LM_ZOO_RESERVE``."""
+def _zoo_depth(cfg, itemsize: int = 4) -> int:
+    """The published depth of ``cfg``, or the most layers whose weights
+    (``itemsize`` bytes each: float32 by default) fit in the card's free
+    memory less ``LM_ZOO_RESERVE``. A MoE config keeps its dense prefix
+    whole and cuts its MoE layers, to one at the least."""
     import torch
     from repro_torch.models import build_model
     defs = build_model(cfg).param_defs()
-    size = lambda tree: sum(math.prod(d.shape) for d in _leaves(tree))
-    blocks = 4 * size(defs["blocks"])
-    rest = 4 * size({k: v for k, v in defs.items() if k != "blocks"})
+    size = lambda tree: itemsize * sum(math.prod(d.shape)
+                                       for d in _leaves(tree))
+    cut = "moe_blocks" if "moe_blocks" in defs else "blocks"
+    n_cut = cfg.n_layers - (cfg.n_dense_layers if cut == "moe_blocks" else 0)
+    rest = size({k: v for k, v in defs.items() if k != cut})
     free, _ = torch.cuda.mem_get_info()
-    fit = int((free - LM_ZOO_RESERVE - rest) // (blocks / cfg.n_layers))
-    return max(1, min(cfg.n_layers, fit))
+    fit = int((free - LM_ZOO_RESERVE - rest) // (size(defs[cut]) / n_cut))
+    return cfg.n_layers - n_cut + max(1, min(n_cut, fit))
 
 
 def phase_lm_zoo_path(state: dict) -> dict:
@@ -4526,7 +4586,7 @@ def phase_lm_zoo_path(state: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import build_model, init_params
+    from repro_torch.models import build_model
     dev = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4542,10 +4602,7 @@ def phase_lm_zoo_path(state: dict) -> dict:
         cfg = dataclasses.replace(published, n_layers=_zoo_depth(published))
         model = build_model(cfg)
         t = time.perf_counter()
-        params = init_params(torch.Generator(dev).manual_seed(0),
-                             model.param_defs(), torch.float32, dev)
-        for k in ("wq", "wk"):
-            params["blocks"]["attn"][k] *= LM_QK_SCALE
+        params = _seeded_params(model, dev, torch.float32, seed=0)
         torch.cuda.synchronize()
         r: dict = {"layers": cfg.n_layers, "published_layers":
                    published.n_layers, "d_model": cfg.d_model,
@@ -4630,6 +4687,399 @@ def phase_lm_zoo_path(state: dict) -> dict:
     return result
 
 
+#: moe_path: the MoE family served at published width (batch LM_BATCH x
+#: LM_PROMPT, MOE_DECODE greedy steps), the dtype of each arch's weights
+#: (a float32 MoE layer of deepseek-v3 is 46 GB: not one fits beside its
+#: dense prefix, embeddings and MTP module; in bfloat16, two do)
+MOE_ARCHS = ("dbrx-132b", "deepseek-v3-671b")
+MOE_DECODE = 16
+MOE_WEIGHTS = {"dbrx-132b": "float32", "deepseek-v3-671b": "bfloat16"}
+#: the consistency check: (layers, dense layers) at published width,
+#: float32 weights, stream and cache
+MOE_CHECK = {"dbrx-132b": (4, 0), "deepseek-v3-671b": (2, 1)}
+#: the reference's capacity factor for its decode consistency test
+#: (tests/test_models.py); drop-free by construction only where E / k <= 8
+#: (every smoke config; dbrx-132b's 16 / 4): the gate takes
+#: max(MOE_CHECK_CF, E / k), C >= S
+MOE_CHECK_CF = 8.0
+#: flips reported at most per check
+MOE_FLIPS_SHOWN = 8
+
+
+@contextlib.contextmanager
+def moe_routes(record: list):
+    """While active, every MoE routing decision (``moe_apply``'s top-k)
+    appends ``(values, experts)`` of its k + 1 largest router
+    probabilities, [B, S, k + 1] each, to ``record`` (measuring code:
+    the routing itself is untouched)."""
+    import torch
+    from repro_torch.models import moe
+    original = moe.top_k_lower_first
+
+    def recorded(x, k):
+        v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+        record.append((v[..., :k + 1].float().cpu(), i[..., :k + 1].cpu()))
+        return original(x, k)
+
+    moe.top_k_lower_first = recorded
+    try:
+        yield record
+    finally:
+        moe.top_k_lower_first = original
+
+
+def _route_flips(fw: list, rest: list, positions, k: int) -> list:
+    """Positions where ``rest``'s routing (prefill, then one decode step a
+    position) chose another set of experts than the forward's, per MoE
+    layer: ``(layer, row, position, forward's gap at the k-th place,
+    the other path's gap)``."""
+    flips = []
+    for l, (fv, fi) in enumerate(fw):
+        for pos in positions:
+            rv, ri = rest[pos][l]
+            for b in range(fi.shape[0]):
+                if set(fi[b, pos, :k].tolist()) != set(ri[b, :k].tolist()):
+                    flips.append((l, b, pos,
+                                  float(fv[b, pos, k - 1] - fv[b, pos, k]),
+                                  float(rv[b, k - 1] - rv[b, k])))
+    return flips
+
+
+def _moe_consistency(arch: str, cf: float) -> dict:
+    """``MOE_CHECK`` layers of ``arch`` at published width, float32
+    weights, stream and cache, ``capacity_factor`` ``cf``, on the card:
+    the forward's last
+    logits against a prefill's, and prefill(``LM_CHECK_PREFILL``) + decode
+    steps to ``LM_PROMPT`` against the forward's logits at each of those
+    positions, as max |diff| over the forward logits' peak. Routing is not
+    continuous, so beside the gaps: every MoE layer's chosen experts in
+    the forward against those of the prefill and decode steps at every
+    position, each differing choice with the gap at the k-th place, and
+    the forward's largest expert load against its capacity."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    n_layers, n_dense = MOE_CHECK[arch]
+    pub = get_config(arch)
+    # without the MTP module (the loss's alone: 2.8 GB of float32)
+    cfg = dataclasses.replace(
+        pub, n_layers=n_layers, n_dense_layers=n_dense, dtype=torch.float32,
+        cache_dtype=torch.float32, mtp=False, moe=dataclasses.replace(
+            pub.moe, capacity_factor=cf))
+    model = build_model(cfg)
+    params = _seeded_params(model, dev, torch.float32, seed=3)
+    g = torch.Generator().manual_seed(5)
+    tk = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=g).to(dev)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    fw_routes, pf_routes = [], []
+    dec_routes: dict = {}
+    k_pf = LM_CHECK_PREFILL
+    with torch.no_grad():
+        with moe_routes(fw_routes):
+            fw, _ = model.forward(params, {"tokens": tk})
+        lg, _ = model.prefill(params, {"tokens": tk},
+                              model.init_cache(2, LM_PROMPT, device=dev))
+        last = rel(lg[:, 0], fw[:, -1])
+        cache = model.init_cache(2, LM_PROMPT, device=dev)
+        with moe_routes(pf_routes):
+            lg, cache = model.prefill(params, {"tokens": tk[:, :k_pf]},
+                                      cache)
+        gaps = [rel(lg[:, 0], fw[:, k_pf - 1])]
+        for i in range(k_pf, LM_PROMPT - 1):
+            step: list = []
+            with moe_routes(step):
+                lg, cache = model.decode_step(params, tk[:, i:i + 1],
+                                              cache, i)
+            dec_routes[i] = [(v[:, 0], e[:, 0]) for v, e in step]
+            gaps.append(rel(lg[:, 0], fw[:, i]))
+    k = cfg.moe.top_k
+    rest = {pos: [(v[:, pos], e[:, pos]) for v, e in pf_routes]
+            for pos in range(k_pf)}
+    rest.update(dec_routes)
+    flips = _route_flips(fw_routes, rest, range(LM_PROMPT - 1), k)
+    E = cfg.moe.n_experts
+    loads = [int(torch.stack([torch.bincount(e[b, :, :k].reshape(-1),
+                                             minlength=E)
+                              for b in range(e.shape[0])]).max())
+             for _, e in fw_routes]
+    res = {"layers": n_layers, "dense_layers": n_dense, "batch": 2,
+           "capacity_factor": cf,
+           "forward_capacity": max(1, int(LM_PROMPT * k / E * cf)),
+           "forward_max_expert_load": loads,
+           "forward_vs_prefill_last": last,
+           "prefill_then_decode_vs_forward": max(gaps),
+           "decode_steps": len(gaps) - 1,
+           "logits_peak": float(fw.abs().max()),
+           "routing_compared": len(fw_routes) * 2 * (LM_PROMPT - 1),
+           "routing_flips": len(flips),
+           "flips": [{"moe_layer": l, "row": b, "position": p,
+                      "forward_kth_gap": gf, "other_kth_gap": go}
+                     for l, b, p, gf, go in flips[:MOE_FLIPS_SHOWN]]}
+    res["drop_free"] = max(loads) <= res["forward_capacity"]
+    res["ok"] = max(last, max(gaps)) <= LM_CHECK_LIMIT
+    return res
+
+
+def phase_moe_path(state: dict) -> dict:
+    """The MoE family on the card. (1) dbrx-132b (16 experts top-4 of
+    10,752, GQA 48:8 of head dim 128, every layer MoE) and
+    deepseek-v3-671b (MLA with its compressed cache, 3 dense layers, 256
+    experts top-8 of 2,048 and a shared one, MTP) served at published
+    width with weights from a seed (``_moe_params``: dbrx float32, as the
+    zoo; deepseek bfloat16, ``MOE_WEIGHTS``), the published bfloat16
+    stream and cache, batch ``LM_BATCH``, at the depth the card holds
+    (``_zoo_depth``: deepseek keeps its dense prefix): a cache-free
+    ``forward`` of ``LM_PROMPT`` tokens (dbrx: one flash launch a layer,
+    then one more forward with every flash call held against the plain
+    version; MLA calls no kernel), a prefill of ``LM_PROMPT`` and
+    ``MOE_DECODE`` greedy decode steps (MLA's expanded prefill and
+    absorbed decode; no launch), and ``launch.serve.serve_lm`` on the cut
+    config. (2) ``_moe_consistency`` for each, gated at a capacity factor
+    that is drop-free by construction (``MOE_CHECK_CF``'s note);
+    deepseek-v3 at ``MOE_CHECK_CF`` itself beside it, recorded (its
+    forward may drop choices that a decode step keeps). (3)
+    ``launch.train`` at
+    smoke width on the card: the loss (with the aux and, for deepseek, the
+    MTP term) finite and falling, ``--fail-at`` then ``--resume auto``
+    giving the uninterrupted run's loss stream and state bit for bit.
+    (4) ``launch.sample --arch dbrx-132b --smoke --combine fused``: an SA
+    solve over the MoE denoiser through sa_fused and flash."""
+    import gc
+    import io
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sample as launch_sample
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build_model
+    from repro_torch.runtime import InjectedFailure
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "moe_path", "stream": "bfloat16 (published)",
+                    "cache": "bfloat16 (published)", "weights": MOE_WEIGHTS,
+                    "qk_scale": LM_QK_SCALE}
+    held: dict = {}
+    checks: dict = {}
+    sections: dict = {}
+    ops.reset_launch_counts()  # the moe window starts here
+    t_phase = time.perf_counter()
+
+    # ---- (1) served at published width ----------------------------------
+    for arch in MOE_ARCHS:
+        wdt = getattr(torch, MOE_WEIGHTS[arch])
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, n_layers=_zoo_depth(
+            published, itemsize=wdt.itemsize))
+        model = build_model(cfg)
+        mo = cfg.moe
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = _seeded_params(model, dev, wdt, seed=0)
+        torch.cuda.synchronize()
+        r: dict = {"layers": cfg.n_layers, "published_layers":
+                   published.n_layers, "dense_layers": cfg.n_dense_layers,
+                   "d_model": cfg.d_model,
+                   "attention": "mla" if cfg.mla else "gqa",
+                   "heads": [cfg.n_heads, cfg.n_kv_heads],
+                   "experts": {"n": mo.n_experts, "top_k": mo.top_k,
+                               "d_ff": mo.d_expert_ff,
+                               "shared": mo.n_shared},
+                   "mtp": cfg.mtp, "vocab": cfg.vocab_size,
+                   "weights": MOE_WEIGHTS[arch],
+                   "weights_s": time.perf_counter() - t,
+                   "params": sum(t_.numel() for t_ in _leaves(params)),
+                   "weights_gb": sum(t_.numel() * t_.element_size()
+                                     for t_ in _leaves(params)) / 1e9}
+        g = torch.Generator(dev).manual_seed(7)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (LM_BATCH, LM_PROMPT),
+                                         generator=g, device=dev)}
+        per_fwd = 0 if cfg.mla else cfg.n_layers
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            out, secs, launches, _, _ = launch_window(
+                lambda: model.forward(params, batch))
+            r["forward"] = {
+                "seconds": secs,
+                "tokens_per_s": LM_BATCH * LM_PROMPT / secs,
+                "launches": launches, "aux": float(out[1]),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "finite": bool(torch.isfinite(out[0]).all())
+                and math.isfinite(float(out[1]))}
+            del out
+            checks[f"{arch}_forward"] = r["forward"]["finite"] and \
+                launches == only_launches(flash_attention=per_fwd)
+            if per_fwd:
+                with held_against_plain(held):
+                    model.forward(params, batch)
+            served = _lm_served(model, params, batch["tokens"], MOE_DECODE)
+        r["served"] = served
+        checks[f"{arch}_served"] = served["finite"] and \
+            served["prefill_launches"] == only_launches() and \
+            served["decode_launches"] == only_launches()
+        # launch.serve over the cut config: dbrx draws its own float32
+        # weights (the driver's init); deepseek's bfloat16 ones are passed
+        # (the driver draws float32, which does not fit)
+        given = None if wdt == torch.float32 else params
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.serve_lm(types.SimpleNamespace(
+                arch=arch, smoke=False, batch=LM_BATCH,
+                prompt_len=LM_PROMPT, gen=MOE_DECODE + 1), dev, cfg=cfg,
+                params=given)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        r["launch_serve"] = {
+            "call": f"serve_lm(cfg=<{arch} at {cfg.n_layers} layers>"
+                    + (", params=<bfloat16>)" if given is not None else ")"),
+            "seconds": time.perf_counter() - t,
+            "launches": {k_: after[k_] - before[k_] for k_ in after},
+            "printed": buf.getvalue().strip().splitlines()}
+        checks[f"{arch}_launch_serve"] = any(
+            ln.startswith("sample token ids:")
+            for ln in r["launch_serve"]["printed"])
+        del given, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        result[arch] = r
+        emit({"progress": "moe_path", "arch": arch, "layers": cfg.n_layers,
+              "forward_s": r["forward"]["seconds"],
+              "prefill_s": served["prefill_s"],
+              "decode_ms_p50": served["decode_ms_per_token_p50"],
+              "peak_gb": served["peak_gb"]})
+    want_flash = result["dbrx-132b"]["layers"]
+    checks["held"] = all(h["ok"] for h in held.values()) and held.get(
+        "flash_attention", {}).get("calls") == want_flash
+    result["held_against_plain"] = held
+    result["depth_cuts"] = {a: [result[a]["layers"],
+                                result[a]["published_layers"]]
+                            for a in MOE_ARCHS}
+    sections["served"] = time.perf_counter() - t_phase
+
+    # ---- (2) consistency at a few layers, drop-free ---------------------
+    t_sec = time.perf_counter()
+    result["consistency"] = {}
+    for arch in MOE_ARCHS:
+        mo = get_config(arch).moe
+        cf = max(MOE_CHECK_CF, mo.n_experts / mo.top_k)
+        c = _moe_consistency(arch, cf)
+        if cf != MOE_CHECK_CF:  # recorded, not gated
+            gc.collect()
+            torch.cuda.empty_cache()
+            c["at_reference_capacity_factor"] = _moe_consistency(
+                arch, MOE_CHECK_CF)
+        result["consistency"][arch] = c
+        checks[f"{arch}_consistency"] = c["ok"]
+        emit({"progress": "moe_path", "consistency": arch, **c})
+        gc.collect()
+        torch.cuda.empty_cache()
+    sections["consistency"] = time.perf_counter() - t_sec
+
+    # ---- (3) the training CLI at smoke width, killed and resumed ---------
+    t_sec = time.perf_counter()
+    steps, fail_at, save_every = LM_RESUME
+    trained = {}
+    tmp = tempfile.mkdtemp(prefix="moe_path_")
+    try:
+        for arch in MOE_ARCHS:
+            def cli(d, *extra):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    return lt.main([
+                        "--arch", arch, "--smoke", "--steps", str(steps),
+                        "--batch", "4", "--seq", "64", "--save-every",
+                        str(save_every), "--ckpt", os.path.join(tmp, d),
+                        *extra])
+            t = time.perf_counter()
+            ref_state, ref_hist = cli(arch + "_a")
+            run_s = time.perf_counter() - t
+            killed = False
+            try:
+                cli(arch + "_b", "--fail-at", str(fail_at))
+            except InjectedFailure:
+                killed = True
+            st, hist = cli(arch + "_b", "--resume", "auto")
+            diff = _tree_equal(st, ref_state)
+            start = fail_at - fail_at % save_every
+            cfg = get_smoke(arch)
+            model = build_model(lt.train_config(cfg))
+            first = next(lt.make_batches(cfg, 4, 64, dev))
+            with torch.no_grad():
+                after = float(model.loss_fn(ref_state["params"], first))
+                _, aux = model.forward(ref_state["params"], first)
+                no_mtp = float(model.loss_fn(
+                    ref_state["params"],
+                    {k_: first[k_] for k_ in ("tokens", "labels")}))
+            losses = [h["loss"] for h in ref_hist]
+            trained[arch] = {
+                "steps": steps, "batch": [4, 64], "run_s": run_s,
+                "losses": losses, "first_batch_loss_after": after,
+                "aux_after": float(aux),
+                "loss_without_labels2_after": no_mtp,
+                "fail_at": fail_at, "save_every": save_every,
+                "killed": killed, "resumed_steps": len(hist),
+                "loss_stream_bitwise": hist == ref_hist[start:],
+                "state_bitwise": not diff, "differs": diff[:5]}
+            checks[f"{arch}_train"] = all(map(math.isfinite, losses)) and \
+                after < losses[0] and float(aux) > 0 and \
+                (after != no_mtp) == cfg.mtp
+            checks[f"{arch}_resume"] = killed and not diff and \
+                hist == ref_hist[start:]
+            emit({"progress": "moe_path", "train_smoke": arch,
+                  **trained[arch]})
+            del ref_state, st, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["train_smoke"] = trained
+    sections["train_smoke"] = time.perf_counter() - t_sec
+    state["launches"]["moe"] = ops.launch_counts()  # window ends
+    result["launches"] = state["launches"]["moe"]
+    state["held"]["moe"] = held
+
+    # ---- (4) an SA solve over the MoE denoiser ----------------------------
+    t_sec = time.perf_counter()
+    argv = ["--arch", "dbrx-132b", "--smoke", "--combine", "fused",
+            "--nfe", str(NFE)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_sample.main(argv)  # sets the counts to 0 before its solves
+    launches = ops.launch_counts()
+    state["launches"]["sample_moe"] = launches
+    want = get_smoke("dbrx-132b").n_layers * NFE * 2  # two solves
+    result["sample"] = {"argv": argv, "launches": launches,
+                        "expected_flash": want,
+                        "printed": out.getvalue().strip().splitlines(),
+                        "seconds": time.perf_counter() - t_sec}
+    checks["sample"] = launches["flash_attention"] == want and \
+        launches["sa_fused"] > 0 and launches["rwkv6_wkv"] == 0 and \
+        "finite=True" in out.getvalue()
+    sections["sample"] = time.perf_counter() - t_sec
+
+    result["seconds"] = time.perf_counter() - t_phase
+    result["section_seconds"] = sections
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], f"moe_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
@@ -4676,7 +5126,8 @@ def main() -> int:
             ("train_path", lambda: phase_train_path(state), False),
             ("lm_path", lambda: phase_lm_path(state), False),
             ("lm_train_path", lambda: phase_lm_train_path(state), False),
-            ("lm_zoo_path", lambda: phase_lm_zoo_path(state), False)):
+            ("lm_zoo_path", lambda: phase_lm_zoo_path(state), False),
+            ("moe_path", lambda: phase_moe_path(state), False)):
         t = time.perf_counter()
         out = run()
         seconds[name] = time.perf_counter() - t

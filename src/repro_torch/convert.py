@@ -6,18 +6,25 @@ reference tree (numpy arrays, e.g. from ``jax.device_get(params)``) with
 its shape checked, and any leaf the model does not declare is an error.
 Without a model, an RWKV6 tree (``blocks/tm``; an LM, or a denoiser when
 it has ``denoiser/``) is built from its shapes. A transformer tree
-(``blocks/attn``) needs ``model=`` or the reference's config: the block's
-activation, gating, RoPE and logit soft-capping leave no trace in the
-shapes. ``cache_from_jax`` carries a KV cache or an RWKV6 state across,
-so that one package can prefill and the other decode.
+(``blocks/attn`` and/or ``moe_blocks/attn``, MLA's leaves, ``mtp/``)
+needs ``model=`` or the reference's config: the block's activation,
+gating, RoPE, logit soft-capping and the MoE's routing leave no trace in
+the shapes. ``cache_from_jax`` carries a KV cache (GQA's ``k``/``v`` or
+MLA's ``c_kv``/``k_rope``, under ``blocks`` and ``moe_blocks``) or an
+RWKV6 state across, so that one package can prefill and the other
+decode.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models.attention import MLAConfig
 from .models.common import ParamDef
+from .models.moe import MoEConfig
 from .models.rwkv6 import RWKV6, RWKV6Config
 from .models.transformer import LMConfig, TransformerLM
 
@@ -43,13 +50,20 @@ _LM_FIELDS = ("name", "family", "n_layers", "d_model", "n_heads",
               "remat", "denoiser_latent", "denoiser_cond")
 
 
+#: the reference's nested configs, by field, and the port's classes
+_NESTED = {"moe": MoEConfig, "mla": MLAConfig}
+
+
 def _dit_from_config(config) -> TransformerLM:
     """The port's transformer (the DiT, or an LM) for the reference's
-    ``LMConfig``; raises
-    ``NotImplementedError`` for what the port does not compute (MoE, MLA,
-    multi-token prediction, M-RoPE)."""
-    return TransformerLM(LMConfig(**{k: getattr(config, k)
-                                     for k in _LM_FIELDS}))
+    ``LMConfig`` (its ``MoEConfig``/``MLAConfig`` taken field for field);
+    raises ``NotImplementedError`` for what the port does not compute
+    (M-RoPE)."""
+    fields = {k: getattr(config, k) for k in _LM_FIELDS}
+    for k, cls in _NESTED.items():
+        if fields[k] is not None:
+            fields[k] = cls(**dataclasses.asdict(fields[k]))
+    return TransformerLM(LMConfig(**fields))
 
 
 def _rwkv6_from_tree(tree) -> RWKV6:
@@ -107,7 +121,7 @@ def params_from_jax(tree, model=None, *, config=None,
         return {k: walk(v, path + (k,)) for k, v in defs.items()}
 
     if model is None:
-        if "tm" in tree["blocks"]:
+        if "tm" in tree.get("blocks", {}):
             model = _rwkv6_from_tree(tree)
         elif config is None:
             raise ValueError(
@@ -125,9 +139,10 @@ def params_from_jax(tree, model=None, *, config=None,
 
 def cache_from_jax(tree, device="cpu") -> dict:
     """The port's serving cache from the reference's, leaf by leaf (numpy
-    arrays, e.g. from ``jax.device_get(cache)``): a transformer's KV cache
-    ``{"blocks": {"k", "v"}}`` or an RWKV6 state ``{"S", "tm_shift",
-    "cm_shift"}``, same tree, shapes and dtypes (bfloat16 included)."""
+    arrays, e.g. from ``jax.device_get(cache)``): a transformer's cache
+    ``{"blocks", "moe_blocks": {"k", "v"} or {"c_kv", "k_rope"}}`` or an
+    RWKV6 state ``{"S", "tm_shift", "cm_shift"}``, same tree, shapes and
+    dtypes (bfloat16 included)."""
     if isinstance(tree, dict):
         return {k: cache_from_jax(v, device) for k, v in tree.items()}
     return _tensor(tree, device)

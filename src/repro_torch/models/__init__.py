@@ -1,5 +1,5 @@
-"""Models of the port: the dense transformer (an LM, or the DiT denoiser
-SA-Solver samples through) with its attention, and RWKV6 (an LM, or a
+"""Models of the port: the transformer (a dense or MoE LM, with GQA or
+MLA attention, or the DiT denoiser SA-Solver samples through), and RWKV6 (an LM, or a
 denoiser backbone), their shared layers and their contractive test
 weights. The shared, duck-typed API:
 
@@ -14,13 +14,15 @@ weights. The shared, duck-typed API:
 ``build_model(cfg)`` dispatches on the config type.
 """
 
-from .attention import AttentionConfig
+from .attention import AttentionConfig, MLAConfig
 from .common import ParamDef, init_params
+from .moe import MoEConfig
 from .rwkv6 import RWKV6, RWKV6Config
 from .transformer import LMConfig, TransformerLM
 
-__all__ = ["AttentionConfig", "LMConfig", "TransformerLM", "RWKV6",
-           "RWKV6Config", "ParamDef", "init_params", "build_model"]
+__all__ = ["AttentionConfig", "MLAConfig", "MoEConfig", "LMConfig",
+           "TransformerLM", "RWKV6", "RWKV6Config", "ParamDef",
+           "init_params", "build_model"]
 
 
 def build_model(cfg):

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamDef", "init_params", "tree_defs_map", "layer_of", "unstack",
+__all__ = ["ParamDef", "init_params", "tree_defs_map", "block_stacks",
+           "layer_of", "unstack",
            "rms_norm", "layer_norm", "ACTIVATIONS", "mlp_defs", "mlp_apply",
            "promote_matmul", "promote_einsum", "rope_frequencies",
            "apply_rope", "softmax_cross_entropy", "chunked_lm_loss"]
@@ -68,6 +69,12 @@ def init_params(generator: torch.Generator, defs, dtype=torch.float32,
     device = generator.device if device is None else device
     return tree_defs_map(lambda d: d.materialize(generator, dtype, device),
                          defs)
+
+
+def block_stacks(params: dict) -> list:
+    """The stacked [L, ...] block trees of a model's parameters: the
+    dense ``blocks`` and a MoE model's ``moe_blocks``, those present."""
+    return [params[k] for k in ("blocks", "moe_blocks") if k in params]
 
 
 def layer_of(tree, l: int):
@@ -126,13 +133,19 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """:func:`rope_frequencies` as a float32 tensor on ``device``, made
+    once: a copy from the host inside a CUDA-graph capture fails."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """x: [..., S, H, hd]; positions: integer, broadcastable to [..., S].
     The angles in float32, the rotation of the two halves of the head dim
     in float32, the result in ``x``'s dtype."""
-    hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(hd, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
     ang = positions[..., :, None].to(torch.float32) * freqs  # [..., S, hd/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

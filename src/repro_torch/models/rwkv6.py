@@ -86,6 +86,16 @@ class RWKV6Config:
     def n_heads(self) -> int:
         return self.d_model // self.head_dim
 
+    def param_count(self) -> tuple[int, int]:
+        """(total, active) parameter counts, analytic (the reference's
+        formula)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        tm = 4 * d * d + d * self.decay_lora * 2 + d * (5 * self.tshift_lora) \
+            + 5 * self.tshift_lora * d
+        cm = d * f + f * d + d * d
+        total = L * (tm + cm) + 2 * V * d
+        return total, total
+
 
 # ---------------------------------------------------------------------------
 # WKV recurrence

@@ -42,7 +42,7 @@ import torch
 from ..configs import get_config, get_smoke
 from ..core.denoiser import CachedNetwork
 from ..device import resolve_device
-from .common import init_params
+from .common import block_stacks, init_params
 from .rwkv6 import RWKV6
 from .transformer import TransformerLM
 
@@ -59,17 +59,19 @@ def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
                 t_damp: tuple[float, float] = (0.1, 0.3)) -> dict:
     """Overwrite an ``init_params`` tree in place with the contractive
     construction (draws from ``generator``); returns it. ``adaln_scale``
-    applies to trees with adaLN weights (the DiT); trees with RWKV6 blocks
-    have their branch projections scaled by ``BRANCH_SCALE``."""
+    applies to trees with adaLN weights (the DiT; a MoE denoiser's dense
+    and MoE stacks both); trees with RWKV6 blocks have their branch
+    projections scaled by ``BRANCH_SCALE``."""
     w = math.sqrt(64.0 / d_model)
-    blocks, dp = params["blocks"], params["denoiser"]
+    dp = params["denoiser"]
     dev = dp["out_proj"].device
-    if "adaln" in blocks:
-        blocks["adaln"] = adaln_scale * w * torch.randn(
-            blocks["adaln"].shape, generator=generator, device=dev)
-    if "tm" in blocks:
-        blocks["tm"]["wo"] = blocks["tm"]["wo"] * BRANCH_SCALE
-        blocks["cm"]["wv"] = blocks["cm"]["wv"] * BRANCH_SCALE
+    for blocks in block_stacks(params):
+        if "adaln" in blocks:
+            blocks["adaln"] = adaln_scale * w * torch.randn(
+                blocks["adaln"].shape, generator=generator, device=dev)
+        if "tm" in blocks:
+            blocks["tm"]["wo"] = blocks["tm"]["wo"] * BRANCH_SCALE
+            blocks["cm"]["wv"] = blocks["cm"]["wv"] * BRANCH_SCALE
     dp["out_proj"] = w / out_div * torch.randn(
         dp["out_proj"].shape, generator=generator, device=dev)
     dp["t_mlp1"] = dp["t_mlp1"] * t_damp[0]
@@ -213,13 +215,14 @@ def ensure_contractive(model, params, mu, x: torch.Tensor,
     random direction); halve
     the damped leaf in place until it is, at most ``max_halvings`` times.
     The damped leaf is the adaLN weights where the tree has them (the
-    DiT), else ``denoiser/out_proj`` (RWKV6). Returns ``{"damped",
-    "factor", "gains", "halvings"}``; raises if the gain stays at or
-    above 1."""
+    DiT: in every stack), else ``denoiser/out_proj`` (RWKV6). Returns
+    ``{"damped", "factor", "gains", "halvings"}``; raises if the gain
+    stays at or above 1."""
     network, _ = tame_networks(model, params, mu)
     v = torch.randn(x.shape, generator=generator, device=x.device)
-    tree, leaf = ((params["blocks"], "adaln") if "adaln" in params["blocks"]
-                  else (params["denoiser"], "out_proj"))
+    trees = [b for b in block_stacks(params) if "adaln" in b]
+    trees, leaf = (trees, "adaln") if trees else \
+        ([params["denoiser"]], "out_proj")
     factor = 1.0
     for halvings in range(max_halvings + 1):
         gains = {t: jacobian_gain(network, x, t, v, cond=cond) for t in ts}
@@ -227,7 +230,8 @@ def ensure_contractive(model, params, mu, x: torch.Tensor,
             return {"damped": leaf, "factor": factor, "gains": gains,
                     "halvings": halvings}
         if halvings < max_halvings:
-            tree[leaf] = tree[leaf] * 0.5
+            for tree in trees:
+                tree[leaf] = tree[leaf] * 0.5
             factor *= 0.5
     raise RuntimeError(
         f"tame weights stay expansive after {max_halvings} halvings of "

@@ -1,10 +1,11 @@
-"""Decoder-only transformer: the LM (dense, GQA with RoPE and a KV cache)
-and the DiT denoiser, one class by config, after the reference's
-``models/transformer.py``.
+"""Decoder-only transformer: the LM (dense or MoE; GQA with RoPE and a KV
+cache, or DeepSeek's MLA with its compressed cache) and the DiT denoiser,
+one class by config, after the reference's ``models/transformer.py``.
 
     param_defs()                    -> ParamDef tree (blocks stacked [L, ...])
     forward(params, batch)          -> (logits [B, S, V] float32, aux)
-    loss_fn(params, batch)          -> scalar next-token loss
+    loss_fn(params, batch)          -> scalar next-token loss (+ MoE aux,
+                                       + MTP)
     cache_shapes(batch, s_max)      -> {name: (shape, dtype)} per layer stack
     init_cache(batch, s_max, device=None) -> zero KV cache
     prefill(params, batch, cache)   -> (last logits [B, 1, V], cache)
@@ -18,7 +19,14 @@ and the DiT denoiser, one class by config, after the reference's
 LM mode (``denoiser_latent`` None) embeds tokens (or takes embeddings,
 ``input_mode="embeds"``), runs the causal block stack (pre-norm
 attention and MLP) and projects through the LM head (or the tied
-embedding). ``prefill`` writes the prompt's keys and values into the
+embedding). With ``moe`` set the stack is ``n_dense_layers`` dense
+blocks (``params["blocks"]``, absent when 0) followed by MoE blocks
+(``params["moe_blocks"]``), whose auxiliary losses are summed into
+``aux``; the caches keep the same two keys. ``mla`` swaps the attention
+for ``mla_forward`` (its decode absorbs the latent projections unless a
+``mla_absorb`` attribute set on the model says otherwise), and ``mtp``
+adds DeepSeek's multi-token-prediction module to the loss when the batch
+has ``labels2``. ``prefill`` writes the prompt's keys and values into the
 preallocated cache in place and returns that cache; ``decode_step``
 writes one position at ``index``. Without a cache the attention runs
 through the flash kernel on the card (``AttentionConfig.use_flash``);
@@ -36,8 +44,8 @@ scans over them. Training differentiates through the plain attention
 (``use_flash=False``, the reference's default): the kernels have no
 backward and refuse inputs that require grad. ``LMConfig.remat``
 recomputes each block in the backward (``torch.utils.checkpoint``), as
-the reference's ``jax.checkpoint`` policies do. MoE, MLA, multi-token
-prediction and M-RoPE come with later slices of the port and are refused.
+the reference's ``jax.checkpoint`` policies do. M-RoPE comes with a
+later slice of the port and is refused.
 """
 
 from __future__ import annotations
@@ -52,10 +60,12 @@ import torch.utils.checkpoint
 
 from ..kernels.graph_gate import run_if
 from ..tree import tree_leaves
-from .attention import AttentionConfig, attn_defs, cache_shape, gqa_forward
+from .attention import (AttentionConfig, MLAConfig, attn_defs, cache_shape,
+                        gqa_forward, mla_forward)
 from .common import (ParamDef, chunked_lm_loss, layer_of, mlp_apply,
                      mlp_defs, promote_matmul, rms_norm,
                      softmax_cross_entropy, tree_defs_map, unstack)
+from .moe import MoEConfig, moe_apply, moe_defs
 
 __all__ = ["LMConfig", "TransformerLM", "timestep_embedding"]
 
@@ -79,12 +89,10 @@ class LMConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma: scale embeddings by sqrt(d)
     attn_logit_softcap: float | None = None
-    #: the reference's MoE / MLA / first-k-dense / multi-token-prediction
-    #: fields; TransformerLM refuses any of them set (later slices)
-    moe: object | None = None
-    mla: object | None = None
-    n_dense_layers: int = 0
-    mtp: bool = False
+    moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
+    n_dense_layers: int = 0   # deepseek: first k layers dense even in MoE nets
+    mtp: bool = False         # deepseek multi-token prediction module
     mtp_weight: float = 0.3
     #: "tokens" (default) or "embeds" (audio/vlm stub frontends)
     input_mode: str = "tokens"
@@ -117,16 +125,43 @@ class LMConfig:
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.hd,
             rope_theta=self.rope_theta, rope_type=self.rope_type,
-            causal=True, attn_logit_softcap=self.attn_logit_softcap,
+            causal=True, mla=self.mla,
+            attn_logit_softcap=self.attn_logit_softcap,
             use_flash=self.use_flash)
 
-
-#: LMConfig fields the port does not compute yet, each with its default
-#: and the reference arch that needs it
-_UNPORTED = {"moe": (None, "dbrx, deepseek-v3"),
-             "mla": (None, "deepseek-v3"),
-             "n_dense_layers": (0, "deepseek-v3"),
-             "mtp": (False, "deepseek-v3")}
+    def param_count(self) -> tuple[int, int]:
+        """(total, active) parameter counts, analytic (the reference's
+        formula: the norm vectors are left out)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        if self.mla is not None:
+            m = self.mla
+            qk = m.qk_nope_dim + m.qk_rope_dim
+            attn = (d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk
+                    + d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * self.n_heads
+                    * (m.qk_nope_dim + m.v_dim)
+                    + self.n_heads * m.v_dim * d)
+        else:
+            attn = d * self.n_heads * self.hd * 2 \
+                + d * self.n_kv_heads * self.hd * 2
+        mlp_mats = 3 if self.gated_mlp else 2
+        dense_mlp = mlp_mats * d * f
+        if self.moe is not None:
+            mo = self.moe
+            expert = mlp_mats * d * mo.d_expert_ff
+            shared = (mlp_mats * d * mo.d_shared_ff) if mo.n_shared else 0
+            router = d * mo.n_experts
+            n_moe = L - self.n_dense_layers
+            total_mlp = (self.n_dense_layers * dense_mlp
+                         + n_moe * (expert * mo.n_experts + shared + router))
+            active_mlp = (self.n_dense_layers * dense_mlp
+                          + n_moe * (expert * mo.top_k + shared + router))
+        else:
+            total_mlp = active_mlp = L * dense_mlp
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        total = L * attn + total_mlp + emb
+        active = L * attn + active_mlp + emb
+        return total, active
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -166,12 +201,6 @@ def _remat_kwargs(remat: str) -> dict | None:
 
 class TransformerLM:
     def __init__(self, cfg: LMConfig):
-        for field, (default, archs) in _UNPORTED.items():
-            if getattr(cfg, field) != default:
-                raise NotImplementedError(
-                    f"{cfg.name}: {field}={getattr(cfg, field)!r}; the "
-                    f"PyTorch port's transformer has no {field} yet ("
-                    f"{archs}: a later slice)")
         if cfg.input_mode not in ("tokens", "embeds"):
             raise ValueError(f"input_mode={cfg.input_mode!r}; expected "
                              "'tokens' or 'embeds'")
@@ -182,33 +211,52 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
-    def _block_defs(self) -> dict:
+    def _block_defs(self, moe_layer: bool = False) -> dict:
         cfg = self.cfg
         d = {
             "ln1": ParamDef((cfg.d_model,), (None,), "zeros"),
             "ln2": ParamDef((cfg.d_model,), (None,), "zeros"),
             "attn": attn_defs(self.acfg),
-            "mlp": mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp),
         }
+        if moe_layer:
+            d["moe"] = moe_defs(cfg.d_model, cfg.moe)
+        else:
+            d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
         if cfg.denoiser_latent is not None:
             d["adaln"] = ParamDef((cfg.d_model, 6 * cfg.d_model),
                                   ("embed", None), "zeros")
         return d
 
+    def _stack_sizes(self) -> dict:
+        """``{"blocks": dense layers, "moe_blocks": MoE layers}``, the
+        stacks of this config (a stack of no layer left out)."""
+        cfg = self.cfg
+        n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+        sizes = {"blocks": cfg.n_layers - n_moe, "moe_blocks": n_moe}
+        return {k: n for k, n in sizes.items() if n}
+
     def param_defs(self) -> dict:
         cfg = self.cfg
-        L = cfg.n_layers
         out: dict = {
             "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
                               "normal", 0.02),
             "ln_f": ParamDef((cfg.d_model,), (None,), "zeros"),
-            "blocks": tree_defs_map(
-                lambda pd: ParamDef((L,) + pd.shape, (None,) + pd.axes,
-                                    pd.init, pd.scale), self._block_defs()),
         }
+        for key, n in self._stack_sizes().items():
+            out[key] = tree_defs_map(
+                lambda pd, n=n: ParamDef((n,) + pd.shape, (None,) + pd.axes,
+                                         pd.init, pd.scale),
+                self._block_defs(moe_layer=key == "moe_blocks"))
         if not cfg.tie_embeddings:
             out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                       ("embed", "vocab"), "scaled")
+        if cfg.mtp:
+            out["mtp"] = {
+                "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
+                                 ("embed", None), "scaled"),
+                "block": self._block_defs(moe_layer=False),
+                "ln": ParamDef((cfg.d_model,), (None,), "zeros"),
+            }
         dz = cfg.denoiser_latent
         if dz is None:
             return out
@@ -227,30 +275,48 @@ class TransformerLM:
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
+    def _attn(self, p, x, *, positions=None, cache=None, cache_index=None,
+              causal=None):
+        if self.cfg.mla is not None:
+            return mla_forward(p, self.acfg, x, positions=positions,
+                               cache=cache, cache_index=cache_index,
+                               causal=causal,
+                               absorb=getattr(self, "mla_absorb", None))
+        return gqa_forward(p, self.acfg, x, positions=positions, cache=cache,
+                           cache_index=cache_index, causal=causal)
+
+    def _ffn(self, p, h):
+        """The block's MLP, or its MoE when it has one -> ``(out, aux)``
+        (aux: the float32 zero of an MLP)."""
+        if "moe" in p:
+            return moe_apply(p["moe"], self.cfg.moe, h)
+        return (mlp_apply(p["mlp"], h, self.cfg.act, self.cfg.gated_mlp),
+                h.new_zeros((), dtype=torch.float32))
+
     def _block(self, p, x, tcond):
         """One adaLN block: shift/scale/gate from the f32 conditioning,
-        applied to the residual stream in its own dtype."""
+        applied to the residual stream in its own dtype (an MoE block's
+        aux loss is dropped, as the reference's ``denoise`` drops it)."""
         mod = promote_matmul(tcond, p["adaln"]).float()
         s1, g1, b1, s2, g2, b2 = torch.chunk(mod, 6, dim=-1)
         dt = x.dtype
         h = rms_norm(x, p["ln1"]) * (1 + s1[:, None, :]).to(dt) \
             + b1[:, None, :].to(dt)
-        a, _ = gqa_forward(p["attn"], self.acfg, h, causal=False)
+        a, _ = self._attn(p["attn"], h, causal=False)
         x = x + g1[:, None, :].to(dt) * a.to(dt)
         h = rms_norm(x, p["ln2"]) * (1 + s2[:, None, :]).to(dt) \
             + b2[:, None, :].to(dt)
-        m = mlp_apply(p["mlp"], h, self.cfg.act, self.cfg.gated_mlp)
+        m, _ = self._ffn(p, h)
         return x + g2[:, None, :].to(dt) * m.to(dt)
 
     def _lm_block(self, p, x, positions=None, cache=None, cache_index=None):
-        """One causal pre-norm block -> ``(x, cache)``."""
-        a, cache = gqa_forward(p["attn"], self.acfg, rms_norm(x, p["ln1"]),
-                               positions=positions, cache=cache,
-                               cache_index=cache_index)
+        """One causal pre-norm block -> ``(x, cache, aux)``."""
+        a, cache = self._attn(p["attn"], rms_norm(x, p["ln1"]),
+                              positions=positions, cache=cache,
+                              cache_index=cache_index)
         x = x + a.to(x.dtype)
-        m = mlp_apply(p["mlp"], rms_norm(x, p["ln2"]), self.cfg.act,
-                      self.cfg.gated_mlp)
-        return x + m.to(x.dtype), cache
+        m, aux = self._ffn(p, rms_norm(x, p["ln2"]))
+        return x + m.to(x.dtype), cache, aux
 
     def _tcond(self, dp, t, batch: int, cond=None):
         """adaLN conditioning signal, float32 end to end: the bf16 policy
@@ -281,6 +347,11 @@ class TransformerLM:
                 fn, p, *args, use_reentrant=False, **self._remat_kw)
         return fn(p, *args)
 
+    def _layers(self, params) -> list:
+        """The unstacked block parameters, the dense blocks then the MoE
+        blocks."""
+        return [p for key in self._stack_sizes() for p in unstack(params[key])]
+
     def _stack(self, layers, x, tcond, lo: int, hi: int):
         """Blocks ``[lo, hi)`` of the stack (``layers``: the unstacked
         block parameters) over the residual stream."""
@@ -290,18 +361,26 @@ class TransformerLM:
 
     def _run_stack(self, params, x, *, positions=None, caches=None,
                    cache_index=None):
-        """The causal block stack over ``x``; with ``caches`` (the stacked
-        per-layer KV cache) each layer writes its keys and values at
-        ``cache_index`` in place. Returns ``(x, caches)``."""
-        for l, p in enumerate(unstack(params["blocks"])):
-            if caches is None:
-                x = self._apply(lambda p_, x_: self._lm_block(
-                    p_, x_, positions)[0], p, x)
-            else:
-                x, _ = self._lm_block(p, x, positions,
-                                      layer_of(caches["blocks"], l),
-                                      cache_index)
-        return x, caches
+        """The causal block stack over ``x``: the dense blocks, then the
+        MoE blocks. With ``caches`` (the stacked per-layer caches under
+        the same keys) each layer writes its cache at ``cache_index`` in
+        place. Returns ``(x, caches, aux)``, aux the float32 sum of the
+        MoE blocks' auxiliary losses."""
+        def run(p_, x_):
+            x_, _, a_ = self._lm_block(p_, x_, positions)
+            return x_, a_
+
+        aux = x.new_zeros((), dtype=torch.float32)
+        for key in self._stack_sizes():
+            for l, p in enumerate(unstack(params[key])):
+                if caches is None:
+                    x, a = self._apply(run, p, x)
+                else:
+                    x, _, a = self._lm_block(p, x, positions,
+                                             layer_of(caches[key], l),
+                                             cache_index)
+                aux = aux + a
+        return x, caches, aux
 
     # ------------------------------------------------------------------
     # LM: embedding / head
@@ -333,46 +412,67 @@ class TransformerLM:
     def forward(self, params, batch):
         """batch: ``tokens`` [B, S] (or ``embeds`` [B, S, d]), optional
         ``positions``. Returns ``(logits [B, S, V] float32, aux)``, aux
-        the float32 zero of a dense stack."""
+        the MoE blocks' auxiliary loss (float32; zero for a dense
+        stack)."""
         x = self._embed(params, batch)
-        x, _ = self._run_stack(params, x, positions=batch.get("positions"))
-        return self._logits(params, x), x.new_zeros((), dtype=torch.float32)
+        x, _, aux = self._run_stack(params, x,
+                                    positions=batch.get("positions"))
+        return self._logits(params, x), aux
 
     def loss_fn(self, params, batch):
         """Causal LM loss against ``batch["labels"]`` ([B, S], next
-        token), the mean over ``batch.get("mask")``. Large vocabularies
-        (>= 32,000) at S a multiple of 512 above 512 take the
-        sequence-chunked head (``common.chunked_lm_loss``)."""
+        token), the mean over ``batch.get("mask")``, plus the MoE blocks'
+        auxiliary loss. Large vocabularies (>= 32,000) at S a multiple of
+        512 above 512 take the sequence-chunked head
+        (``common.chunked_lm_loss``). With ``mtp`` and ``labels2`` in the
+        batch, DeepSeek-V3's multi-token prediction adds ``mtp_weight``
+        times the loss of token t+2: the trunk state joined with the
+        embedding of token t+1, projected, one dense block, and the shared
+        head."""
         cfg = self.cfg
         x = self._embed(params, batch)
-        x, _ = self._run_stack(params, x, positions=batch.get("positions"))
+        positions = batch.get("positions")
+        x, _, aux = self._run_stack(params, x, positions=positions)
         S = x.shape[1]
         if cfg.vocab_size >= 32000 and S > 512 and S % 512 == 0:
             h = rms_norm(x, params["ln_f"])
-            return chunked_lm_loss(h, self._head_weight(params).to(h.dtype),
+            loss = chunked_lm_loss(h, self._head_weight(params).to(h.dtype),
                                    batch["labels"], batch.get("mask"))
-        return softmax_cross_entropy(self._logits(params, x),
-                                     batch["labels"], batch.get("mask"))
+        else:
+            loss = softmax_cross_entropy(self._logits(params, x),
+                                         batch["labels"], batch.get("mask"))
+        if cfg.mtp and "labels2" in batch:
+            mp = params["mtp"]
+            tgt = F.embedding(batch["labels"], params["embed"]).to(x.dtype)
+            h = promote_matmul(torch.cat([x, tgt], dim=-1), mp["proj"])
+            h, _, _ = self._lm_block(mp["block"], h, positions)
+            logits2 = self._logits(params, rms_norm(h, mp["ln"]))
+            loss = loss + cfg.mtp_weight * softmax_cross_entropy(
+                logits2, batch["labels2"], batch.get("mask"))
+        return loss + aux
 
     def cache_shapes(self, batch: int, s_max: int) -> dict:
-        """``{"blocks": {"k"/"v": ((L, B, s_max, K, hd), cache_dtype)}}``."""
-        L = self.cfg.n_layers
+        """``{stack: {leaf: ((L_stack, B, s_max, ...), cache_dtype)}}`` for
+        the stacks ``blocks`` and ``moe_blocks``; the leaves are ``k``,
+        ``v`` [.., K, hd] (GQA) or ``c_kv``, ``k_rope`` (MLA)."""
         per_layer = cache_shape(self.acfg, batch, s_max, self.cfg.cache_dtype)
-        return {"blocks": {k: ((L,) + shape, dt)
-                           for k, (shape, dt) in per_layer.items()}}
+        return {key: {k: ((n,) + shape, dt)
+                      for k, (shape, dt) in per_layer.items()}
+                for key, n in self._stack_sizes().items()}
 
     def init_cache(self, batch: int, s_max: int, device=None) -> dict:
-        """A zero KV cache of ``s_max`` positions on ``device``."""
-        return {"blocks": {k: torch.zeros(shape, dtype=dt, device=device)
-                           for k, (shape, dt) in
-                           self.cache_shapes(batch, s_max)["blocks"].items()}}
+        """A zero cache of ``s_max`` positions on ``device``."""
+        return {key: {k: torch.zeros(shape, dtype=dt, device=device)
+                      for k, (shape, dt) in leaves.items()}
+                for key, leaves in self.cache_shapes(batch, s_max).items()}
 
     def prefill(self, params, batch, cache):
         """Run the prompt, writing the cache from position 0 in place.
         Returns the last position's logits [B, 1, V] and the cache."""
         x = self._embed(params, batch)
-        x, cache = self._run_stack(params, x, positions=batch.get("positions"),
-                                   caches=cache, cache_index=0)
+        x, cache, _ = self._run_stack(params, x,
+                                      positions=batch.get("positions"),
+                                      caches=cache, cache_index=0)
         return self._logits(params, x[:, -1:, :]), cache
 
     def decode_step(self, params, tokens, cache, index):
@@ -381,8 +481,8 @@ class TransformerLM:
         ``index`` in place."""
         batch = {"tokens": tokens} if tokens.dim() == 2 else {"embeds": tokens}
         x = self._embed(params, batch)
-        x, cache = self._run_stack(params, x, caches=cache,
-                                   cache_index=int(index))
+        x, cache, _ = self._run_stack(params, x, caches=cache,
+                                      cache_index=int(index))
         return self._logits(params, x), cache
 
     # ------------------------------------------------------------------
@@ -402,7 +502,7 @@ class TransformerLM:
         (float32): bidirectional attention + adaLN conditioning; ``cond``
         ([d_cond] or [B, d_cond]) joins ``t`` in the adaLN signal."""
         x, tcond = self._denoise_embed(params["denoiser"], z, t, cond)
-        x = self._stack(unstack(params["blocks"]), x, tcond, 0,
+        x = self._stack(self._layers(params), x, tcond, 0,
                         self.cfg.n_layers)
         return self._head(params, x)
 
@@ -437,7 +537,11 @@ class TransformerLM:
         a conditional node of a CUDA graph under capture), and the
         refreshed rows are written into ``feats`` in place, which is
         returned. The reference dispatches a traced flag through
-        ``lax.cond``."""
+        ``lax.cond``. A MoE stack raises ``NotImplementedError``, as the
+        reference's does."""
+        if "moe_blocks" in params:
+            raise NotImplementedError(
+                "feature caching requires a dense (non-MoE) block stack")
         L = self.cfg.n_layers
         a, b = self.cache_span() if span is None else span
         if not 0 <= a <= b <= L:

@@ -142,7 +142,7 @@ def test_full_config_is_dit_xl_2():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff,
             cfg.denoiser_latent) == (28, 1152, 16, 72, 4608, 16)
     with pytest.raises(KeyError, match="LM zoo"):
-        get_config("dbrx-132b")  # an arch of a later slice
+        get_config("qwen2-vl-2b")  # an arch of a later slice
 
 
 def test_params_from_jax_rejects_unconsumed_and_missing_leaves():
@@ -173,8 +173,8 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     or soft-capping: without ``model=`` or the reference config the
     converter refuses it. With starcoder2-3b's config (GELU, ungated,
     RoPE) it converts, and that zoo denoiser denoises as the reference
-    does; a config whose blocks the port does not compute yet (dbrx's
-    MoE) raises; a DiT config still converts and denoises as the
+    does; a config whose blocks the port does not compute yet
+    (qwen2-vl's M-RoPE) raises; a DiT config still converts and denoises as the
     reference does."""
     jcfg = dataclasses.replace(j_get_smoke("starcoder2-3b"),
                                denoiser_latent=8, dtype=jnp.float32)
@@ -194,8 +194,8 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     got = tm.denoise(tp, torch.from_numpy(z), 0.5)
     assert float(np.abs(ref).max()) > 0.01
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="moe"):
-        params_from_jax(jp, config=j_get_smoke("dbrx-132b"))
+    with pytest.raises(NotImplementedError, match="mrope"):
+        params_from_jax(jp, config=j_get_smoke("qwen2-vl-2b"))
     jcfg = dataclasses.replace(j_get_smoke("dit-s"), dtype=jnp.float32)
     jm = j_build_model(jcfg)
     jp = j_init_params(jax.random.PRNGKey(1), jm.param_defs(), jnp.float32)
@@ -216,8 +216,9 @@ def test_transformer_refuses_block_options_it_does_not_compute(field, value):
     """The DiT block's options beyond the DiT's own values are computed
     now (the LM slice): the smoke DiT with ``field`` at ``value`` denoises
     as the reference's with the same option, within 1e-5 at float32.
-    What the port still does not compute is refused by name: MoE, MLA,
-    the first-k-dense split, multi-token prediction and M-RoPE."""
+    What the port still does not compute is refused by name: M-RoPE (the
+    MoE family's fields are computed since its slice,
+    tests/test_torch_moe.py)."""
     cfg = get_smoke("dit-s")
     assert (cfg.act, cfg.gated_mlp, cfg.rope_type,
             cfg.attn_logit_softcap) == ("gelu", False, "none", None)
@@ -236,12 +237,8 @@ def test_transformer_refuses_block_options_it_does_not_compute(field, value):
     ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.4))
     got = tm.denoise(tp, torch.from_numpy(z), 0.4)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
-    for name, val in (("moe", object()), ("mla", object()),
-                      ("n_dense_layers", 1), ("mtp", True),
-                      ("mrope", None)):
-        bad = {"rope_type": "mrope"} if name == "mrope" else {name: val}
-        with pytest.raises(NotImplementedError, match=name):
-            TransformerLM(dataclasses.replace(cfg, **bad))
+    with pytest.raises(NotImplementedError, match="mrope"):
+        TransformerLM(dataclasses.replace(cfg, rope_type="mrope"))
 
 
 # ------------------------------------------------------------------ tame

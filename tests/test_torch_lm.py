@@ -390,21 +390,34 @@ def test_reference_zoo_configs_convert_and_match(arch):
     assert scale_err(_np(lg), jlg) <= 1e-5
 
 
-@pytest.mark.parametrize("arch,field", [
-    ("dbrx-132b", "moe"), ("deepseek-v3-671b", "moe"),
-    ("qwen2-vl-2b", "mrope")])
+@pytest.mark.parametrize("arch,field", [("qwen2-vl-2b", "mrope")])
 def test_unported_reference_configs_are_refused(arch, field):
     with pytest.raises(NotImplementedError, match=field):
         _port_config(j_get_smoke(arch))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("moe", object()), ("mla", object()), ("mtp", True),
-    ("n_dense_layers", 2), ("rope_type", "mrope")])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
+def test_moe_reference_configs_convert_field_for_field(arch):
+    """The MoE family's reference configs (published and smoke) convert
+    to the port's, every field equal, the nested MoE and MLA configs
+    field for field."""
+    for get in (j_get_config, j_get_smoke):
+        jcfg = get(arch)
+        cfg = _port_config(jcfg)
+        for f in dataclasses.fields(jcfg):
+            if f.name in ("dtype", "cache_dtype"):
+                continue
+            want, got = getattr(jcfg, f.name), getattr(cfg, f.name)
+            if dataclasses.is_dataclass(want):
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            else:
+                assert got == want, f.name
+
+
+@pytest.mark.parametrize("field,value", [("rope_type", "mrope")])
 def test_lm_refuses_what_the_port_does_not_compute(field, value):
     cfg = dataclasses.replace(get_smoke("starcoder2-3b"), **{field: value})
-    name = "mrope" if field == "rope_type" else field
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match="mrope"):
         TransformerLM(cfg)
 
 

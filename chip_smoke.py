@@ -48,7 +48,12 @@ instance, musicgen-large, every flash call held); the MoE family
 its dense prefix and MTP on bf16 weights, served at published width and
 cut depth, dbrx's flash calls held, consistency at 4 / 2 layers with
 every routing choice compared, the smoke CLI trained and resumed, and
-an SA solve over the MoE denoiser through flash and sa_fused); the port's
+an SA solve over the MoE denoiser through flash and sa_fused); the
+Mamba2/Zamba2 hybrid and M-RoPE (``hybrid_path``: zamba2-7b at published
+width and depth served, its shared attention through flash's
+head-dim-224 instance, an SA solve over its tame denoiser through flash
+and sa_fused against the plain attention, and qwen2-vl-2b over a (t, h,
+w) grid of M-RoPE positions); the port's
 sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -118,7 +123,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "lm": ("flash_attention", "rwkv6_wkv"),
                 "lm_zoo": ("flash_attention",),
                 "moe": ("flash_attention",),
-                "sample_moe": ("sa_fused", "flash_attention")}
+                "sample_moe": ("sa_fused", "flash_attention"),
+                "hybrid": ("sa_fused", "flash_attention")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -302,8 +308,10 @@ def _ptxas_summary(lines) -> list[str]:
 
 
 #: the instances whose registers must not spill (DiT-XL/2's attention,
-#: gemma-7b's at head dim 256, RWKV6-3B's WKV)
+#: gemma-7b's at head dim 256, zamba2-7b's at 224, RWKV6-3B's WKV)
 NO_SPILL = (("flash_attention", "flash_kernel<f32,72>"),
+            ("flash_attention", "flash_kernel<f32,224>"),
+            ("flash_attention", "flash_kernel<bf16,224>"),
             ("flash_attention", "flash_kernel<f32,256>"),
             ("flash_attention", "flash_kernel<bf16,256>"),
             ("rwkv6_wkv", "wkv_kernel<64,64>"))
@@ -569,7 +577,7 @@ def phase_kernels(timings: dict) -> dict:
         (2, 4, 2, 130, 130, 128, False),
         # every head dim with a kernel instance
         *[(2, 4, 2, 96, 96, hd, True)
-          for hd in (16, 32, 64, 72, 80, 96, 128, 256)],
+          for hd in (16, 32, 64, 72, 80, 96, 128, 224, 256)],
         # the edges of the kernel's 64-key tiles and 128-row query tiles
         *[(2, 4, 4, n, n, 72, causal)
           for n in (1, 63, 64, 65, 127, 128, 129) for causal in (False, True)],
@@ -580,6 +588,13 @@ def phase_kernels(timings: dict) -> dict:
           for n in (1, 31, 32, 33, 63, 64, 65) for causal in (False, True)],
         (2, 8, 2, 129, 129, 256, False),
         (8, 16, 16, 512, 512, 256, True),
+        # head dim 224 (zamba2-7b's shared attention): the same edges, GQA
+        # 4:1, and zamba2-7b's two shapes (the LM's forward, the denoiser's)
+        *[(2, 4, 4, n, n, 224, causal)
+          for n in (1, 31, 32, 33, 63, 64, 65) for causal in (False, True)],
+        (2, 8, 2, 129, 129, 224, False),
+        (8, 32, 32, 512, 512, 224, True),
+        (8, 32, 32, 256, 256, 224, True),
     ]
     for (B, H, K, S, T, hd, causal) in attn:
         for dtype in (torch.float32, torch.bfloat16):
@@ -692,6 +707,10 @@ def phase_kernels(timings: dict) -> dict:
         "shape": [B, H, S, hd]}
     f = timings["flash_attention"]
     f["no_slower_than_library"] = f["ms"] <= f["library_ms"]
+    # the head-dim-224 instance at zamba2-7b's two shapes
+    for name, seed in (("lm", 41), ("denoiser", 43)):
+        timings[f"flash_attention_hd224_{name}"] = _causal_flash_times(
+            HYBRID_FLASH_SHAPES[name], seed=seed)
     # the WKV call of the RWKV6-3B denoiser (f32 inputs, as the model's)
     args = _wkv_inputs(*WKV_SHAPE, torch.float32, torch.float32, seed=5)
     timings["rwkv6_wkv"] = {
@@ -1353,8 +1372,9 @@ def phase_guided_path(state: dict) -> dict:
 
 
 #: steady solves of each kind (eager, replay) per ``graph_path``
-#: configuration, in turns
-GRAPH_REPEATS = 5
+#: configuration, in turns (3 since the hybrid path took the time of the
+#: fourth and fifth)
+GRAPH_REPEATS = 3
 #: the guidance scales ``graph_path`` sweeps through one entry
 GRAPH_SCALES = (1.0, 1.5, 4.0)
 
@@ -2350,8 +2370,9 @@ def phase_tune_path(state: dict) -> dict:
 #: the paper's six baseline samplers (``core/samplers/baselines.py``)
 BASELINES = ("ddim", "ddpm_ancestral", "dpm_solver_pp_2m", "euler_maruyama",
              "edm_heun", "edm_stochastic")
-#: steady replays of each baseline in ``baselines_path`` (p50/p90)
-BASELINE_REPEATS = 3
+#: steady replays of each baseline in ``baselines_path`` (p50/p90; 2
+#: since the hybrid path took the time of the third)
+BASELINE_REPEATS = 2
 #: the served baselines (the stochastic pair: one evaluation a tick, two)
 SERVED_BASELINES = ("ddpm_ancestral", "edm_stochastic")
 #: NFE of the baselines' GMM round trip (the reference's own,
@@ -3391,6 +3412,7 @@ def phase_rwkv6_path(state: dict) -> dict:
     GAP_LIMIT) and at bfloat16 (under GAP_LIMIT_BF16)."""
     import torch
     from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.core.samplers import eager
     from repro_torch.kernels import ops
     from repro_torch.models import RWKV6
     from repro_torch.models.tame import (ensure_contractive, tame_networks,
@@ -3448,14 +3470,18 @@ def phase_rwkv6_path(state: dict) -> dict:
     state["held"]["rwkv6"] = held
     peak = torch.cuda.max_memory_allocated()
 
-    # first calls of their entries: an eager solve, then the capture
+    # first call of its entry: an eager solve, then the capture; the
+    # plain-WKV references run eager only (their graphs would serve no
+    # later call)
     out_k32, first_f32, _ = solve(("float32", True))
-    out_p32, plain_f32_s, l_plain = solve(("float32", False))
+    with eager():
+        out_p32, plain_f32_s, l_plain = solve(("float32", False))
     require(l_plain["rwkv6_wkv"] == 0, "plain-WKV solve launched the kernel")
     v = torch.randn(SHAPE, generator=g, device=dev)
     x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
     out_n32, _, _ = solve(("float32", True), x=x_pert)
-    out_pbf, _, _ = solve(("bfloat16", False))
+    with eager():
+        out_pbf, _, _ = solve(("bfloat16", False))
     gaps = {"kernel_vs_plain_wkv_f32": rel_gap(out_k32, out_p32),
             "perturbation_yardstick_f32": rel_gap(out_n32, out_k32),
             "kernel_vs_plain_wkv_bf16": rel_gap(out_bf, out_pbf)}
@@ -3474,7 +3500,7 @@ def phase_rwkv6_path(state: dict) -> dict:
                           "mode": "PEC", "combine": "fused"},
               "stream": "bfloat16 (published)", "cold_s": cold,
               "steady_s": steady, "first_call_f32_stream_s": first_f32,
-              "first_call_plain_wkv_f32_stream_s": plain_f32_s,
+              "plain_wkv_f32_stream_eager_s": plain_f32_s,
               "graph_pool_bytes": graph_pool_bytes(),
               "repeat_bitwise": bool(torch.equal(out_bf, out_bf2)),
               "launches_per_solve": l_steady,
@@ -3560,9 +3586,10 @@ def _rel_per_leaf(got, ref) -> dict:
 def _scale_qk(params: dict, factor: float) -> dict:
     """Scale a transformer's query and key projections in place, in every
     stack: GQA's ``wq``/``wk``, MLA's ``wq_b``/``wk_b`` (logits of a
-    smaller scale); a tree without attention (RWKV6) is left alone."""
+    smaller scale), and Zamba2's shared block's; a tree without attention
+    (RWKV6) is left alone."""
     from repro_torch.models.common import block_stacks
-    for blocks in block_stacks(params):
+    for blocks in block_stacks(params) + [params.get("shared", {})]:
         a = blocks.get("attn", {})
         for k in ("wq", "wk", "wq_b", "wk_b"):
             if k in a:
@@ -3882,7 +3909,7 @@ def phase_train_path(state: dict) -> dict:
 #: its consistency checks (layers, prompt before decoding, batch)
 LM_BATCH = 8
 LM_PROMPT = 512
-LM_DECODE = 32
+LM_DECODE = 16
 LM_RAGGED = 200   # three WKV chunks of 64 and 8 tokens sequential
 LM_SHORT = 32     # launch.serve's default prompt: under one chunk
 LM_CHECK_LAYERS = 4
@@ -3996,28 +4023,33 @@ def _lm_served(model, params, prompt, n_decode: int) -> dict:
             "sample_ids": toks[0, :12].tolist()}
 
 
-def _lm_consistency(arch: str) -> dict:
-    """``LM_CHECK_LAYERS`` layers of ``arch`` at full width, float32 stream
+def _lm_consistency(arch: str, layers: int = LM_CHECK_LAYERS) -> dict:
+    """``layers`` layers of ``arch`` at full width, float32 stream
     and cache, on the card: forward's last logits against prefill's;
     prefill(``LM_CHECK_PREFILL``) + decode steps to ``LM_PROMPT`` against
     forward's logits at each of those positions; the card's forward
     against the port's on the CPU over ``LM_CHECK_CPU_SEQ`` tokens, on the
     same weights. Each as max |diff| over the reference logits' peak;
     beside them, the card's forward with every weight nudged by 1e-7
-    relative (a yardstick of the network's own conditioning, not gated)."""
+    relative (a yardstick of the network's own conditioning, not gated).
+    An embeddings-input arch takes seeded embeddings, each decode step
+    the next position's; an M-RoPE arch its text-only positions."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.tree import tree_map
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CHECK_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               dtype=torch.float32)
     if hasattr(cfg, "cache_dtype"):
         cfg = dataclasses.replace(cfg, cache_dtype=torch.float32)
     model = build_model(cfg)
     params = _lm_params(model, dev, seed=3, cpu_draw=True)
     g = torch.Generator().manual_seed(5)
-    toks = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=g)
+    key = getattr(cfg, "input_mode", "tokens")  # "tokens" or "embeds"
+    toks = torch.randn((2, LM_PROMPT, cfg.d_model), generator=g) \
+        if key == "embeds" else \
+        torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=g)
     tk = toks.to(dev)
 
     def rel(a, b):
@@ -4025,28 +4057,28 @@ def _lm_consistency(arch: str) -> dict:
                      / b.float().abs().max())
 
     with torch.no_grad():
-        fw, _ = model.forward(params, {"tokens": tk})
-        lg, _ = model.prefill(params, {"tokens": tk},
+        fw, _ = model.forward(params, {key: tk})
+        lg, _ = model.prefill(params, {key: tk},
                               model.init_cache(2, LM_PROMPT, device=dev))
         last = rel(lg[:, 0], fw[:, -1])
         k = LM_CHECK_PREFILL
         cache = model.init_cache(2, LM_PROMPT, device=dev)
-        lg, cache = model.prefill(params, {"tokens": tk[:, :k]}, cache)
+        lg, cache = model.prefill(params, {key: tk[:, :k]}, cache)
         gaps = [rel(lg[:, 0], fw[:, k - 1])]
         for i in range(k, LM_PROMPT - 1):
             lg, cache = model.decode_step(params, tk[:, i:i + 1], cache, i)
             gaps.append(rel(lg[:, 0], fw[:, i]))
         n = LM_CHECK_CPU_SEQ
-        card, _ = model.forward(params, {"tokens": tk[:, :n]})
+        card, _ = model.forward(params, {key: tk[:, :n]})
         gn = torch.Generator(dev).manual_seed(9)
         nudge = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
             t.shape, generator=gn, device=dev)), params)
-        nudged, _ = model.forward(nudge, {"tokens": tk[:, :n]})
+        nudged, _ = model.forward(nudge, {key: tk[:, :n]})
         del nudge
         cpu_params = tree_map(lambda t: t.cpu(), params)
         del params
-        cpu, _ = model.forward(cpu_params, {"tokens": toks[:, :n]})
-    res = {"layers": LM_CHECK_LAYERS, "batch": 2,
+        cpu, _ = model.forward(cpu_params, {key: toks[:, :n]})
+    res = {"layers": layers, "batch": 2, "input": key,
            "forward_vs_prefill_last": last,
            "prefill_then_decode_vs_forward": max(gaps),
            "decode_steps": len(gaps) - 1,
@@ -4542,7 +4574,7 @@ def phase_lm_train_path(state: dict) -> dict:
 #: model's f32 weights (activations, logits, the cache) when the depth
 #: is cut to what the card holds
 LM_ZOO = ("starcoder2-15b", "granite-34b", "gemma-7b", "musicgen-large")
-LM_ZOO_DECODE = 16
+LM_ZOO_DECODE = 8
 LM_ZOO_RESERVE = 8e9
 
 
@@ -5080,6 +5112,329 @@ def phase_moe_path(state: dict) -> dict:
     return result
 
 
+#: hybrid_path: zamba2-7b (81 Mamba2 blocks, one shared attention block of
+#: 32 heads of 224 applied 13 times) and qwen2-vl-2b (M-RoPE, embeddings
+#: in) at published width and depth, batch LM_BATCH x LM_PROMPT,
+#: HYBRID_DECODE greedy steps
+HYBRID_DECODE = 16
+#: the consistency checks' depths: zamba2-7b's first group of 6 Mamba
+#: blocks, the shared block and one block left over (at 4 layers, its
+#: period of 6 would leave no shared application); qwen2-vl-2b's 4
+HYBRID_CHECK_LAYERS = {"zamba2-7b": 7, "qwen2-vl-2b": 4}
+#: zamba2-7b's flash calls (B, H, K, S, T, hd, causal): the LM's forward
+#: and the denoiser's (both passes)
+HYBRID_FLASH_SHAPES = {"lm": (8, 32, 32, 512, 512, 224, True),
+                       "denoiser": (8, 32, 32, 256, 256, 224, True)}
+#: qwen2-vl-2b's prompt: a (t, h, w) grid of image patches, then text
+QWEN_GRID = (2, 8, 16)
+
+
+def mrope_grid_positions(batch: int, grid, n_text: int, device):
+    """Qwen2-VL's three M-RoPE position streams [3, batch, S] for a prompt
+    of ``t * h * w`` image patches (stream 0 the patch's frame, 1 its row,
+    2 its column) followed by ``n_text`` text tokens, which count on from
+    one past the largest patch position in all three streams."""
+    import torch
+    t, h, w = (torch.arange(n) for n in grid)
+    img = torch.stack([a.reshape(-1) for a in torch.meshgrid(
+        t, h, w, indexing="ij")])                             # [3, t*h*w]
+    txt = int(img.max()) + 1 + torch.arange(n_text)
+    pos = torch.cat([img, txt.expand(3, n_text)], dim=1)     # [3, S]
+    return pos[:, None, :].expand(3, batch, pos.shape[1]).to(device)
+
+
+def _served_section(arch, model, params, batch, want_flash, held, checks,
+                    r) -> None:
+    """``forward`` (``want_flash`` launches), one more with every flash
+    call held, then prefill + ``HYBRID_DECODE`` decode steps (no launch)
+    of a model at published width, recorded into ``r``."""
+    import torch
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out, secs, launches, _, _ = launch_window(
+            lambda: model.forward(params, batch))
+        r["forward"] = {
+            "seconds": secs, "tokens_per_s": LM_BATCH * LM_PROMPT / secs,
+            "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "finite": bool(torch.isfinite(out[0]).all())}
+        del out
+        checks[f"{arch}_forward"] = r["forward"]["finite"] and \
+            launches == only_launches(flash_attention=want_flash)
+        with held_against_plain(held):
+            model.forward(params, batch)
+        prompt = {k: v for k, v in batch.items() if k != "positions"}
+        served = _lm_served(model, params, prompt, HYBRID_DECODE)
+    r["served"] = served
+    checks[f"{arch}_served"] = served["finite"] and \
+        served["prefill_launches"] == only_launches() and \
+        served["decode_launches"] == only_launches()
+
+
+def _launch_serve_lm(arch, checks, r) -> None:
+    """``launch.serve.main --mode lm`` at published width on the card (it
+    draws its own float32 weights)."""
+    import io
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--mode", "lm", "--arch", arch, "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(HYBRID_DECODE + 1)]
+    buf = io.StringIO()
+    before = ops.launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    r["launch_serve"] = {
+        "argv": argv, "seconds": time.perf_counter() - t,
+        "launches": {k: after[k] - before[k] for k in after},
+        "printed": buf.getvalue().strip().splitlines()}
+    checks[f"{arch}_launch_serve"] = any(
+        ln.startswith("sample token ids:")
+        for ln in r["launch_serve"]["printed"])
+
+
+def _zamba2_solve(checks: dict, held: dict) -> dict:
+    """SA (NFE 20, P3C3 PEC, tau 1, fused) over the tame zamba2-7b
+    denoiser at published width and depth on the published bfloat16
+    stream, latent ``SHAPE``: a cold solve (an eager solve, then the
+    capture) and a replay of the compile cache's graph from x_T nudged by
+    1e-7 (the yardstick), each launching exactly 13 x 2 x 20 flash and 19
+    sa_fused; an eager solve with the plain attention
+    (``use_flash=False``) as the gate's reference, within
+    GAP_LIMIT_BF16; one evaluation with every flash call held, and one
+    under torch.profiler. The tame weights' Jacobian gain is checked on
+    the float32 stream."""
+    import gc
+
+    import torch
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.core.samplers import eager
+    from repro_torch.kernels import ops
+    from repro_torch.models import Zamba2
+    from repro_torch.models.tame import (ensure_contractive, tame_networks,
+                                         tame_zamba2)
+    dev = torch.device("cuda")
+    schedule = get_schedule("vp_linear")
+    t0 = time.perf_counter()
+    model, params, mu = tame_zamba2("zamba2-7b", smoke=False, seed=0,
+                                    use_flash=True, latent=SHAPE[2],
+                                    device=dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    cfg = model.cfg
+    s = make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                     corrector_order=3, mode="PEC", combine="fused",
+                     precision="f32", schedule=schedule, prediction="x0")
+    g = torch.Generator(dev).manual_seed(21)
+    xT = s.init_noise(g, SHAPE)
+    t0 = time.perf_counter()
+    contract = ensure_contractive(model, params, mu, xT, g)
+    contract_s = time.perf_counter() - t0
+    xis = [torch.randn(SHAPE, generator=g, device=dev)
+           for _ in range(s.spec.n_steps)]
+    dens = {flash: Denoiser(tame_networks(Zamba2(dataclasses.replace(
+        cfg, dtype=torch.bfloat16, use_flash=flash)), params, mu)[0],
+        schedule, prediction="x0") for flash in (True, False)}
+
+    def solve(flash, x=xT):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(dens[flash], x, noise=lambda i: xis[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        return out, secs, {k: after[k] - before[k] for k in after}
+
+    per_eval = 2 * cfg.n_shared_apps  # both passes
+    want = only_launches(flash_attention=per_eval * s.nfe,
+                         sa_fused=s.spec.n_steps)
+    torch.cuda.reset_peak_memory_stats()
+    out, cold, l_cold = solve(True)
+    v = torch.randn(SHAPE, generator=g, device=dev)
+    x_pert = xT + 1e-7 * xT.norm() / v.norm() * v
+    out_n, replay, l_replay = solve(True, x=x_pert)
+    peak = torch.cuda.max_memory_allocated()
+    with eager():
+        out_p, plain_s, l_plain = solve(False)
+    tt = torch.tensor(0.5, device=dev)
+    with held_against_plain(held), torch.no_grad():
+        dens[True].network(xT, tt, None)
+    with torch.no_grad():  # one eager evaluation, both passes
+        profile = _profile_solve(lambda: dens[True].network(xT, tt, None))
+    checks["zamba2_solve_launches"] = l_cold == want and l_replay == want
+    checks["zamba2_solve_finite"] = bool(torch.isfinite(out).all()) and \
+        tuple(out.shape) == SHAPE
+    checks["zamba2_plain_solve"] = l_plain["flash_attention"] == 0
+    gaps = {"flash_vs_plain_attention_bf16": rel_gap(out, out_p),
+            "perturbation_yardstick_bf16": rel_gap(out_n, out)}
+    checks["zamba2_solve_gap"] = \
+        gaps["flash_vs_plain_attention_bf16"] <= GAP_LIMIT_BF16
+    res = {"arch": cfg.name, "layers": cfg.n_layers,
+           "shared_apps": cfg.n_shared_apps, "d_model": cfg.d_model,
+           "shared_heads": [cfg.n_heads, cfg.n_kv_heads],
+           "shared_head_dim": model.acfg.head_dim,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "latent": list(SHAPE), "weights": "tame (float32)",
+           "weights_s": weights_s, "contractive": contract,
+           "contractive_s": contract_s, "stream": "bfloat16 (published)",
+           "sampler": {"name": "sa", "nfe": s.nfe, "tau": 1.0,
+                       "predictor_order": 3, "corrector_order": 3,
+                       "mode": "PEC", "combine": "fused"},
+           "cold_s": cold, "replay_s": replay,
+           "plain_attention_eager_s": plain_s,
+           "launches_cold": l_cold, "launches_replay": l_replay,
+           "expected_launches": want, "max_memory_allocated": peak,
+           "graph_pool_bytes": graph_pool_bytes(),
+           "rel_gap_final": gaps, "gap_limit_bf16": GAP_LIMIT_BF16,
+           "profile_one_evaluation": profile,
+           "x0_minus_anchor_std": float((out.float()
+                                         - mu(SHAPE[1])).std())}
+    del dens, params, model, out, out_n, out_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_hybrid_path(state: dict) -> dict:
+    """The Mamba2/Zamba2 hybrid and M-RoPE on the card. (1) zamba2-7b at
+    published width and depth (81 Mamba2 blocks of d_model 3584, the
+    shared block of 32 heads of 224 applied 13 times), float32 weights
+    from a seed (the shared ``wq``/``wk`` scaled by ``LM_QK_SCALE``), the
+    published bfloat16 stream and cache, batch ``LM_BATCH``: a cache-free
+    ``forward`` of ``LM_PROMPT`` tokens (13 causal flash launches at head
+    dim 224), one more with every flash call held, a prefill of
+    ``LM_PROMPT`` and ``HYBRID_DECODE`` greedy decode steps (the cached
+    attention and the Mamba states: no launch), ``launch.serve --mode
+    lm``, and the consistency check at ``HYBRID_CHECK_LAYERS`` (float32:
+    forward, prefill and decode, card and CPU). (2) ``_zamba2_solve``: SA
+    over the tame zamba2-7b denoiser through flash and sa_fused. (3)
+    qwen2-vl-2b at published width and depth (28 layers of d_model 1536,
+    12 / 2 heads of 128, embeddings in), float32 weights from a seed:
+    ``forward`` over a (t, h, w) grid of image patches then text
+    (``mrope_grid_positions``: 28 flash launches at GQA 6:1), held; the
+    forward over three equal streams against the text-only default
+    (bitwise); prefill + decode on text-only positions, ``launch.serve``
+    and the 4-layer check. The launch counts are set to 0 at the start
+    and read at the end."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    result: dict = {"phase": "hybrid_path", "stream": "bfloat16 "
+                    "(published)", "cache": "bfloat16 (published)",
+                    "weights": "float32", "qk_scale": LM_QK_SCALE}
+    held: dict = {}
+    checks: dict = {}
+    sections: dict = {}
+    ops.reset_launch_counts()  # the hybrid window starts here
+    t_phase = time.perf_counter()
+
+    for arch in ("zamba2-7b", "qwen2-vl-2b"):
+        t_sec = time.perf_counter()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t = time.perf_counter()
+        params = _seeded_params(model, dev, torch.float32, seed=0)
+        torch.cuda.synchronize()
+        r: dict = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "vocab": cfg.vocab_size,
+                   "weights_s": time.perf_counter() - t,
+                   "params": sum(t_.numel() for t_ in _leaves(params)),
+                   "weights_gb": sum(t_.numel() * t_.element_size()
+                                     for t_ in _leaves(params)) / 1e9}
+        g = torch.Generator(dev).manual_seed(7)
+        if arch == "zamba2-7b":
+            r["shared"] = {"apps": cfg.n_shared_apps,
+                           "heads": [cfg.n_heads, cfg.n_kv_heads],
+                           "head_dim": model.acfg.head_dim}
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=g,
+                device=dev)}
+            want_flash = cfg.n_shared_apps
+        else:
+            r["heads"] = [cfg.n_heads, cfg.n_kv_heads]
+            r["head_dim"] = cfg.hd
+            n_img = math.prod(QWEN_GRID)
+            batch = {"embeds": torch.randn(
+                (LM_BATCH, LM_PROMPT, cfg.d_model), generator=g, device=dev),
+                "positions": mrope_grid_positions(
+                    LM_BATCH, QWEN_GRID, LM_PROMPT - n_img, dev)}
+            r["positions"] = {"image_grid_thw": list(QWEN_GRID),
+                              "image_tokens": n_img,
+                              "text_tokens": LM_PROMPT - n_img,
+                              "text_starts_at": int(
+                                  batch["positions"][0, 0, n_img])}
+            want_flash = cfg.n_layers
+        _served_section(arch, model, params, batch, want_flash, held,
+                        checks, r)
+        if arch == "qwen2-vl-2b":
+            with torch.no_grad():
+                text = {"embeds": batch["embeds"][:2, :128]}
+                same = dict(text, positions=torch.arange(
+                    128, device=dev).expand(3, 2, 128))
+                a, _ = model.forward(params, text)
+                b, _ = model.forward(params, same)
+                c, _ = model.forward(params, dict(
+                    text, positions=batch["positions"][:, :2, :128]))
+            r["mrope"] = {"equal_streams_vs_text_default_bitwise":
+                          bool(torch.equal(a, b)),
+                          "grid_vs_text_default_max_abs": float(
+                              (c - a).abs().max())}
+            checks["qwen2-vl-2b_mrope_streams"] = \
+                r["mrope"]["equal_streams_vs_text_default_bitwise"] and \
+                r["mrope"]["grid_vs_text_default_max_abs"] > 0
+            del a, b, c
+        del params, model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        _launch_serve_lm(arch, checks, r)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["consistency"] = _lm_consistency(arch, HYBRID_CHECK_LAYERS[arch])
+        checks[f"{arch}_consistency"] = r["consistency"]["ok"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        result[arch] = r
+        sections[arch] = time.perf_counter() - t_sec
+        emit({"progress": "hybrid_path", "arch": arch,
+              "forward_s": r["forward"]["seconds"],
+              "prefill_s": r["served"]["prefill_s"],
+              "decode_ms_p50": r["served"]["decode_ms_per_token_p50"],
+              "peak_gb": r["served"]["peak_gb"],
+              "consistency": r["consistency"]})
+        if arch == "zamba2-7b":
+            t_sec = time.perf_counter()
+            result["solve"] = _zamba2_solve(checks, held)
+            sections["zamba2_solve"] = time.perf_counter() - t_sec
+            emit({"progress": "hybrid_path", "solve": result["solve"]})
+
+    state["launches"]["hybrid"] = ops.launch_counts()  # window ends
+    state["held"]["hybrid"] = held
+    result["launches"] = state["launches"]["hybrid"]
+    want_held = get_config("zamba2-7b").n_shared_apps * 3 + \
+        get_config("qwen2-vl-2b").n_layers
+    checks["held"] = all(h["ok"] for h in held.values()) and held.get(
+        "flash_attention", {}).get("calls") == want_held
+    result["held_against_plain"] = held
+    result["seconds"] = time.perf_counter() - t_phase
+    result["section_seconds"] = sections
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], f"hybrid_path: failed checks "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
@@ -5127,7 +5482,8 @@ def main() -> int:
             ("lm_path", lambda: phase_lm_path(state), False),
             ("lm_train_path", lambda: phase_lm_train_path(state), False),
             ("lm_zoo_path", lambda: phase_lm_zoo_path(state), False),
-            ("moe_path", lambda: phase_moe_path(state), False)):
+            ("moe_path", lambda: phase_moe_path(state), False),
+            ("hybrid_path", lambda: phase_hybrid_path(state), False)):
         t = time.perf_counter()
         out = run()
         seconds[name] = time.perf_counter() - t

@@ -45,9 +45,11 @@
 //   query rows, two 16-row m-tiles of mma.m16n8k8 (16 rows for hd > 80,
 //   where the registers do not hold two). A loop over 64-key tiles inside
 //   the block takes the place of the TPU's sequential innermost grid axis
-//   (32-key tiles at hd 256: block_keys). At hd 256 a thread holds 128 f32
-//   accumulators of O and one block fits an SM (166,400 bytes of shared
-//   memory): the instance is right, not tuned.
+//   (32-key tiles above hd 128: block_keys). At hd 256 a thread holds 128
+//   f32 accumulators of O and one block fits an SM (166,400 bytes of shared
+//   memory); at hd 224 (zamba2-7b's shared attention, 2 * 3584 / 32) 112
+//   and 145,920 bytes, still one block an SM: both instances are right, not
+//   tuned.
 //   The running max and sum and the output accumulator stay in registers;
 //   the [S, T] scores never leave the SM. At the DiT shape: 256 blocks of
 //   128 rows and 95 KB of shared memory, 2 per SM: one wave on 132 SMs.
@@ -99,7 +101,8 @@ constexpr int kThreads = 32 * kWarps;  // 128
 
 // keys per tile: 64; 32 above head dim 128, where the Q tile and three
 // 64-key tiles would need (64 + 192) * 260 * 4 = 266,240 bytes of shared
-// memory, over the 232,448 a block can have (at 32: 166,400)
+// memory at hd 256, over the 232,448 a block can have (at 32: 166,400;
+// hd 224: 145,920)
 template <int HD> __host__ __device__ constexpr int block_keys() { return HD <= 128 ? 64 : 32; }
 
 // shared row stride of Q, K and V tiles, in floats (see the note above)
@@ -436,6 +439,7 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
     case 80: return launch<T, 80>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     case 96: return launch<T, 96>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
+    case 224: return launch<T, 224>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     case 256: return launch<T, 256>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }

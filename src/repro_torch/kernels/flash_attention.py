@@ -22,7 +22,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
 #: head dims with a compiled kernel instance (dispatch in the .cu source)
-HEAD_DIMS = (16, 32, 64, 72, 80, 96, 128, 256)
+HEAD_DIMS = (16, 32, 64, 72, 80, 96, 128, 224, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches made by :func:`flash_attention` in this process

@@ -1,10 +1,13 @@
 """Diffusion sampling entry point of the port: any registered sampler (SA,
 SEEDS or DPM-Solver++, optionally under a step program, or one of the
-paper's six baselines, ``--sampler``) over a DiT or an RWKV6 backbone.
+paper's six baselines, ``--sampler``) over a DiT, an RWKV6 or a Zamba2
+backbone, or any transformer of the zoo in denoiser mode.
 
     PYTHONPATH=src python -m repro_torch.launch.sample --arch dit-xl-2 \
         --combine fused --weights tame
     PYTHONPATH=src python -m repro_torch.launch.sample --arch rwkv6-3b \
+        --combine fused --weights tame
+    PYTHONPATH=src python -m repro_torch.launch.sample --arch zamba2-7b \
         --combine fused --weights tame
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
@@ -16,11 +19,11 @@ fits ``--nfe``.
 ``--weights init`` samples the reference's initialisation (zero output
 heads, which predict exactly 0); ``--weights tame`` the contractive
 weights of ``models/tame.py`` (float32 residual stream). On the card
-the DiT blocks' attention runs through the flash kernel and the RWKV6
-recurrence through the WKV kernel (the reference's ``use_pallas``);
-``--no-flash`` / ``--no-wkv-kernel`` ask for the plain versions there, and
-``--flash`` / ``--wkv-kernel`` take the kernels' dispatch on the CPU too
-(their plain versions). ``--combine kernel|fused`` runs the solver combine
+the transformer blocks' and Zamba2's shared attention runs through the
+flash kernel and the RWKV6 recurrence through the WKV kernel (the
+reference's ``use_pallas``); ``--no-flash`` / ``--no-wkv-kernel`` ask for
+the plain versions there, and ``--flash`` / ``--wkv-kernel`` take the
+kernels' dispatch on the CPU too (their plain versions). ``--combine kernel|fused`` runs the solver combine
 through the sa_update / sa_fused kernels.
 
 ``--prediction`` serves the backbone (natively x0) in another output
@@ -33,8 +36,8 @@ input-space prompt added to the latent (the null branch gets zeros).
 ``--feature-cache`` reuses the DiT's mid-stack features between solver
 steps (DeepCache): ``K`` refreshes them every K-th step, ``residual:T``
 when the previous step's predictor-vs-corrector residual reaches T (one
-device-to-host read a step). RWKV6 has no cached evaluation and refuses
-it.
+device-to-host read a step). RWKV6 and Zamba2 have no cached evaluation
+and refuse it.
 
 ``--cfg-shard`` (with ``--guidance-scale``) splits the guided pair over the
 size-2 ``cfg`` axis of a ``(cfg=2, data=n//2)`` mesh of the ranks that
@@ -67,9 +70,9 @@ from ..core.samplers import Sampler, SamplerSpec, get_family, list_samplers
 from ..device import resolve_device
 from ..distributed import world_size
 from ..kernels import ops
-from ..models import LMConfig, build_model, init_params
+from ..models import RWKV6Config, Zamba2Config, build_model, init_params
 from ..models.tame import (ensure_contractive, tame_dit, tame_networks,
-                           tame_rwkv6)
+                           tame_rwkv6, tame_zamba2)
 from ..serve.batching import fold_keys
 from ..serve.sharding import auto_cfg_mesh
 
@@ -86,14 +89,17 @@ __all__ = ["as_cached_network", "as_prediction_network", "build_denoiser",
 
 def _kernel_options(cfg, flash: bool | None, wkv_kernel: bool | None) -> dict:
     """The config fields the kernel flags set (None: the kernel for CUDA
-    tensors), refusing a flag given for an arch it does not apply to."""
-    if isinstance(cfg, LMConfig):
+    tensors), refusing a flag given for an arch it does not apply to:
+    ``--flash`` to the attention archs (the transformers, Zamba2's shared
+    block), ``--wkv-kernel`` to RWKV6."""
+    if not isinstance(cfg, RWKV6Config):
         if wkv_kernel is not None:
             raise SystemExit("--wkv-kernel/--no-wkv-kernel apply to "
                              "rwkv6-3b only")
         return {"use_flash": flash}
     if flash is not None:
-        raise SystemExit("--flash/--no-flash apply to the DiT archs only")
+        raise SystemExit("--flash/--no-flash apply to the attention archs "
+                         "only, not to rwkv6-3b")
     return {"use_kernel": wkv_kernel}
 
 
@@ -103,25 +109,22 @@ def build_denoiser(arch: str, *, smoke: bool = False, weights: str = "init",
                    latent: int = 16, seed: int = 0, device="cuda"):
     """``(cfg, network, cached)`` for ``arch``: the x0-prediction network
     ``(x, t, cond) -> x0`` with weights from ``seed`` and its
-    feature-cached twin (None for RWKV6), on the card unless ``device``
-    says otherwise; ``cond`` is an input-space prompt added to the
-    latent. ``weights="tame"`` uses the contractive construction and
+    feature-cached twin (None for RWKV6 and Zamba2), on the card unless
+    ``device`` says otherwise; ``cond`` is an input-space prompt added to
+    the latent. ``weights="tame"`` uses the contractive construction and
     checks its Jacobian gain on the device. ``latent``
     is the latent width of an arch whose config leaves it unset.
-    ``flash`` (DiT) and ``wkv_kernel`` (RWKV6) pick the kernel (True) or
-    the plain version (False); None takes the kernel for CUDA tensors."""
+    ``flash`` (the transformers, Zamba2) and ``wkv_kernel`` (RWKV6) pick
+    the kernel (True) or the plain version (False); None takes the kernel
+    for CUDA tensors."""
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     opts = _kernel_options(cfg, flash, wkv_kernel)
     if weights == "tame":
-        if isinstance(cfg, LMConfig):
-            model, params, mu = tame_dit(arch, smoke=smoke, seed=seed,
-                                         latent=latent, device=device,
-                                         **opts)
-        else:
-            model, params, mu = tame_rwkv6(arch, smoke=smoke, seed=seed,
-                                           latent=latent, device=device,
-                                           **opts)
+        tame = {RWKV6Config: tame_rwkv6, Zamba2Config: tame_zamba2}.get(
+            type(cfg), tame_dit)
+        model, params, mu = tame(arch, smoke=smoke, seed=seed,
+                                 latent=latent, device=device, **opts)
         g = torch.Generator(device).manual_seed(seed + 3)
         x = torch.randn((1, 64, model.cfg.denoiser_latent), generator=g,
                         device=device)
@@ -246,8 +249,9 @@ def main(argv=None):
                     "layout that re-stacks the buffer every step)")
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     ap.add_argument("--flash", action=argparse.BooleanOptionalAction,
-                    help="DiT attention through the flash kernel (default: "
-                    "on for a CUDA device)")
+                    help="attention (the transformers' blocks, Zamba2's "
+                    "shared block) through the flash kernel (default: on "
+                    "for a CUDA device)")
     ap.add_argument("--wkv-kernel", action=argparse.BooleanOptionalAction,
                     help="RWKV6 recurrence through the WKV kernel (default: "
                     "on for a CUDA device)")
@@ -351,7 +355,7 @@ def _run(args, device: torch.device, mesh) -> None:
     routed = getattr(cfg, "use_flash", getattr(cfg, "use_kernel", None))
     if routed is None:
         routed = device.type == "cuda"
-    dit = isinstance(cfg, LMConfig)
+    wkv = isinstance(cfg, RWKV6Config)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     x0 = run(2)
@@ -385,7 +389,7 @@ def _run(args, device: torch.device, mesh) -> None:
           + (f" combine={args.combine} history={args.history}"
              if multistep else "")
           + f" precision={args.precision} "
-          f"flash={dit and routed} wkv_kernel={not dit and routed} "
+          f"flash={not wkv and routed} wkv_kernel={wkv and routed} "
           f"weights={args.weights} device={device}")
     finite = bool(torch.isfinite(x0).all())
     say(f"first run {t1 - t0:.2f}s, steady {t2 - t1:.2f}s; "

@@ -27,10 +27,13 @@ workloads.
 Runs on the CUDA card unless ``--device cpu`` is given; with no card it
 exits with an error naming the missing card. ``--mode lm`` builds the
 arch's LM (``--smoke``: its reduced config) with weights from a seed,
-prefills a prompt batch drawn from a seeded generator, then greedy-decodes
+prefills a prompt batch drawn from a seeded generator (embeddings for an
+``input_mode="embeds"`` arch, musicgen-large and qwen2-vl-2b, whose decode
+steps take the embedding of the token chosen; qwen2-vl's M-RoPE at the
+text-only positions, as the reference leaves them), then greedy-decodes
 one token a step against the cache: the model's own ``prefill`` and
-``decode_step`` (on the card the transformer's cache-free attention and
-RWKV6's prompt recurrence run through the flash and WKV kernels).
+``decode_step`` (the transformers, RWKV6 and Zamba2; on the card RWKV6's
+prompt recurrence runs through the WKV kernel).
 ``--mode diffusion`` drives :class:`repro_torch.serve.ServeEngine` over
 any registered sampler and a smoke backbone in denoiser mode; with
 ``--sharded`` the request axis rides the ``data`` axis of a mesh over the

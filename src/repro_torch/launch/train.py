@@ -7,7 +7,7 @@
 The reference's driver (``repro.launch.train``) in PyTorch, with its
 flags and defaults and ``--device`` (the card unless ``cpu`` is asked
 for; with no card it stops): ``model.loss_fn`` of the arch (the dense
-transformer or RWKV6) differentiated by autograd, ``chain(
+or MoE transformer, RWKV6 or Zamba2) differentiated by autograd, ``chain(
 clip_by_global_norm(1.0), adamw(linear_warmup_cosine(lr, 10, steps)))``,
 ``ShardedBatchIterator`` over ``synthetic_lm_batch`` (the reference's
 batches bit for bit), and the checkpointed ``TrainLoop`` with its
@@ -16,8 +16,9 @@ the newest committed checkpoint under ``--ckpt``; ``--fail-at N`` raises
 at step N (the recovery path end to end); the straggler monitor counts
 slow steps.
 
-The model trains through its plain paths (``use_flash=False``,
-``use_kernel=False``): the kernels have no backward, as the reference's
+The model trains through its plain paths (``use_flash=False`` for the
+transformer's and Zamba2's attention, ``use_kernel=False`` for RWKV6's
+WKV): the kernels have no backward, as the reference's
 Pallas kernels have none, so a training step launches no kernel. The
 step hands its gradients, optimiser state and parameters to the
 optimiser as donated buffers (``optim``'s ``donate=True``), so it holds
@@ -31,9 +32,9 @@ compute the same numbers, and places nothing; an unknown name raises, as
 the reference's lookup does. A ``torch.distributed`` world larger than
 one is refused: data-parallel training over ranks comes with
 ``parallel/`` and ``optim.zero1_specs`` (ROADMAP A12, item 7). An arch in
-``input_mode="embeds"`` (musicgen-large) is refused: the synthetic
-batches are tokens only, and the reference's driver fails on it with a
-``KeyError``.
+``input_mode="embeds"`` (musicgen-large, qwen2-vl-2b) is refused: the
+synthetic batches are tokens only, and the reference's driver fails on it
+with a ``KeyError``.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch.distributed as dist
 from ..configs import get_config, get_smoke
 from ..data import ShardedBatchIterator, TokenTaskConfig, synthetic_lm_batch
 from ..device import resolve_device
-from ..models import LMConfig, build_model, init_params
+from ..models import RWKV6Config, build_model, init_params
 from ..optim import (adamw, apply_updates, chain, clip_by_global_norm,
                      global_norm, linear_warmup_cosine)
 from ..runtime import StragglerMonitor, TrainLoop
@@ -85,17 +86,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def train_config(cfg):
-    """``cfg`` as it trains: the plain attention (transformer) or the plain
-    WKV paths (RWKV6). Raises for an embeddings-input config."""
+    """``cfg`` as it trains: the plain attention (the transformer, Zamba2's
+    shared block) or the plain WKV paths (RWKV6). Raises for an
+    embeddings-input config (musicgen-large, qwen2-vl-2b)."""
     if getattr(cfg, "input_mode", "tokens") == "embeds":
         raise ValueError(
             f"{cfg.name}: input_mode='embeds' takes precomputed embeddings "
             "(batch['embeds']), and the training data (synthetic_lm_batch) "
             "gives tokens only; the reference's driver fails on it with "
             "KeyError: 'embeds'")
-    if isinstance(cfg, LMConfig):
-        return dataclasses.replace(cfg, use_flash=False)
-    return dataclasses.replace(cfg, use_kernel=False)
+    if isinstance(cfg, RWKV6Config):
+        return dataclasses.replace(cfg, use_kernel=False)
+    return dataclasses.replace(cfg, use_flash=False)
 
 
 def _check_placement(strategy: str) -> None:

@@ -1,7 +1,8 @@
 """Models of the port: the transformer (a dense or MoE LM, with GQA or
-MLA attention, or the DiT denoiser SA-Solver samples through), and RWKV6 (an LM, or a
-denoiser backbone), their shared layers and their contractive test
-weights. The shared, duck-typed API:
+MLA attention and RoPE or M-RoPE, or the DiT denoiser SA-Solver samples
+through), RWKV6 and the Zamba2 hybrid of Mamba2 blocks and one shared
+attention block (each an LM, or a denoiser backbone), their shared layers
+and their contractive test weights. The shared, duck-typed API:
 
     param_defs() -> ParamDef tree (stacked [L, ...] block params)
     forward(params, batch) -> (logits, aux)                 (LM mode)
@@ -16,13 +17,15 @@ weights. The shared, duck-typed API:
 
 from .attention import AttentionConfig, MLAConfig
 from .common import ParamDef, init_params
+from .mamba2 import Mamba2Config, Zamba2, Zamba2Config
 from .moe import MoEConfig
 from .rwkv6 import RWKV6, RWKV6Config
 from .transformer import LMConfig, TransformerLM
 
 __all__ = ["AttentionConfig", "MLAConfig", "MoEConfig", "LMConfig",
-           "TransformerLM", "RWKV6", "RWKV6Config", "ParamDef",
-           "init_params", "build_model"]
+           "TransformerLM", "RWKV6", "RWKV6Config", "Mamba2Config",
+           "Zamba2", "Zamba2Config", "ParamDef", "init_params",
+           "build_model"]
 
 
 def build_model(cfg):
@@ -30,4 +33,6 @@ def build_model(cfg):
         return TransformerLM(cfg)
     if isinstance(cfg, RWKV6Config):
         return RWKV6(cfg)
+    if isinstance(cfg, Zamba2Config):
+        return Zamba2(cfg)
     raise TypeError(f"unknown config type {type(cfg).__name__}")

@@ -1,9 +1,11 @@
-"""Attention variants: GQA/MQA/MHA self-attention with RoPE and logit
-soft-capping, and DeepSeek's multi-head latent attention (MLA), each with
-and without a cache.
+"""Attention variants: GQA/MQA/MHA self-attention with RoPE or Qwen2-VL's
+M-RoPE and logit soft-capping, and DeepSeek's multi-head latent attention
+(MLA), each with and without a cache.
 
-``gqa_forward`` projects q/k/v, rotates q and k (RoPE), attends, and
-projects back. Without a cache (the DiT's bidirectional blocks, the LM's
+``gqa_forward`` projects q/k/v, rotates q and k (RoPE, or M-RoPE over
+three position streams [3, B, S]: with no ``positions`` given, the
+text-only default gives all three streams the same positions), attends,
+and projects back. Without a cache (the DiT's bidirectional blocks, the LM's
 causal ``forward``) the attention goes through
 ``kernels.ops.flash_attention`` (the Hopper kernel on a CUDA tensor, its
 plain version on a CPU tensor) or through ``_sdpa``, the plain PyTorch
@@ -25,7 +27,6 @@ float32. MLA calls no kernel, as in the reference: its q.k head dim
 Cache layouts (per layer; stacked over layers by the caller):
     GQA : k, v           [B, S_max, K, hd]
     MLA : c_kv [B, S_max, kv_lora], k_rope [B, S_max, rope_dim]
-M-RoPE comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..kernels import ops as kops
-from .common import (ParamDef, apply_rope, promote_einsum, promote_matmul,
-                     rms_norm)
+from .common import (ParamDef, apply_mrope, apply_rope, promote_einsum,
+                     promote_matmul, rms_norm)
 
 __all__ = ["AttentionConfig", "MLAConfig", "attn_defs", "cache_shape",
            "gqa_forward", "mla_forward"]
@@ -62,7 +63,8 @@ class AttentionConfig:
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
-    rope_type: str = "rope"  # "rope" | "none" ("mrope" comes later)
+    rope_type: str = "rope"  # "rope" | "mrope" | "none"
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     causal: bool = True
     mla: MLAConfig | None = None
     attn_logit_softcap: float | None = None
@@ -70,13 +72,6 @@ class AttentionConfig:
     #: through _sdpa (False), or by the tensors' device (None: the kernel
     #: for CUDA tensors)
     use_flash: bool | None = None
-
-    def __post_init__(self):
-        if self.rope_type not in ("rope", "none"):
-            raise NotImplementedError(
-                f"rope_type={self.rope_type!r}: the PyTorch port computes "
-                "'rope' and 'none'; M-RoPE (qwen2-vl, mrope_sections) comes "
-                "with a later slice")
 
 
 def attn_defs(cfg: AttentionConfig) -> dict:
@@ -188,6 +183,14 @@ def _positions(seq: int, offset: int, device):
     return torch.arange(seq, device=device)[None, :] + offset
 
 
+def _rope_q_or_k(cfg: AttentionConfig, x, positions):
+    if cfg.rope_type == "rope":
+        return apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope_type == "mrope":
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # GQA forward (train / prefill / decode)
 # ---------------------------------------------------------------------------
@@ -202,19 +205,23 @@ def gqa_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     With one: k/v are written at ``cache_index .. cache_index + S`` of
     the cache in place, and the queries attend over its first
     ``cache_index + S`` positions (prefill S > 1, decode S = 1); the
-    returned cache is the one given. A bfloat16 stream times float32
-    weights projects in float32, as in the reference."""
+    returned cache is the one given. ``positions``: [B or 1, S] (RoPE) or
+    [3, B or 1, S] (M-RoPE); None: ``cache_index + arange(S)``, the same in
+    all three M-RoPE streams. A bfloat16 stream times float32 weights
+    projects in float32, as in the reference."""
     B, S, _ = x.shape
     causal = cfg.causal if causal is None else causal
     offset = 0 if cache_index is None else int(cache_index)
     q = promote_einsum("bsd,dhk->bshk", x, p["wq"])
     k = promote_einsum("bsd,dhk->bshk", x, p["wk"])
     v = promote_einsum("bsd,dhk->bshk", x, p["wv"])
-    if cfg.rope_type == "rope":
+    if cfg.rope_type != "none":
         if positions is None:
             positions = _positions(S, offset, x.device)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+            if cfg.rope_type == "mrope":  # text only: one stream for all 3
+                positions = positions[None].expand(3, *positions.shape)
+        q = _rope_q_or_k(cfg, q, positions)
+        k = _rope_q_or_k(cfg, k, positions)
 
     if cache is None:
         flash = q.is_cuda if cfg.use_flash is None else cfg.use_flash

@@ -1,6 +1,7 @@
 """Shared model machinery of the backbones: parameter schemas and
 initialisation, and the functional layers (RMSNorm, LayerNorm, the MLP
-with its activations, RoPE, the LM losses).
+with its activations, RoPE and Qwen2-VL's multimodal M-RoPE, the LM
+losses).
 
 Parameters are declared once as ``ParamDef(shape, axes, init, scale)``
 and materialised by :func:`init_params` into a nested dict of tensors with
@@ -24,7 +25,8 @@ __all__ = ["ParamDef", "init_params", "tree_defs_map", "block_stacks",
            "layer_of", "unstack",
            "rms_norm", "layer_norm", "ACTIVATIONS", "mlp_defs", "mlp_apply",
            "promote_matmul", "promote_einsum", "rope_frequencies",
-           "apply_rope", "softmax_cross_entropy", "chunked_lm_loss"]
+           "apply_rope", "apply_mrope", "softmax_cross_entropy",
+           "chunked_lm_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +149,36 @@ def apply_rope(x, positions, theta: float = 10000.0):
     in float32, the result in ``x``'s dtype."""
     freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
     ang = positions[..., :, None].to(torch.float32) * freqs  # [..., S, hd/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(sections: tuple[int, int, int], device) -> torch.Tensor:
+    """The [hd/2] position stream (0 = t, 1 = h, 2 = w) of each rotary
+    frequency, ``np.repeat(np.arange(3), sections)`` as an int64 tensor on
+    ``device``, made once (as :func:`_rope_freqs`)."""
+    return torch.as_tensor(np.repeat(np.arange(3), np.asarray(sections)),
+                           dtype=torch.int64, device=device)
+
+
+def apply_mrope(x, positions3, sections: tuple[int, int, int],
+                theta: float = 10000.0):
+    """Multimodal RoPE (Qwen2-VL): x [..., S, H, hd]; positions3 integer
+    [3, ..., S], the (t, h, w) streams, which rotate the disjoint
+    frequency sections ``sections`` (summing to hd/2) in that order. The
+    rotation is :func:`apply_rope`'s, each frequency at its own stream's
+    position."""
+    n = x.shape[-1] // 2
+    if sum(sections) != n:
+        raise ValueError(f"mrope_sections {tuple(sections)} must sum to "
+                         f"head_dim / 2 = {n}")
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    streams = _mrope_streams(tuple(int(s) for s in sections), x.device)
+    pos = torch.movedim(positions3[streams], 0, -1)       # [..., S, hd/2]
+    ang = pos.to(torch.float32) * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

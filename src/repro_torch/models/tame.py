@@ -9,13 +9,18 @@ Jacobian grows as the solve drives ``|x|`` toward zero), so a last-bit
 difference between two combines is amplified ~5-8x per solver step and
 says nothing about the combines. A trained denoiser is contractive:
 roughly the data mean plus a small x-dependent correction.
-:func:`tame_dit` and :func:`tame_rwkv6` build that regime from a seed:
+:func:`tame_dit`, :func:`tame_rwkv6` and :func:`tame_zamba2` build that
+regime from a seed:
 
 - the DiT's adaLN weights drawn at ``adaln_scale`` (small but real gates);
-  RWKV6 has no gates, so the output projections of its residual branches
-  (``tm/wo``, ``cm/wv``) are scaled by ``BRANCH_SCALE`` instead: without
-  that, 32 random blocks amplify a 1e-7 nudge of x_T to ~1e-3 over a solve
-  while a random-direction Jacobian gain still reads below 1;
+  RWKV6 and Zamba2 have no gates, so the output projections of their
+  residual branches (RWKV6's ``tm/wo``, ``cm/wv``; Zamba2's
+  ``mamba/out_proj`` and the shared block's ``out_proj``) are scaled by
+  ``BRANCH_SCALE`` instead: without that, 32 random RWKV6 blocks amplify a
+  1e-7 nudge of x_T to ~1e-3 over a solve while a random-direction
+  Jacobian gain still reads below 1; Zamba2's shared attention also has
+  its ``wq`` and ``wk`` scaled by hd^-1/2 each, so that its logits have
+  unit scale (at the init their std is the head dim, 224 at full width);
 - ``out_proj`` drawn at ``1/out_div`` (a small x-dependent correction);
 - the t-conditioning MLP damped by ``t_damp`` so ``tcond`` stays O(1),
   and a class-conditional DiT's ``y_proj`` (which adds its class/text
@@ -28,8 +33,8 @@ scaled by ``sqrt(64 / d_model)``. At width 64 (the ``dit-s`` smoke config
 the reference's constants were tuned on) this is exactly the reference's
 DiT construction; at full width it keeps the same per-output magnitudes.
 :func:`ensure_contractive` measures the Jacobian gain on the target
-device and damps the adaLN weights (the DiT) or ``out_proj`` (RWKV6)
-further until it is below 1.
+device and damps the adaLN weights (the DiT) or ``out_proj`` (RWKV6,
+Zamba2) further until it is below 1.
 """
 
 from __future__ import annotations
@@ -43,14 +48,15 @@ from ..configs import get_config, get_smoke
 from ..core.denoiser import CachedNetwork
 from ..device import resolve_device
 from .common import block_stacks, init_params
+from .mamba2 import Zamba2
 from .rwkv6 import RWKV6
 from .transformer import TransformerLM
 
-__all__ = ["tame_dit", "tame_rwkv6", "tame_params", "tame_networks",
-           "jacobian_gain", "ensure_contractive"]
+__all__ = ["tame_dit", "tame_rwkv6", "tame_zamba2", "tame_params",
+           "tame_networks", "jacobian_gain", "ensure_contractive"]
 
-# RWKV6's counterpart of the DiT's small adaLN gates: the factor on the
-# output projections of its residual branches.
+# RWKV6's and Zamba2's counterpart of the DiT's small adaLN gates: the
+# factor on the output projections of their residual branches.
 BRANCH_SCALE = 0.05
 
 
@@ -60,8 +66,9 @@ def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
     """Overwrite an ``init_params`` tree in place with the contractive
     construction (draws from ``generator``); returns it. ``adaln_scale``
     applies to trees with adaLN weights (the DiT; a MoE denoiser's dense
-    and MoE stacks both); trees with RWKV6 blocks have their branch
-    projections scaled by ``BRANCH_SCALE``."""
+    and MoE stacks both); trees with RWKV6 or Mamba2 blocks have their
+    branch projections scaled by ``BRANCH_SCALE``, and a Zamba2 tree's
+    shared block its ``out_proj`` too and its ``wq``/``wk`` by hd^-1/2."""
     w = math.sqrt(64.0 / d_model)
     dp = params["denoiser"]
     dev = dp["out_proj"].device
@@ -72,6 +79,15 @@ def tame_params(params: dict, d_model: int, generator: torch.Generator, *,
         if "tm" in blocks:
             blocks["tm"]["wo"] = blocks["tm"]["wo"] * BRANCH_SCALE
             blocks["cm"]["wv"] = blocks["cm"]["wv"] * BRANCH_SCALE
+        if "mamba" in blocks:
+            blocks["mamba"]["out_proj"] = \
+                blocks["mamba"]["out_proj"] * BRANCH_SCALE
+    if "shared" in params:
+        sp = params["shared"]
+        sp["out_proj"] = sp["out_proj"] * BRANCH_SCALE
+        qk = sp["attn"]["wq"].shape[-1] ** -0.5
+        for k in ("wq", "wk"):
+            sp["attn"][k] = sp["attn"][k] * qk
     dp["out_proj"] = w / out_div * torch.randn(
         dp["out_proj"].shape, generator=generator, device=dev)
     dp["t_mlp1"] = dp["t_mlp1"] * t_damp[0]
@@ -155,12 +171,36 @@ def tame_rwkv6(arch: str = "rwkv6-3b", *, smoke: bool = True,
     return _tame(RWKV6(cfg), seed, device, out_div=out_div)
 
 
+def tame_zamba2(arch: str = "zamba2-7b", *, smoke: bool = True,
+                n_layers: int | None = None, seed: int = 0,
+                out_div: float = 50.0, use_flash: bool | None = None,
+                latent: int = 16, device="cuda"):
+    """Build a Zamba2 denoiser (smoke or full config) whose denoise map is
+    contractive: the Mamba blocks' and the shared block's output
+    projections scaled by ``BRANCH_SCALE``, the shared attention's logits
+    brought to unit scale, ``out_proj`` drawn small instead of zero, the
+    t-MLP damped. The residual stream is float32 (the published config's
+    is bfloat16: swap it with ``dataclasses.replace`` on ``model.cfg``);
+    ``latent`` is the denoiser latent width, which the LM config leaves
+    unset; ``use_flash`` as on ``Zamba2Config`` (None: the flash kernel on
+    the card, the plain attention on the CPU). Returns
+    ``(model, params, mu)`` as :func:`tame_dit` does; runs on the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    cfg = get_smoke(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, n_layers=cfg.n_layers if n_layers is None else n_layers,
+        dtype=torch.float32, use_flash=use_flash,
+        denoiser_latent=cfg.denoiser_latent or latent)
+    return _tame(Zamba2(cfg), seed, device, out_div=out_div)
+
+
 def tame_networks(model, params, mu):
     """``(network, cached)`` over a tame triple: the Denoiser network
     ``(x, t, cond) -> x0`` with the mean anchor applied, and its
     feature-cached twin (a :class:`CachedNetwork` over
-    ``denoise_cached``; None for a backbone without one, RWKV6). ``cond``
-    (when not None) is the model's conditioning input for a
+    ``denoise_cached``; None for a backbone without one: RWKV6, Zamba2).
+    ``cond`` (when not None) is the model's conditioning input for a
     class-conditional DiT (``denoiser_cond`` set: [d_cond] or
     [B, d_cond]), and otherwise an input-space prompt added to the
     latent."""
@@ -215,7 +255,8 @@ def ensure_contractive(model, params, mu, x: torch.Tensor,
     random direction); halve
     the damped leaf in place until it is, at most ``max_halvings`` times.
     The damped leaf is the adaLN weights where the tree has them (the
-    DiT: in every stack), else ``denoiser/out_proj`` (RWKV6). Returns
+    DiT: in every stack), else ``denoiser/out_proj`` (RWKV6, Zamba2).
+    Returns
     ``{"damped", "factor", "gains", "halvings"}``; raises if the gain
     stays at or above 1."""
     network, _ = tame_networks(model, params, mu)

@@ -44,8 +44,10 @@ scans over them. Training differentiates through the plain attention
 (``use_flash=False``, the reference's default): the kernels have no
 backward and refuse inputs that require grad. ``LMConfig.remat``
 recomputes each block in the backward (``torch.utils.checkpoint``), as
-the reference's ``jax.checkpoint`` policies do. M-RoPE comes with a
-later slice of the port and is refused.
+the reference's ``jax.checkpoint`` policies do. ``rope_type="mrope"``
+(Qwen2-VL) rotates q and k over the batch's three position streams
+``positions`` [3, B, S] (t, h, w; ``mrope_sections`` of the frequencies
+each), or over the text-only default where the batch has none.
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ class LMConfig:
     act: str = "silu"
     gated_mlp: bool = True
     rope_theta: float = 10000.0
-    rope_type: str = "rope"  # rope | none ("mrope" comes later: refused)
+    rope_type: str = "rope"  # rope | mrope | none
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
     tie_embeddings: bool = False
     embed_scale: bool = False  # gemma: scale embeddings by sqrt(d)
@@ -125,7 +127,7 @@ class LMConfig:
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.hd,
             rope_theta=self.rope_theta, rope_type=self.rope_type,
-            causal=True, mla=self.mla,
+            mrope_sections=self.mrope_sections, causal=True, mla=self.mla,
             attn_logit_softcap=self.attn_logit_softcap,
             use_flash=self.use_flash)
 
@@ -411,9 +413,9 @@ class TransformerLM:
     # ------------------------------------------------------------------
     def forward(self, params, batch):
         """batch: ``tokens`` [B, S] (or ``embeds`` [B, S, d]), optional
-        ``positions``. Returns ``(logits [B, S, V] float32, aux)``, aux
-        the MoE blocks' auxiliary loss (float32; zero for a dense
-        stack)."""
+        ``positions`` ([B, S]; M-RoPE: [3, B, S]). Returns ``(logits
+        [B, S, V] float32, aux)``, aux the MoE blocks' auxiliary loss
+        (float32; zero for a dense stack)."""
         x = self._embed(params, batch)
         x, _, aux = self._run_stack(params, x,
                                     positions=batch.get("positions"))

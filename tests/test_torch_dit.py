@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as j_ARCHS
 from repro.configs import get_smoke as j_get_smoke
 from repro.core import Denoiser as JDenoiser
 from repro.core import get_schedule as j_get_schedule
@@ -31,6 +32,7 @@ from repro.models.common import rms_norm as j_rms_norm
 from repro.models.tame import tame_dit as j_tame_dit
 from repro.models.tame import tame_networks as j_tame_networks
 from repro.models.transformer import timestep_embedding as j_temb
+from repro_torch.configs import ARCHS as ARCHS_ALL
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.convert import params_from_jax
 from repro_torch.core import Denoiser, get_schedule
@@ -138,11 +140,15 @@ def test_param_tree_matches_reference(arch):
 
 
 def test_full_config_is_dit_xl_2():
+    """DiT-XL/2's published widths; the port's registry is the
+    reference's, in order (every arch of the zoo is ported), and an
+    unknown name is a KeyError."""
     cfg = get_config("dit-xl-2")
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff,
             cfg.denoiser_latent) == (28, 1152, 16, 72, 4608, 16)
-    with pytest.raises(KeyError, match="LM zoo"):
-        get_config("qwen2-vl-2b")  # an arch of a later slice
+    assert tuple(ARCHS_ALL) == tuple(j_ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("dit-xxl")
 
 
 def test_params_from_jax_rejects_unconsumed_and_missing_leaves():
@@ -173,9 +179,9 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     or soft-capping: without ``model=`` or the reference config the
     converter refuses it. With starcoder2-3b's config (GELU, ungated,
     RoPE) it converts, and that zoo denoiser denoises as the reference
-    does; a config whose blocks the port does not compute yet
-    (qwen2-vl's M-RoPE) raises; a DiT config still converts and denoises as the
-    reference does."""
+    does; qwen2-vl's config (M-RoPE, which an earlier slice refused)
+    converts too and its denoiser denoises as the reference's; a DiT
+    config still converts and denoises as the reference does."""
     jcfg = dataclasses.replace(j_get_smoke("starcoder2-3b"),
                                denoiser_latent=8, dtype=jnp.float32)
     assert jcfg.rope_type == "rope"
@@ -194,8 +200,20 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
     got = tm.denoise(tp, torch.from_numpy(z), 0.5)
     assert float(np.abs(ref).max()) > 0.01
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mrope"):
-        params_from_jax(jp, config=j_get_smoke("qwen2-vl-2b"))
+    qcfg = dataclasses.replace(j_get_smoke("qwen2-vl-2b"), denoiser_latent=8,
+                               dtype=jnp.float32)
+    qm = j_build_model(qcfg)
+    qp = j_init_params(jax.random.PRNGKey(3), qm.param_defs(), jnp.float32)
+    qp["denoiser"]["out_proj"] = 0.05 * jax.random.normal(
+        jax.random.PRNGKey(4), qp["denoiser"]["out_proj"].shape)
+    qp = jax.device_get(qp)
+    tq = params_from_jax(qp, config=qcfg)
+    qt = TransformerLM(dataclasses.replace(
+        get_smoke("qwen2-vl-2b"), denoiser_latent=8, dtype=torch.float32))
+    ref = np.asarray(qm.denoise(qp, jnp.asarray(z), 0.5))
+    got = qt.denoise(tq, torch.from_numpy(z), 0.5)
+    assert float(np.abs(ref).max()) > 0.01
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
     jcfg = dataclasses.replace(j_get_smoke("dit-s"), dtype=jnp.float32)
     jm = j_build_model(jcfg)
     jp = j_init_params(jax.random.PRNGKey(1), jm.param_defs(), jnp.float32)
@@ -215,10 +233,10 @@ def test_params_from_jax_refuses_a_zoo_denoiser():
 def test_transformer_refuses_block_options_it_does_not_compute(field, value):
     """The DiT block's options beyond the DiT's own values are computed
     now (the LM slice): the smoke DiT with ``field`` at ``value`` denoises
-    as the reference's with the same option, within 1e-5 at float32.
-    What the port still does not compute is refused by name: M-RoPE (the
-    MoE family's fields are computed since its slice,
-    tests/test_torch_moe.py)."""
+    as the reference's with the same option, within 1e-5 at float32; and
+    with M-RoPE (sections (4, 6, 6) of its 16 frequencies), which an
+    earlier slice refused (the MoE family's fields are computed since its
+    slice, tests/test_torch_moe.py)."""
     cfg = get_smoke("dit-s")
     assert (cfg.act, cfg.gated_mlp, cfg.rope_type,
             cfg.attn_logit_softcap) == ("gelu", False, "none", None)
@@ -237,8 +255,12 @@ def test_transformer_refuses_block_options_it_does_not_compute(field, value):
     ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.4))
     got = tm.denoise(tp, torch.from_numpy(z), 0.4)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="mrope"):
-        TransformerLM(dataclasses.replace(cfg, rope_type="mrope"))
+    mrope = {"rope_type": "mrope", "mrope_sections": (4, 6, 6)}
+    jm = j_build_model(dataclasses.replace(jcfg, **mrope))
+    tm = TransformerLM(dataclasses.replace(tm.cfg, **mrope))
+    ref = np.asarray(jm.denoise(jp, jnp.asarray(z), 0.4))
+    got = tm.denoise(tp, torch.from_numpy(z), 0.4)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
 # ------------------------------------------------------------------ tame

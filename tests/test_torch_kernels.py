@@ -23,6 +23,7 @@ need no JAX and run on a machine with a card and no JAX
 
 import ctypes
 import math
+import os
 
 import numpy as np
 import pytest
@@ -221,6 +222,41 @@ def test_flash_attention_plain_matches_pallas_at_head_dim_256(reference, S,
             assert_scale_close(got, _to_np(want), 1e-5)
         else:
             assert_close(_to_np(got), _to_np(want), dtype)
+
+
+@pytest.mark.parametrize("S,causal", [(40, True), (40, False), (33, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_at_head_dim_224(reference, S,
+                                                              causal, dtype):
+    """zamba2-7b's shared attention (2 x 3584 / 32 heads), which has a
+    kernel instance: GQA 2:1, both masks, a ragged length, against the
+    Pallas kernel in interpret mode and the reference oracle, held as at
+    head dim 256."""
+    assert 224 in t_flash_mod.HEAD_DIMS
+    rng = np.random.default_rng(224 + S)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, 1, 4, 2, S, S, 224, dtype)
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = j_flash(qj, kj, vj, causal=causal, bq=8, bk=8)
+    ref = flash_attention_ref(qj, kj, vj, causal=causal)
+    for want in (pallas, ref):
+        if dtype == "float32":
+            assert_scale_close(got, _to_np(want), 1e-5)
+        else:
+            assert_close(_to_np(got), _to_np(want), dtype)
+
+
+def test_flash_dispatch_has_an_instance_for_every_head_dim():
+    """The .cu dispatch's cases are exactly ``HEAD_DIMS`` (224 among
+    them): a head dim the wrapper passes has an instance, and one it
+    refuses has none."""
+    import re
+    src = open(os.path.join(os.path.dirname(t_flash_mod.__file__), "csrc",
+                            "flash_attention.cu")).read()
+    cases = tuple(int(c) for c in re.findall(
+        r"case (\d+): return launch<T, \1>", src))
+    assert cases == t_flash_mod.HEAD_DIMS
+    assert 224 in cases and 232 not in cases
 
 
 @pytest.mark.parametrize("hd", [32, 72])
@@ -750,8 +786,9 @@ def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
 #: (B, H, K, S = T, hd, causal) for the kernel on the card: the main path's
 #: shape, every head dim with a kernel instance, lengths at the edges of the
 #: kernel's 64-key tiles and 128-row query tiles (64 rows for hd > 80) under
-#: both masks, GQA 4:1; at hd 256 (32-key tiles) the edges of its tiles,
-#: GQA 4:1 and gemma-7b's heads at a prompt of 512
+#: both masks, GQA 4:1; at hd 256 and 224 (32-key tiles) the edges of their
+#: tiles, GQA 4:1, gemma-7b's heads at a prompt of 512 and zamba2-7b's at
+#: 256
 FLASH_CARD_CASES = [
     (8, 16, 16, 256, 72, False), (2, 16, 4, 256, 72, True),
     (2, 4, 4, 257, 72, False), (2, 4, 2, 200, 64, True),
@@ -762,7 +799,12 @@ FLASH_CARD_CASES = [
     (2, 8, 2, 129, 72, False),
     *[(2, 4, 4, n, 256, causal) for n in (1, 31, 32, 33, 63, 64, 65)
       for causal in (False, True)],
-    (2, 8, 2, 129, 256, False), (1, 16, 16, 512, 256, True)]
+    (2, 8, 2, 129, 256, False), (1, 16, 16, 512, 256, True),
+    # hd 224 (zamba2-7b's shared attention): the same edges, GQA 4:1, its
+    # heads at the denoiser's 256 positions
+    *[(2, 4, 4, n, 224, causal) for n in (1, 31, 32, 33, 63, 64, 65)
+      for causal in (False, True)],
+    (2, 8, 2, 129, 224, False), (1, 32, 32, 256, 224, True)]
 
 
 @pytest.mark.gpu

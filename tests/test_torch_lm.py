@@ -8,8 +8,8 @@ decoded in the other, each transformer option (activation, gating, tied
 embeddings, embedding scale, logit soft-capping, embedding input, RoPE
 theta), the layers (RoPE, the cached attention, the chunked loss), the
 WKV dispatch under ``use_kernel=None`` on a CUDA tensor (whole chunks
-through the kernel's wrapper, the rest sequential) and the refusals of
-what the port does not compute yet.
+through the kernel's wrapper, the rest sequential) and M-RoPE, which an
+earlier slice refused, against the reference.
 
 Inputs are drawn with numpy from a seed. The transformer's ``wq``/``wk``
 are scaled by 0.3 after the reference's init: at its own init the
@@ -392,8 +392,31 @@ def test_reference_zoo_configs_convert_and_match(arch):
 
 @pytest.mark.parametrize("arch,field", [("qwen2-vl-2b", "mrope")])
 def test_unported_reference_configs_are_refused(arch, field):
-    with pytest.raises(NotImplementedError, match=field):
-        _port_config(j_get_smoke(arch))
+    """The reference configs an earlier slice refused (qwen2-vl-2b's
+    M-RoPE) are computed now: the converted config is the reference's
+    field for field, and its smoke LM's forward over three position
+    streams matches the reference's."""
+    jcfg = dataclasses.replace(j_get_smoke(arch), dtype=jnp.float32)
+    cfg = _port_config(jcfg)
+    assert cfg.rope_type == field
+    for f in dataclasses.fields(jcfg):
+        if f.name not in ("dtype", "cache_dtype"):
+            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    jm = j_build_model(jcfg)
+    jp = jax.device_get(j_init_params(jax.random.PRNGKey(0),
+                                      jm.param_defs(), jnp.float32))
+    for k in ("wq", "wk"):
+        jp["blocks"]["attn"][k] = 0.3 * jp["blocks"]["attn"][k]
+    tm = TransformerLM(dataclasses.replace(cfg, dtype=torch.float32))
+    tp = params_from_jax(jp, config=jcfg)
+    rng = np.random.default_rng(4)
+    e = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    pos = np.cumsum(rng.integers(0, 3, (3, 2, 12)), axis=-1).astype(np.int32)
+    ref, _ = jm.forward(jp, {"embeds": jnp.asarray(e),
+                             "positions": jnp.asarray(pos)})
+    got, _ = tm.forward(tp, {"embeds": torch.from_numpy(e),
+                             "positions": torch.from_numpy(pos)})
+    assert scale_err(_np(got), ref) <= 1e-5
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-v3-671b"])
@@ -416,9 +439,28 @@ def test_moe_reference_configs_convert_field_for_field(arch):
 
 @pytest.mark.parametrize("field,value", [("rope_type", "mrope")])
 def test_lm_refuses_what_the_port_does_not_compute(field, value):
-    cfg = dataclasses.replace(get_smoke("starcoder2-3b"), **{field: value})
-    with pytest.raises(NotImplementedError, match="mrope"):
-        TransformerLM(cfg)
+    """What an earlier slice refused is computed now: starcoder2-3b's
+    smoke LM with M-RoPE (sections (2, 3, 3) of its 8 frequencies) gives
+    the reference's logits, at the text-only default positions and over
+    three streams, and decodes a step as the reference does."""
+    over = {field: value, "mrope_sections": (2, 3, 3)}
+    jm, jp, tm, tp = _pair("starcoder2-3b", **over)
+    assert tm.cfg.rope_type == "mrope" and tm.acfg.rope_type == "mrope"
+    toks = _tokens(tm.cfg, 2, 12, seed=6)
+    pos = np.cumsum(np.random.default_rng(7).integers(0, 3, (3, 2, 12)),
+                    axis=-1).astype(np.int32)
+    for extra in ({}, {"positions": pos}):
+        jb, tb = _batch(toks, **extra)
+        ref, _ = jm.forward(jp, jb)
+        got, _ = tm.forward(tp, tb)
+        assert scale_err(_np(got), ref) <= 1e-5
+    jb, tb = _batch(toks[:, :11])
+    _, jcache = jm.prefill(jp, jb, jm.init_cache(2, 12))
+    _, cache = tm.prefill(tp, tb, tm.init_cache(2, 12))
+    jlg, _ = jm.decode_step(jp, jnp.asarray(toks[:, 11:]), jcache, 11)
+    lg, _ = tm.decode_step(tp, torch.from_numpy(
+        toks[:, 11:].astype(np.int64)), cache, 11)
+    assert scale_err(_np(lg), jlg) <= 1e-5
 
 
 def test_lm_and_denoiser_modes_refuse_each_others_entry_points():

@@ -51,9 +51,17 @@ every routing choice compared, the smoke CLI trained and resumed, and
 an SA solve over the MoE denoiser through flash and sa_fused); the
 Mamba2/Zamba2 hybrid and M-RoPE (``hybrid_path``: zamba2-7b at published
 width and depth served, its shared attention through flash's
-head-dim-224 instance, an SA solve over its tame denoiser through flash
-and sa_fused against the plain attention, and qwen2-vl-2b over a (t, h,
-w) grid of M-RoPE positions); the port's
+head-dim-224 instance, an SA solve over its tame denoiser (15 of the 81
+layers) through flash and sa_fused against the plain attention, and
+qwen2-vl-2b over a (t, h, w) grid of M-RoPE positions); the distribution
+layer (``parallel_path``: two gloo ranks sharing the card, started as
+``chip_smoke.py --parallel-rank RANK DIR``, train starcoder2-3b at
+published width and 4 layers through ``launch.train``'s step on a
+(data=2) mesh against one process, all-reduce its gradients through
+``compressed_psum`` against the exact all-reduce, and run DiT-XL/2's 28
+blocks as a 2-stage pipeline through flash against one rank; then
+``examples/torch_quickstart.py`` and ``examples/torch_serve_diffusion.py``
+on the card); the port's
 sampling entry point
 (``launch.sample.main``) with no kernel flag, which must route DiT-XL/2
 and the RWKV6 smoke config through their kernels on the card; and SA,
@@ -124,7 +132,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "lm_zoo": ("flash_attention",),
                 "moe": ("flash_attention",),
                 "sample_moe": ("sa_fused", "flash_attention"),
-                "hybrid": ("sa_fused", "flash_attention")}
+                "hybrid": ("sa_fused", "flash_attention"),
+                "parallel": ("flash_attention",)}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -1373,8 +1382,8 @@ def phase_guided_path(state: dict) -> dict:
 
 #: steady solves of each kind (eager, replay) per ``graph_path``
 #: configuration, in turns (3 since the hybrid path took the time of the
-#: fourth and fifth)
-GRAPH_REPEATS = 3
+#: fourth and fifth, 2 since the parallel path took the third's)
+GRAPH_REPEATS = 2
 #: the guidance scales ``graph_path`` sweeps through one entry
 GRAPH_SCALES = (1.0, 1.5, 4.0)
 
@@ -3046,15 +3055,16 @@ def sharded_cfg_rank(rank: int, workdir: str) -> int:
     return 0
 
 
-def _run_cfg_ranks(workdir: str) -> list:
-    """Start both cfg ranks (``--cfg-rank``), each in a session of its own;
-    kill both at the deadline; their results."""
+def _run_ranks(flag: str, workdir: str, deadline_s: float,
+               what: str) -> list:
+    """Start two ranks (``chip_smoke.py FLAG RANK DIR``), each in a session
+    of its own; kill both at the deadline; their results."""
     import torch
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--cfg-rank", str(r),
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
          workdir], start_new_session=True, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(2)]
-    end = time.monotonic() + SHARD_RANKS_DEADLINE_S
+    end = time.monotonic() + deadline_s
     try:
         for p in procs:
             p.wait(timeout=max(end - time.monotonic(), 0.1))
@@ -3065,10 +3075,10 @@ def _run_cfg_ranks(workdir: str) -> list:
         for p in late:
             os.killpg(p.pid, 9)
         logs = [p.communicate()[0].decode(errors="replace") for p in procs]
-    require(not late, f"sharded: cfg ranks past {SHARD_RANKS_DEADLINE_S} s")
+    require(not late, f"{what} ranks past {deadline_s} s")
     for r, (p, log) in enumerate(zip(procs, logs)):
         require(p.returncode == 0,
-                f"sharded: cfg rank {r} exited {p.returncode}: {log[-2000:]}")
+                f"{what} rank {r} exited {p.returncode}: {log[-2000:]}")
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"))
             for r in range(2)]
 
@@ -3232,7 +3242,8 @@ def phase_sharded_path(state: dict) -> dict:
     torch.save({"xT": xT.cpu(), "noise": noise.cpu(), "cond": cond.cpu()},
                os.path.join(workdir, "inputs.pt"))
     t = time.perf_counter()
-    ranks = _run_cfg_ranks(workdir)
+    ranks = _run_ranks("--cfg-rank", workdir, SHARD_RANKS_DEADLINE_S,
+                       "sharded: cfg")
     ranks_s = time.perf_counter() - t
     shutil.rmtree(workdir, ignore_errors=True)
     for r in ranks:
@@ -3274,6 +3285,374 @@ def phase_sharded_path(state: dict) -> dict:
                 r["eager_entries"] == 1 and r["graphs"] == 0,
                 f"sharded CFG rank {r['cfg_rank']}: {r}")
     return result
+
+
+# parallel_path: the distribution layer over two gloo ranks on the card
+PAR_ARCH = "starcoder2-3b"
+PAR_LAYERS = 4
+PAR_BATCH = 8       # global: 4 host rows a rank
+PAR_SEQ = 128
+PAR_STEPS = 3
+PAR_LR = 3e-5
+#: the strategies trained on the card's two gloo ranks. ``tp`` places
+#: like ``dp`` on a (data=2) mesh (no ``model`` axis). ``fsdp_tp`` and
+#: ``serve_2d`` shard leaves over data, and DTensor's Shard -> Replicate
+#: redistribution of a CUDA tensor over gloo (its functional
+#: all_gather_into_tensor) kills the process with SIGSEGV on the card's
+#: PyTorch 2.11 (dist.all_gather_into_tensor itself works): they train
+#: on the CPU's gloo ranks (tests/test_torch_train_ranks.py)
+PAR_STRATEGIES = ("dp",)
+#: the reference test's loss bar (tests/test_parallel.py)
+PAR_LOSS_LIMIT = 2e-4
+#: each parameter leaf after the steps: |got - one process| <= limit x
+#: max(1, max|leaf|) (the kernel bars' form)
+PAR_PARAM_LIMIT = 1e-5
+#: each leaf's change over the steps against the one process's change:
+#: max|delta got - delta one process| <= limit x max|delta one process|.
+#: The warm-up's three steps (LR 0, 3e-6, 6e-6) move an element ~9e-6,
+#: under PAR_PARAM_LIMIT's bar; here a step that applied no update is
+#: 1.0 off (at most 0.012 on the CPU's ranks, tests/test_torch_train_ranks)
+PAR_MOVE_LIMIT = 0.05
+#: compressed_psum against the exact all-reduce (the reference's bar)
+PAR_PSUM_LIMIT = 0.02
+PIPE_STAGES = 2
+PIPE_MICRO = 4
+PIPE_MB = 2
+#: each microbatch's diffusion time (its adaLN conditioning)
+PIPE_TS = (0.9, 0.7, 0.5, 0.3)
+PAR_RANKS_DEADLINE_S = 420
+
+
+def _par_say(what: str) -> None:
+    """A rank's progress line (its log is shown when it fails)."""
+    import torch.distributed as dist
+    print(f"parallel rank {dist.get_rank()}: {what}", flush=True)
+
+
+def _par_global_batch(task, step: int, dev) -> dict:
+    """The two hosts' ``synthetic_lm_batch`` rows of ``step`` concatenated
+    in rank order: the global batch of the (data=2) mesh."""
+    import numpy as np
+    import torch
+    from repro_torch.data import synthetic_lm_batch
+    parts = [synthetic_lm_batch(task, PAR_BATCH // 2, step, h)
+             for h in range(2)]
+    return {k: torch.as_tensor(np.concatenate([p[k] for p in parts]),
+                               device=dev) for k in parts[0]}
+
+
+def _par_training(mesh) -> dict:
+    """starcoder2-3b at published width, ``PAR_LAYERS`` layers, on a
+    float32 stream (as ``lm_train_path``'s 4-layer checks: on the
+    published bfloat16 stream, batches of 4 and 8 rows round apart by
+    ~2e-4 in the loss), tempered (``_temper_lm``): ``PAR_STEPS`` steps of ``launch.train``'s step in one
+    process over the global batches, then under each of PAR_STRATEGIES
+    over the (data=2) mesh (DTensor parameters by ``specs_for``, batches
+    sharded over data, inside ``activation_sharding``); per step the
+    losses, and after the steps every parameter leaf and its change over
+    the steps (PAR_MOVE_LIMIT), against the one process. Then ``compressed_psum`` of this rank's gradient tree across
+    the two ranks against the exact all-reduce."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenTaskConfig
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.common import (activation_sharding,
+                                           distribute_tree, specs_for)
+    from repro_torch.parallel import compressed_psum
+    from repro_torch.tree import paths_and_leaves, tree_leaves
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(PAR_ARCH), n_layers=PAR_LAYERS,
+                              dtype=torch.float32)
+    model = build_model(lt.train_config(cfg))
+    task = TokenTaskConfig(vocab_size=cfg.vocab_size, seq_len=PAR_SEQ)
+    opt = lt.make_optimizer(PAR_LR, PAR_STEPS)
+
+    def tempered():
+        return _temper_lm(init_params(torch.Generator(dev).manual_seed(0),
+                                      model.param_defs(), torch.float32))
+
+    def state_of(params):
+        return {"params": params, "opt": opt.init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    init = dict(paths_and_leaves(tempered()))
+    # one process over the global batches
+    _par_say("one process")
+    st, step = state_of(tempered()), lt.make_train_step(model, opt)
+    ref_losses, ref_s = [], []
+    for k in range(PAR_STEPS):
+        t = time.perf_counter()
+        st, m = step(st, _par_global_batch(task, k, dev))
+        ref_losses.append(float(m["loss"]))
+        ref_s.append(time.perf_counter() - t)
+    ref = dict(paths_and_leaves(st["params"]))
+    del st
+    out: dict = {"arch": PAR_ARCH, "layers": PAR_LAYERS, "stream": "float32",
+                 "global_batch": [PAR_BATCH, PAR_SEQ], "lr": PAR_LR,
+                 "params": sum(v.numel() for v in ref.values()),
+                 "one_process": {"losses": ref_losses, "step_s": ref_s}}
+    for strategy in PAR_STRATEGIES:
+        _par_say(strategy)
+        specs = specs_for(model.param_defs(), strategy, mesh)
+        st = state_of(distribute_tree(tempered(), specs, mesh))
+        step = lt.make_train_step(model, opt, mesh)
+        batches = lt.make_batches(cfg, PAR_BATCH, PAR_SEQ, dev, mesh)
+        losses, secs = [], []
+        with activation_sharding(("data",)):
+            for _ in range(PAR_STEPS):
+                t = time.perf_counter()
+                st, m = step(st, next(batches))
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+        worst, worst_rel, placed = 0.0, 0.0, 0
+        move_err, moved_min = 0.0, float("inf")
+        for k, v in paths_and_leaves(st["params"]):
+            placed += any(p.is_shard() for p in v.placements)
+            full, want = v.full_tensor(), ref[k]
+            err = float((full - want).abs().max())
+            peak = float(want.abs().max())
+            worst = max(worst, err / max(1.0, peak))
+            worst_rel = max(worst_rel, err / peak if peak else 0.0)
+            moved = want - init[k]
+            moved_peak = float(moved.abs().max())
+            off = float((full - init[k] - moved).abs().max())
+            moved_min = min(moved_min, moved_peak)
+            move_err = max(move_err, off / moved_peak if moved_peak
+                           else float("inf"))
+            del full, moved
+        gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        require(max(gaps) <= PAR_LOSS_LIMIT,
+                f"parallel: {strategy} losses {losses} vs {ref_losses}")
+        require(worst <= PAR_PARAM_LIMIT,
+                f"parallel: {strategy} parameters {worst} from one process")
+        require(move_err <= PAR_MOVE_LIMIT,
+                f"parallel: {strategy} updates {move_err} from one process's "
+                f"(least leaf movement {moved_min})")
+        out[strategy] = {"losses": losses, "loss_gaps": gaps,
+                         "param_err": worst, "param_err_of_leaf": worst_rel,
+                         "update_err": move_err,
+                         "least_leaf_movement": moved_min,
+                         "sharded_leaves": placed, "step_s": secs}
+        del st, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # compressed_psum of this rank's gradients (its host rows, step 0)
+    _par_say("compressed_psum")
+    host = {k: v[dist.get_rank() * (PAR_BATCH // 2):][:PAR_BATCH // 2]
+            for k, v in _par_global_batch(task, 0, dev).items()}
+    _, grads = lt.loss_and_grads(model, tempered(), host)
+    worst, f32_bytes, n = 0.0, 0, 0
+    t = time.perf_counter()
+    for g in tree_leaves(grads):
+        got = compressed_psum(g)
+        exact = g.clone()
+        dist.all_reduce(exact)
+        worst = max(worst, float((got - exact).abs().max())
+                    / max(float(exact.abs().max()), 1e-30))
+        f32_bytes += 4 * g.numel()
+        n += g.numel()
+    secs = time.perf_counter() - t
+    require(worst <= PAR_PSUM_LIMIT,
+            f"parallel: compressed_psum {worst} from the exact all-reduce")
+    out["compressed_psum"] = {
+        "max_rel_err": worst, "leaves": len(tree_leaves(grads)),
+        "int8_bytes": n, "f32_bytes": f32_bytes,
+        "wire": "int32 sums (the reference's psum of int32), gloo",
+        "both_reductions_s": secs}
+    return out
+
+
+def _par_pipeline(mesh) -> dict:
+    """The tame DiT-XL/2's 28 blocks as PIPE_STAGES stages of 14 over the
+    ranks of ``mesh``'s ``stage`` axis: PIPE_MICRO microbatches of
+    [PIPE_MB, 256, 1152] (each with its own time's adaLN conditioning,
+    which travels with it), every flash call held against its plain
+    version, against the 28 blocks on this rank alone."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import unstack
+    from repro_torch.models.tame import tame_dit
+    from repro_torch.parallel import pipeline_apply
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    _par_say("pipeline")
+    model, params, _ = tame_dit("dit-xl-2", smoke=False, seed=0,
+                                use_flash=True, device=dev)
+    L = model.cfg.n_layers
+    stage_params = tree_map(lambda v: v.reshape(
+        PIPE_STAGES, L // PIPE_STAGES, *v.shape[1:]), params["blocks"])
+    g = torch.Generator(dev).manual_seed(31)
+    z = torch.randn((PIPE_MICRO, PIPE_MB) + REQ_SHAPE, generator=g,
+                    device=dev)
+    with torch.no_grad():
+        embedded = [model._denoise_embed(params["denoiser"], z[i], t, None)
+                    for i, t in enumerate(PIPE_TS)]
+        x_micro = {"x": torch.stack([e[0] for e in embedded]),
+                   "c": torch.stack([e[1] for e in embedded])}
+
+        def block_fn(p, xc):
+            h = xc["x"]
+            for layer in unstack(p):
+                h = model._block(layer, h, xc["c"])
+            return {"x": h, "c": xc["c"]}
+
+        held: dict = {}
+        ops.reset_launch_counts()
+        with held_against_plain(held):
+            t = time.perf_counter()
+            out = pipeline_apply(block_fn, stage_params, x_micro, mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        launches = ops.launch_counts()
+        layers = model._layers(params)
+        ref = torch.stack([model._stack(layers, x_micro["x"][i],
+                                        x_micro["c"][i], 0, L)
+                           for i in range(PIPE_MICRO)])
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    gap = float((out["x"] - ref).abs().max() / ref.abs().max())
+    require(gap <= GAP_LIMIT,
+            f"parallel: pipeline {gap} of the peak from one rank")
+    require(torch.equal(out["c"], x_micro["c"]),
+            "parallel: the conditioning came back changed")
+    want = ticks * (L // PIPE_STAGES)
+    require(launches["flash_attention"] == want,
+            f"parallel: pipeline flash launches {launches} (want {want})")
+    require(held["flash_attention"]["ok"],
+            f"parallel: pipeline flash held {held}")
+    return {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+            "microbatch": [PIPE_MB, REQ_SHAPE[0], model.cfg.d_model],
+            "ticks": ticks, "gap": gap, "seconds": secs,
+            "launches": launches, "held": held}
+
+
+def parallel_rank(rank: int, workdir: str) -> int:
+    """One of ``parallel_path``'s two ranks (``chip_smoke.py
+    --parallel-rank RANK DIR``): a gloo group of two on the one card
+    (``file://`` store), the training and compression checks on a
+    (data=2) mesh, the pipeline on a (stage=2) mesh; writes its results
+    to ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/gloo",
+                            rank=rank, world_size=2)
+    try:
+        t = time.perf_counter()
+        out = {"training": _par_training(
+            make_test_mesh((2,), ("data",), device="cuda"))}
+        out["training"]["seconds"] = time.perf_counter() - t
+        out["pipeline"] = _par_pipeline(
+            make_test_mesh((PIPE_STAGES,), ("stage",), device="cuda"))
+        out["backend"] = dist.get_backend()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_path(state: dict) -> dict:
+    """The distribution layer (``models.common``'s specs and activation
+    pins, ``parallel/``, ``launch.train`` over ranks) on the card, and the
+    two thin examples. Two gloo ranks share the card (NCCL refuses two
+    ranks on one device), as ``sharded_path``'s cfg ranks do; no speed is
+    claimed (two ranks on one card say nothing about many cards).
+
+    1. ``parallel_rank`` x 2: starcoder2-3b training under PAR_STRATEGIES
+       against one process (losses within PAR_LOSS_LIMIT a step, each
+       parameter leaf within PAR_PARAM_LIMIT), ``compressed_psum`` of the
+       gradients within PAR_PSUM_LIMIT of the exact all-reduce, the
+       DiT-XL/2 pipeline within GAP_LIMIT of one rank, its flash calls
+       held and counted.
+    2. ``examples/torch_quickstart.py`` on the card: sliced-W2 below half
+       the prior's. ``examples/torch_serve_diffusion.py --requests 6
+       --bucket-sizes 1,2,4 --nfe 9 --stream``: every request finite, the
+       compile-cache misses it adds equal to the buckets it used, the dit-s
+       smoke backbone through flash.
+
+    The launch window is the ranks' pipelines and the examples."""
+    import contextlib
+    import gc
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.samplers import compile_cache_stats
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    res: dict = {"phase": "parallel_path"}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        t = time.perf_counter()
+        ranks = _run_ranks("--parallel-rank", workdir, PAR_RANKS_DEADLINE_S,
+                           "parallel:")
+        res["ranks_s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    res["training"] = ranks[0]["training"]
+    res["training_rank1_param_err"] = {
+        s: ranks[1]["training"][s]["param_err"] for s in PAR_STRATEGIES}
+    res["compressed_psum_rank1"] = ranks[1]["training"]["compressed_psum"]
+    res["pipeline"] = [{k: v for k, v in r["pipeline"].items()
+                        if k != "held"} for r in ranks]
+    res["backend"] = ranks[0]["backend"]
+    res["peak_gb"] = [r["peak_gb"] for r in ranks]
+
+    # ---- the examples, in this process
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        q = _load_example("torch_quickstart").main(["--device", "cuda"])
+        q_s = time.perf_counter() - t
+        misses = compile_cache_stats()["misses"]
+        t = time.perf_counter()
+        sd = _load_example("torch_serve_diffusion").main([
+            "--requests", "6", "--bucket-sizes", "1,2,4", "--nfe", "9",
+            "--stream", "--device", "cuda"])
+        sd_s = time.perf_counter() - t
+    examples_launches = ops.launch_counts()
+    require(q["finite"] and q["sliced_w2"] < 0.5 * q["prior_sliced_w2"],
+            f"parallel: quickstart {q}")
+    st = sd["stats"]
+    added = st["compile_cache"]["misses"] - misses
+    require(len(sd["results"]) == 6 and all(
+        bool(torch.isfinite(r.x0).all()) for r in sd["results"]),
+        "parallel: serve_diffusion results")
+    require(added == len(st["buckets"]),
+            f"parallel: serve_diffusion compile misses {added} for buckets "
+            f"{list(st['buckets'])}")
+    require(examples_launches["flash_attention"] > 0,
+            f"parallel: serve_diffusion launched {examples_launches}")
+    res["examples"] = {
+        "quickstart": dict(q, seconds=q_s),
+        "serve_diffusion": {
+            "requests": st["requests"], "microbatches": st["microbatches"],
+            "padded_slots": st["padded_slots"], "misses_added": added,
+            "buckets": list(st["buckets"]), "seconds": sd_s,
+            "launches": examples_launches},
+        "printed": buf.getvalue().splitlines()[-4:]}
+    launches = dict(examples_launches)
+    for r in ranks:
+        for k, v in r["pipeline"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    state["launches"]["parallel"] = launches
+    state["held"]["parallel"] = _merge_held(*(r["pipeline"]["held"]
+                                              for r in ranks))
+    res["launches"] = launches
+    res["held"] = state["held"]["parallel"]
+    emit(res)
+    return res
 
 
 def phase_sample_defaults(state: dict) -> dict:
@@ -5197,15 +5576,21 @@ def _launch_serve_lm(arch, checks, r) -> None:
         for ln in r["launch_serve"]["printed"])
 
 
+#: the zamba2 solve's depth: 2 groups of 6 Mamba blocks, each followed
+#: by the shared block, and 3 left over (the published 81 cut for the
+#: script's time: at 39 layers the script took 1,192 s, PERF.md §4)
+HYBRID_SOLVE_LAYERS = 15
+
+
 def _zamba2_solve(checks: dict, held: dict) -> dict:
     """SA (NFE 20, P3C3 PEC, tau 1, fused) over the tame zamba2-7b
-    denoiser at published width and depth on the published bfloat16
-    stream, latent ``SHAPE``: a cold solve (an eager solve, then the
-    capture) and a replay of the compile cache's graph from x_T nudged by
-    1e-7 (the yardstick), each launching exactly 13 x 2 x 20 flash and 19
-    sa_fused; an eager solve with the plain attention
-    (``use_flash=False``) as the gate's reference, within
-    GAP_LIMIT_BF16; one evaluation with every flash call held, and one
+    denoiser at published width, HYBRID_SOLVE_LAYERS deep, on the
+    published bfloat16 stream, latent ``SHAPE``: a cold solve (an eager
+    solve, then the capture) and a replay of the compile cache's graph
+    from x_T nudged by 1e-7 (the yardstick), each launching exactly 2
+    passes x the shared applications x 20 flash and 19 sa_fused; an eager
+    solve with the plain attention (``use_flash=False``) as the gate's
+    reference, within GAP_LIMIT_BF16; one evaluation with every flash call held, and one
     under torch.profiler. The tame weights' Jacobian gain is checked on
     the float32 stream."""
     import gc
@@ -5220,7 +5605,8 @@ def _zamba2_solve(checks: dict, held: dict) -> dict:
     dev = torch.device("cuda")
     schedule = get_schedule("vp_linear")
     t0 = time.perf_counter()
-    model, params, mu = tame_zamba2("zamba2-7b", smoke=False, seed=0,
+    model, params, mu = tame_zamba2("zamba2-7b", smoke=False,
+                                    n_layers=HYBRID_SOLVE_LAYERS, seed=0,
                                     use_flash=True, latent=SHAPE[2],
                                     device=dev)
     torch.cuda.synchronize()
@@ -5311,7 +5697,8 @@ def phase_hybrid_path(state: dict) -> dict:
     attention and the Mamba states: no launch), ``launch.serve --mode
     lm``, and the consistency check at ``HYBRID_CHECK_LAYERS`` (float32:
     forward, prefill and decode, card and CPU). (2) ``_zamba2_solve``: SA
-    over the tame zamba2-7b denoiser through flash and sa_fused. (3)
+    over the tame zamba2-7b denoiser (HYBRID_SOLVE_LAYERS deep) through
+    flash and sa_fused. (3)
     qwen2-vl-2b at published width and depth (28 layers of d_model 1536,
     12 / 2 heads of 128, embeddings in), float32 weights from a seed:
     ``forward`` over a (t, h, w) grid of image patches then text
@@ -5420,7 +5807,10 @@ def phase_hybrid_path(state: dict) -> dict:
     state["launches"]["hybrid"] = ops.launch_counts()  # window ends
     state["held"]["hybrid"] = held
     result["launches"] = state["launches"]["hybrid"]
-    want_held = get_config("zamba2-7b").n_shared_apps * 3 + \
+    # the forward's flash calls, the solve's held evaluation (both
+    # passes), qwen2-vl-2b's forward
+    want_held = get_config("zamba2-7b").n_shared_apps + \
+        2 * result["solve"]["shared_apps"] + \
         get_config("qwen2-vl-2b").n_layers
     checks["held"] = all(h["ok"] for h in held.values()) and held.get(
         "flash_attention", {}).get("calls") == want_held
@@ -5438,6 +5828,8 @@ def phase_hybrid_path(state: dict) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
         return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of parallel_path's two
+        return parallel_rank(int(sys.argv[2]), sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -5474,6 +5866,7 @@ def main() -> int:
             ("feature_cache_path", lambda: phase_feature_cache_path(state),
              False),
             ("sharded_path", lambda: phase_sharded_path(state), False),
+            ("parallel_path", lambda: phase_parallel_path(state), False),
             ("sample_defaults", lambda: phase_sample_defaults(state), False),
             ("gmm", phase_gmm, False),
             ("rwkv6_path", lambda: phase_rwkv6_path(state), False),

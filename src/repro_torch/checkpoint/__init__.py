@@ -1,5 +1,5 @@
-"""Fault-tolerant checkpointing: atomic commits, async writer, restore onto
-the target's devices.
+"""Fault-tolerant checkpointing: atomic commits, async writer, elastic
+restore.
 
 Layout (one directory per committed step), the reference's own, so a
 checkpoint that either package writes restores in the other::
@@ -21,6 +21,17 @@ mid-save can never corrupt the latest-good checkpoint, and ``latest_step``
 only ever sees committed directories. ``AsyncCheckpointer`` takes the
 device->host copy on the caller's thread and the file I/O on a background
 thread with a bounded queue, so the train loop does not block on disk.
+
+Sharded state: a tree with DTensor leaves is saved as its *global*
+arrays. Every rank of the default process group takes part in gathering
+each DTensor (so every rank must call ``save`` with the same tree), rank 0
+alone writes and commits, and the ranks meet at a barrier once the commit
+is on disk (``save``; ``AsyncCheckpointer.wait``). ``restore`` places each
+leaf under any target placement: a target DTensor's own mesh and
+placements, or ``shardings`` (a tree of ``models.common.NamedSharding``),
+so the save mesh does not constrain the restore mesh (elastic restore:
+saved over 2 ranks, restored over 4). Each rank reads the global arrays
+and keeps its shard, with no communication.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.common import distribute, is_dtensor
 from ..tree import paths_and_leaves, tree_map, unflatten_like
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer", "all_steps"]
@@ -50,16 +62,50 @@ def _sanitize(key: str) -> str:
     return key.replace("/", "__")
 
 
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds a DTensor (then its save is collective)."""
+    return any(is_dtensor(x) for _, x in paths_and_leaves(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the default group, or the
+    one process without a group."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _host(leaf) -> torch.Tensor | np.ndarray:
-    """A host copy of ``leaf`` that nothing else aliases: a later in-place
-    update of the source (an optimiser step) cannot reach it."""
+    """A host copy of ``leaf`` (of a DTensor, its global array: a
+    collective) that nothing else aliases: a later in-place update of the
+    source (an optimiser step) cannot reach it."""
+    if is_dtensor(leaf):
+        return leaf.full_tensor().detach().to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Blocking atomic save. Returns the committed directory."""
+    """Blocking atomic save. Returns the committed directory. A tree with
+    DTensor leaves is gathered on every rank, written by rank 0, and the
+    ranks return together once it is committed."""
+    if _sharded(tree):
+        tree = tree_map(_host, tree)
+        final = _write(ckpt_dir, step, tree, keep) if _writer() else \
+            os.path.join(ckpt_dir, f"step_{step:08d}")
+        _barrier()
+        return final
+    return _write(ckpt_dir, step, tree, keep)
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
@@ -127,10 +173,13 @@ def _load_leaf(d: str, meta: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, target: Any, *,
-            step: int | None = None) -> tuple[Any, int]:
+def restore(ckpt_dir: str, target: Any, *, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``target`` (a tree of tensors): each
-    leaf takes the target leaf's dtype and device. Returns (tree, step).
+    leaf takes the target leaf's dtype and device, and its placement:
+    ``shardings`` (a matching tree of ``models.common.NamedSharding``) or,
+    without it, a target DTensor's own mesh and placements — the elastic
+    path, on any mesh. Returns (tree, step).
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -140,8 +189,11 @@ def restore(ckpt_dir: str, target: Any, *,
     with open(os.path.join(d, "index.json")) as f:
         index = json.load(f)
 
+    shard_list = None
+    if shardings is not None:
+        shard_list = [s for _, s in paths_and_leaves(shardings)]
     leaves = []
-    for key, leaf in paths_and_leaves(target):
+    for i, (key, leaf) in enumerate(paths_and_leaves(target)):
         meta = index["leaves"].get(key)
         if meta is None:
             raise KeyError(f"checkpoint {d} missing leaf {key!r}")
@@ -150,7 +202,12 @@ def restore(ckpt_dir: str, target: Any, *,
             raise ValueError(
                 f"leaf {key!r}: checkpoint shape {tuple(t.shape)} != target "
                 f"{tuple(leaf.shape)}")
-        leaves.append(t.to(device=leaf.device, dtype=leaf.dtype))
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
+        if shard_list is not None:
+            t = distribute(t, shard_list[i].mesh, shard_list[i].placements)
+        elif is_dtensor(leaf):
+            t = distribute(t, leaf.device_mesh, leaf.placements)
+        leaves.append(t)
     return unflatten_like(target, leaves), step
 
 
@@ -167,6 +224,9 @@ class AsyncCheckpointer:
         self._err: list[BaseException] = []
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
+        #: a sharded tree was queued since the last ``wait``: the ranks
+        #: meet there once rank 0 has committed it
+        self._collective = False
 
     def _worker(self):
         while True:
@@ -176,7 +236,7 @@ class AsyncCheckpointer:
                 return
             step, host_tree = item
             try:
-                save(self.ckpt_dir, step, host_tree, keep=self.keep)
+                _write(self.ckpt_dir, step, host_tree, self.keep)
             except BaseException as e:  # surfaced on next save()/wait()
                 self._err.append(e)
             finally:
@@ -184,13 +244,24 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any):
         """Queue ``tree`` for writing. Its host copy is complete when this
-        returns, so the caller may update the same tensors in place."""
+        returns, so the caller may update the same tensors in place. A
+        tree with DTensor leaves is gathered on every rank (each must
+        call) and queued on rank 0 alone."""
         if self._err:
             raise RuntimeError("async checkpoint failed") from self._err[0]
-        self._q.put((step, tree_map(_host, tree)))
+        sharded = _sharded(tree)
+        host = tree_map(_host, tree)
+        self._collective |= sharded
+        if not sharded or _writer():
+            self._q.put((step, host))
 
     def wait(self):
+        """Drain the queue; after a sharded save, every rank returns once
+        rank 0 has committed (a barrier: each rank must call)."""
         self._q.join()
+        if self._collective:
+            self._collective = False
+            _barrier()
         if self._err:
             raise RuntimeError("async checkpoint failed") from self._err[0]
 

@@ -10,8 +10,11 @@ bit for bit, and a restart at step k reproduces the stream.
 ``ShardedBatchIterator`` splits the global batch by host: each process of
 a ``torch.distributed`` group (its rank and world size; one host without
 a group) materialises only its rows and places them on its ``device``.
-Each rank keeps its local slice, as data-parallel PyTorch training does,
-where the reference assembles one global array from the slices.
+Given a mesh, a host is a coordinate over the mesh's batch axes
+(``models.common.batch_spec``: ``("pod", "data")`` or ``("data",)``) and
+the rows become one DTensor sharded on dim 0 over those axes, as the
+reference assembles one global array from the slices: the global batch
+over R hosts is the concatenation of the R host batches, in host order.
 """
 
 from __future__ import annotations
@@ -93,6 +96,18 @@ def _host_and_count() -> tuple[int, int]:
     return 0, 1
 
 
+def _mesh_host(mesh) -> tuple[int, int]:
+    """(host, hosts): this rank's coordinate over ``mesh``'s batch axes
+    (pod-major), and their size."""
+    host, n = 0, 1
+    names = list(mesh.mesh_dim_names)
+    for a in ("pod", "data"):
+        if a in names:
+            size = int(mesh.mesh.shape[names.index(a)])
+            host, n = host * size + mesh.get_local_rank(a), n * size
+    return host, n
+
+
 class ShardedBatchIterator:
     """Yield this host's rows of each global batch, as tensors on
     ``device`` (None: left on the CPU).
@@ -100,16 +115,22 @@ class ShardedBatchIterator:
     host-sharding: each host generates rows [host_lo, host_hi) through
     ``make_host_batch(rows, step, host)`` (a dict of numpy arrays).
     Deterministic in (seed, step): restart at step k reproduces the exact
-    stream; resume sets ``step``.
+    stream; resume sets ``step``. ``mesh``: a ``DeviceMesh``; each host's
+    rows are then its shard of DTensors placed by ``batch_spec`` (every
+    rank of one batch coordinate makes the same rows).
     """
 
     def __init__(self, make_host_batch, global_batch: int, device=None,
-                 start_step: int = 0):
+                 start_step: int = 0, mesh=None):
         self.make_host_batch = make_host_batch
         self.global_batch = global_batch
         self.device = device
         self.step = start_step
-        self.host, self.n_hosts = _host_and_count()
+        self.mesh = mesh
+        if mesh is None:
+            self.host, self.n_hosts = _host_and_count()
+        else:
+            self.host, self.n_hosts = _mesh_host(mesh)
         if global_batch % self.n_hosts:
             raise ValueError("global_batch must divide host count")
 
@@ -120,5 +141,15 @@ class ShardedBatchIterator:
         rows = self.global_batch // self.n_hosts
         host_batch = self.make_host_batch(rows, self.step, self.host)
         self.step += 1
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in host_batch.items()}
+        out = {k: torch.as_tensor(v, device=self.device)
+               for k, v in host_batch.items()}
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import DTensor
+
+        from ..models.common import batch_spec, placements_for
+        spec = batch_spec(self.mesh.mesh_dim_names)
+        return {k: DTensor.from_local(v, self.mesh,
+                                      placements_for(spec, self.mesh),
+                                      run_check=False)
+                for k, v in out.items()}

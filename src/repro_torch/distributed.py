@@ -6,6 +6,10 @@ one mesh axis: :func:`all_gather` gives every rank of ``group`` every
 rank's tensor, in the group's rank order, where the tensor lies (NCCL on
 the card, one card a rank; gloo on the CPU, and for two ranks that share
 one card, which NCCL refuses: the card's gloo takes CUDA tensors).
+:func:`ppermute` (the rotation of ``parallel.pipeline``) is built on it,
+so the two gloo ranks that share the card exchange their CUDA tensors
+through a collective gloo takes on them (gloo has no point-to-point
+``send``/``recv`` of CUDA tensors).
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_gather", "world_size"]
+__all__ = ["all_gather", "ppermute", "world_size"]
 
 
 def world_size() -> int:
@@ -30,3 +34,14 @@ def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
     return parts
+
+
+def ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
+    """``jax.lax.ppermute`` over the ranks of ``group``: ``perm`` is a list
+    of ``(source, destination)`` group ranks, and each rank gets the ``t``
+    of the source that sends to it (zeros where none does). Every rank
+    gathers every ``t`` (:func:`all_gather`) and keeps its source's."""
+    parts = all_gather(t, group)
+    me = dist.get_rank(group)
+    src = [s for s, d in perm if d == me]
+    return parts[src[0]] if src else torch.zeros_like(t)

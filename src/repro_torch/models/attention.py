@@ -39,7 +39,7 @@ import torch.utils.checkpoint
 
 from ..kernels import ops as kops
 from .common import (ParamDef, apply_mrope, apply_rope, promote_einsum,
-                     promote_matmul, rms_norm)
+                     promote_matmul, rms_norm, shard_heads_dim)
 
 __all__ = ["AttentionConfig", "MLAConfig", "attn_defs", "cache_shape",
            "gqa_forward", "mla_forward"]
@@ -222,6 +222,11 @@ def gqa_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
                 positions = positions[None].expand(3, *positions.shape)
         q = _rope_q_or_k(cfg, q, positions)
         k = _rope_q_or_k(cfg, k, positions)
+    # head-parallel attention internals (Megatron layout); the S-sharded
+    # residual stream is gathered here and the heads take the SP axes
+    q = shard_heads_dim(q)
+    k = shard_heads_dim(k)
+    v = shard_heads_dim(v)
 
     if cache is None:
         flash = q.is_cuda if cfg.use_flash is None else cfg.use_flash
@@ -272,6 +277,7 @@ def mla_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
 
     q_lat = rms_norm(promote_matmul(x, p["wq_a"]), p["q_norm"])
     q = promote_einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q = shard_heads_dim(q)  # head-parallel MLA attention
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -303,6 +309,8 @@ def mla_forward(p: dict, cfg: AttentionConfig, x: torch.Tensor, *,
     else:
         k_nope = promote_einsum("btr,rhk->bthk", c_all, p["wk_b"])
         v = promote_einsum("btr,rhv->bthv", c_all, p["wv_b"])
+        k_nope = shard_heads_dim(k_nope)
+        v = shard_heads_dim(v)
         k32 = torch.cat([k_nope.float(), kr_all[:, :, None, :].float().expand(
             *k_nope.shape[:3], m.qk_rope_dim)], dim=-1)
         v32 = v.float()

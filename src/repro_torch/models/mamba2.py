@@ -53,9 +53,9 @@ import torch.utils.checkpoint
 
 from ..tree import tree_leaves
 from .attention import AttentionConfig, attn_defs, cache_shape, gqa_forward
-from .common import (ParamDef, layer_of, mlp_apply, mlp_defs,
-                     promote_matmul, rms_norm, softmax_cross_entropy,
-                     tree_defs_map, unstack)
+from .common import (ParamDef, gathered, layer_of, mlp_apply, mlp_defs,
+                     promote_matmul, replicated, rms_norm, shard_batch_dim,
+                     softmax_cross_entropy, tree_defs_map, unstack)
 from .transformer import timestep_embedding
 
 __all__ = ["Mamba2Config", "Zamba2Config", "Zamba2", "ssd_sequential",
@@ -356,14 +356,17 @@ class Zamba2:
         return x + promote_matmul(h2, p["out_proj"]).to(x.dtype)
 
     def _apply(self, fn, p, *args):
-        """``fn(p, *args)``, checkpointed under ``remat="full"`` where
-        autograd records it."""
+        """``fn(gathered(p), *args)``, checkpointed under ``remat="full"``
+        where autograd records it (the gather inside: made again in the
+        backward)."""
+        def run(p_, *a):
+            return fn(gathered(p_), *a)
         if self.cfg.remat == "full" and torch.is_grad_enabled() and any(
                 t.requires_grad for t in (*args, *tree_leaves(p))
                 if isinstance(t, torch.Tensor)):
             return torch.utils.checkpoint.checkpoint(
-                fn, p, *args, use_reentrant=False)
-        return fn(p, *args)
+                run, p, *args, use_reentrant=False)
+        return run(p, *args)
 
     def _run(self, params, x, caches=None, *, chunked: bool,
              cache_index=None):
@@ -382,6 +385,7 @@ class Zamba2:
         mamba = functools.partial(self._mamba_block, cache=None,
                                   chunked=chunked)
         for l, p in enumerate(unstack(params["blocks"])):
+            x = shard_batch_dim(x)  # pin batch at layer boundary
             if caches is None:
                 x, _ = self._apply(mamba, p, x)
             else:
@@ -421,7 +425,8 @@ class Zamba2:
                 for key, leaves in self.cache_shapes(batch, s_max).items()}
 
     def _embed(self, params, tokens):
-        return F.embedding(tokens, params["embed"]).to(self.cfg.dtype)
+        return F.embedding(tokens,
+                           replicated(params["embed"], 0)).to(self.cfg.dtype)
 
     def _logits(self, params, x):
         return promote_matmul(rms_norm(x, params["ln_f"]),

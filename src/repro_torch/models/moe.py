@@ -31,7 +31,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .common import ACTIVATIONS, ParamDef, mlp_apply, mlp_defs
+from .common import (ACTIVATIONS, ParamDef, mlp_apply, mlp_defs,
+                     shard_moe_dispatch)
 
 __all__ = ["MoEConfig", "moe_defs", "moe_apply", "top_k_lower_first"]
 
@@ -112,6 +113,9 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
     x_e = torch.where(
         filled, x.new_zeros(N + 1, d).index_copy(0, rows, xs)[:N].reshape(
             E, B, C, d), x[None, :, :1, :]).reshape(E, B * C, d)
+    # groups -> experts (the MoE all-to-all): the groups keep the batch
+    # axes, the experts take the SP axes
+    x_e = shard_moe_dispatch(x_e, group_dim=1, expert_dim=0)
 
     # ---- experts, in the stream's dtype (each slot tensor let go as soon
     # as the next exists: at a large capacity they are GBs each) ---------
@@ -119,7 +123,9 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
     act = ACTIVATIONS[cfg.act]
     h = act(x_e @ p["wg"].to(dt)) * h if cfg.gated else act(h)
     del x_e
-    y = (h @ p["wo"].to(dt)).reshape(N, d)
+    h = shard_moe_dispatch(h, group_dim=1, expert_dim=0)
+    y = shard_moe_dispatch(h @ p["wo"].to(dt), group_dim=1,
+                           expert_dim=0).reshape(N, d)
     del h
     contrib = (y * gates[:, None].to(dt)).to(dt)
     del y

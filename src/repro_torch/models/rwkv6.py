@@ -49,7 +49,8 @@ import torch.utils.checkpoint
 from ..kernels import ops as kops
 from ..kernels.rwkv6_scan import rwkv6_wkv_plain
 from ..tree import tree_leaves
-from .common import (ParamDef, layer_norm, layer_of, promote_matmul,
+from .common import (ParamDef, gathered, layer_norm, layer_of,
+                     promote_matmul, replicated, shard_batch_dim,
                      softmax_cross_entropy, tree_defs_map, unstack)
 from .transformer import timestep_embedding
 
@@ -284,14 +285,16 @@ class RWKV6:
         return x, {"S": S, "tm_shift": tm_shift, "cm_shift": cm_shift}
 
     def _layer(self, p, x, cache, *, chunked: bool):
-        """``_block``, checkpointed under ``remat="full"`` where autograd
-        records it."""
+        """``_block`` of ``gathered(p)``, checkpointed under
+        ``remat="full"`` where autograd records it (the gather inside:
+        made again in the backward)."""
+        def run(p_, x_, cache_):
+            return self._block(gathered(p_), x_, cache_, chunked=chunked)
         if self.cfg.remat == "full" and torch.is_grad_enabled() and any(
                 t.requires_grad for t in tree_leaves(p)):
             return torch.utils.checkpoint.checkpoint(
-                self._block, p, x, cache, chunked=chunked,
-                use_reentrant=False)
-        return self._block(p, x, cache, chunked=chunked)
+                run, p, x, cache, use_reentrant=False)
+        return run(p, x, cache)
 
     def _run(self, params, x, caches, *, chunked: bool):
         """The block stack over the stacked [L, ...] block params, unbound
@@ -300,6 +303,7 @@ class RWKV6:
         x = layer_norm(x, params["ln_in"], params["ln_inb"])
         outs = []
         for l, p in enumerate(unstack(params["blocks"])):
+            x = shard_batch_dim(x)  # pin batch->data at layer boundary
             x, out = self._layer(p, x, layer_of(caches, l), chunked=chunked)
             outs.append(out)
         x = layer_norm(x, params["ln_f"], params["ln_fb"])
@@ -333,7 +337,8 @@ class RWKV6:
         from a zero state; aux is a float32 zero. The embedding is a
         gather whose backward sums each row in order (indexing's adds with
         atomics on the CPU: not bitwise reproducible)."""
-        x = F.embedding(batch["tokens"], params["embed"]).to(self.cfg.dtype)
+        x = F.embedding(batch["tokens"],
+                        replicated(params["embed"], 0)).to(self.cfg.dtype)
         cache = self.init_cache(x.shape[0], device=x.device)
         logits, _ = self._lm(params, x, cache, chunked=True)
         return logits, x.new_zeros((), dtype=torch.float32)

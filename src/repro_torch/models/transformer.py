@@ -64,8 +64,9 @@ from ..kernels.graph_gate import run_if
 from ..tree import tree_leaves
 from .attention import (AttentionConfig, MLAConfig, attn_defs, cache_shape,
                         gqa_forward, mla_forward)
-from .common import (ParamDef, chunked_lm_loss, layer_of, mlp_apply,
-                     mlp_defs, promote_matmul, rms_norm,
+from .common import (ParamDef, chunked_lm_loss, gathered, layer_of,
+                     mlp_apply, mlp_defs, promote_matmul, replicated,
+                     rms_norm, shard_batch_dim, shard_logits_path,
                      softmax_cross_entropy, tree_defs_map, unstack)
 from .moe import MoEConfig, moe_apply, moe_defs
 
@@ -340,14 +341,17 @@ class TransformerLM:
         return tcond
 
     def _apply(self, fn, p, *args):
-        """``fn(p, *args)``, checkpointed per ``cfg.remat`` where autograd
-        records it."""
+        """``fn(gathered(p), *args)``, checkpointed per ``cfg.remat`` where
+        autograd records it (the gather inside: made again in the
+        backward)."""
+        def run(p_, *a):
+            return fn(gathered(p_), *a)
         if self._remat_kw is not None and torch.is_grad_enabled() and any(
                 t.requires_grad for t in (*args, *tree_leaves(p))
                 if isinstance(t, torch.Tensor)):
             return torch.utils.checkpoint.checkpoint(
-                fn, p, *args, use_reentrant=False, **self._remat_kw)
-        return fn(p, *args)
+                run, p, *args, use_reentrant=False, **self._remat_kw)
+        return run(p, *args)
 
     def _layers(self, params) -> list:
         """The unstacked block parameters, the dense blocks then the MoE
@@ -358,6 +362,7 @@ class TransformerLM:
         """Blocks ``[lo, hi)`` of the stack (``layers``: the unstacked
         block parameters) over the residual stream."""
         for l in range(lo, hi):
+            x = shard_batch_dim(x)  # pin batch->data at layer boundary
             x = self._apply(self._block, layers[l], x, tcond)
         return x
 
@@ -369,6 +374,7 @@ class TransformerLM:
         place. Returns ``(x, caches, aux)``, aux the float32 sum of the
         MoE blocks' auxiliary losses."""
         def run(p_, x_):
+            x_ = shard_batch_dim(x_)  # pin batch->data at layer boundary
             x_, _, a_ = self._lm_block(p_, x_, positions)
             return x_, a_
 
@@ -394,7 +400,8 @@ class TransformerLM:
         else:
             # a gather whose backward sums each row in order (indexing's
             # adds with atomics on the CPU: not bitwise reproducible)
-            x = F.embedding(batch["tokens"], params["embed"]).to(cfg.dtype)
+            x = F.embedding(batch["tokens"],
+                            replicated(params["embed"], 0)).to(cfg.dtype)
         if cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
         return x
@@ -406,7 +413,10 @@ class TransformerLM:
 
     def _logits(self, params, x):
         h = rms_norm(x, params["ln_f"])
-        return (h @ self._head_weight(params).to(h.dtype)).float()
+        h, _ = shard_logits_path(h, None)
+        logits = (h @ self._head_weight(params).to(h.dtype)).float()
+        _, logits = shard_logits_path(None, logits)
+        return logits
 
     # ------------------------------------------------------------------
     # LM: public API
@@ -438,6 +448,7 @@ class TransformerLM:
         S = x.shape[1]
         if cfg.vocab_size >= 32000 and S > 512 and S % 512 == 0:
             h = rms_norm(x, params["ln_f"])
+            h, _ = shard_logits_path(h, None)
             loss = chunked_lm_loss(h, self._head_weight(params).to(h.dtype),
                                    batch["labels"], batch.get("mask"))
         else:
@@ -445,7 +456,8 @@ class TransformerLM:
                                          batch["labels"], batch.get("mask"))
         if cfg.mtp and "labels2" in batch:
             mp = params["mtp"]
-            tgt = F.embedding(batch["labels"], params["embed"]).to(x.dtype)
+            tgt = F.embedding(batch["labels"],
+                              replicated(params["embed"], 0)).to(x.dtype)
             h = promote_matmul(torch.cat([x, tgt], dim=-1), mp["proj"])
             h, _, _ = self._lm_block(mp["block"], h, positions)
             logits2 = self._logits(params, rms_norm(h, mp["ln"]))

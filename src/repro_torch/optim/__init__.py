@@ -12,8 +12,10 @@ apply_updates(params, updates). ``chain``'s state is a tuple, adamw's
 ``{"m", "v"}``. Trees are nested dicts/tuples/lists of tensors; the step
 is an integer (a 0-d tensor on the parameters' device keeps the update
 free of host reads) and the step arithmetic is float32, as in the
-reference. Updates are computed without autograd. ZeRO-1 state sharding
-(the reference's ``zero1_specs``) comes with ``parallel/`` (ROADMAP A12).
+reference. Updates are computed without autograd. ``zero1_specs`` gives
+the reference's ZeRO-1 specs of the moments. Over DTensor parameters the
+state is made like them (``zeros_like``: the same mesh and placements)
+and the updates run leaf by leaf on the DTensors.
 
 ``update(..., donate=True)`` and ``apply_updates(..., donate=True)`` are
 the counterpart of a jitted step's donated buffers: the caller hands over
@@ -36,6 +38,7 @@ from ..tree import leaves_like, tree_leaves, tree_map, unflatten_like
 __all__ = [
     "adamw", "adafactor", "clip_by_global_norm", "chain", "apply_updates",
     "cosine_schedule", "linear_warmup_cosine", "global_norm", "Optimizer",
+    "zero1_specs",
 ]
 
 
@@ -88,8 +91,8 @@ def adamw(
     lr_fn = _lr_fn(lr)
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(
+            p, dtype=state_dtype, memory_format=torch.contiguous_format)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
@@ -245,3 +248,40 @@ def linear_warmup_cosine(base_lr: float, warmup: int, total_steps: int,
         warm = base_lr * step_f / max(warmup, 1)
         return torch.where(step_f < warmup, warm, cos(step - warmup))
     return fn
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 optimizer-state sharding
+# ---------------------------------------------------------------------------
+
+
+def zero1_specs(param_specs, mesh, axis: str = "data"):
+    """Specs for AdamW state: shard the largest *unsharded* dim of each
+    moment over ``axis`` (params keep their own specs). Falls back to the
+    param's spec when no dim divides, when the spec already uses ``axis``
+    or when the axis has one rank. ``mesh``: a ``DeviceMesh`` or an
+    ``{axis: size}`` dict. Returns ``tree_specs(shapes)``, over a tree of
+    shapes (tuples of ints) laid out as ``param_specs``."""
+    from ..models.common import PartitionSpec, mesh_shape_dict
+    size = mesh_shape_dict(mesh)[axis]
+
+    def spec_for(ps, shape):
+        shape = tuple(shape)
+        used = {a for e in ps if e
+                for a in ((e,) if isinstance(e, str) else e)}
+        if axis in used or size <= 1:
+            return ps
+        dims = list(ps) + [None] * (len(shape) - len(ps))
+        # largest unassigned dim divisible by the axis size
+        cands = [(shape[i], i) for i in range(len(shape))
+                 if dims[i] is None and shape[i] % size == 0]
+        if not cands:
+            return ps
+        _, i = max(cands)
+        dims[i] = axis
+        return PartitionSpec(*dims)
+
+    def tree_specs(shapes):
+        return tree_map(spec_for, param_specs, shapes)
+
+    return tree_specs

@@ -6,7 +6,8 @@ head) and RWKV6 (the chunked WKV's plain form and its ``logw`` clamp);
 three steps of ``launch.train``'s step against the reference driver's
 jitted ``train_step``; the driver's CLI killed by ``--fail-at`` and
 resumed; a checkpoint of the reference's ``TrainLoop`` resumed by the
-port's driver; the driver's refusals; the optimiser's donated buffers;
+port's driver; the driver's refusals, and a world of four gloo ranks
+started from torchrun's environment; the optimiser's donated buffers;
 and ``examples/torch_lm_train_resume.py`` end to end on the CPU.
 
 Token batches come from ``synthetic_lm_batch`` (numpy, the same arrays in
@@ -41,6 +42,7 @@ import pytest
 import torch
 
 from repro import optim as j_optim
+from repro.models.common import STRATEGIES as J_STRATEGIES
 from repro.configs import get_smoke as j_get_smoke
 from repro.data import synthetic_lm_batch as j_synthetic_lm_batch
 from repro.data import TokenTaskConfig as JTokenTaskConfig
@@ -330,15 +332,51 @@ def test_musicgen_is_refused_where_the_reference_raises_keyerror():
         _cli("unused", "musicgen-large")
 
 
-def test_unknown_strategy_and_a_wider_world_are_refused(tmp_path,
-                                                        monkeypatch):
-    for name in t_train.STRATEGIES:  # the reference's names
-        t_train._check_placement(name)
+def test_unknown_strategy_and_a_wider_world_are_refused(tmp_path):
+    """An unknown ``--strategy`` still raises, as the reference's lookup
+    does. A world of four ranks is no longer refused: four processes with
+    torchrun's environment (``RANK``, ``WORLD_SIZE``, a localhost
+    rendezvous; gloo on the CPU) train ``fsdp_tp`` over a (data=4) mesh,
+    rank 0 alone prints and commits the checkpoint."""
+    assert set(t_train.STRATEGIES) == set(J_STRATEGIES)
     with pytest.raises(KeyError, match="bogus"):
         _cli(tmp_path, "starcoder2-3b", "--strategy", "bogus")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="zero1_specs"):
-        _cli(tmp_path, "starcoder2-3b")
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    with socket.socket() as s:  # a free port for the rendezvous
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(_EXAMPLE), os.pardir, "src")
+    env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.abspath(src), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+         "--steps", "2", "--batch", "4", "--seq", "32", "--device", "cpu",
+         "--strategy", "fsdp_tp", "--ckpt", str(tmp_path / "w4")],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(4)]
+    end = time.monotonic() + 180
+    try:
+        for p in procs:
+            p.wait(timeout=max(end - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [p for p in procs if p.poll() is None]
+        for p in late:
+            os.killpg(p.pid, signal.SIGKILL)
+        logs = [p.communicate()[0].decode(errors="replace") for p in procs]
+    assert not late, "ranks past the 180 s deadline"
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+        assert ("final loss" in log) == (r == 0), (r, log[-500:])
+    assert os.listdir(tmp_path / "w4") == ["step_00000002"]
 
 
 def test_driver_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -34,11 +34,6 @@ batch, a cfg branch half the rows of the one-call pair, and torch's
 products are not bitwise across row counts.
 """
 
-import os
-import signal
-import subprocess
-import sys
-import time
 import types
 
 import numpy as np
@@ -65,13 +60,12 @@ from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.serve import (ServeEngine, align_bucket_sizes, auto_mesh,
                                data_axis_size)
 from repro_torch.serve.sharding import auto_cfg_mesh
+import torch_ranks
 
 TS = get_schedule("vp_linear")
 JS = None if jax is None else j_get_schedule("vp_linear")
 SPEC = tsamplers.SamplerSpec(name="sa", schedule=TS, n_steps=6, tau=0.7)
 SHAPE = (64, 2)
-SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "src")
 DEADLINE_S = 120.0
 
 
@@ -463,30 +457,8 @@ def spawn(tmp_path, job: str, inputs: dict, world: int = 4) -> list:
     """Run ``job`` of CHILD on ``world`` gloo ranks (one process each, in
     a session of its own); every rank's result. The whole group is killed
     at the deadline."""
-    torch.save(inputs, tmp_path / "inputs.pt")
-    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [SRC, os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", CHILD, job, str(r), str(world),
-         str(tmp_path)], env=env, start_new_session=True,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    end = time.monotonic() + DEADLINE_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(end - time.monotonic(), 0.1))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        late = [p for p in procs if p.poll() is None]
-        for p in late:
-            os.killpg(p.pid, signal.SIGKILL)
-        logs = [p.communicate()[0].decode(errors="replace") for p in procs]
-    assert not late, f"{job}: ranks past the {DEADLINE_S:.0f} s deadline"
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"{job} rank {r}:\n{log[-3000:]}"
-    return [torch.load(tmp_path / f"out{r}.pt") for r in range(world)]
+    return torch_ranks.spawn(tmp_path, CHILD, job, inputs, world,
+                             DEADLINE_S)
 
 
 def rel(a, b) -> float:

@@ -133,7 +133,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "moe": ("flash_attention",),
                 "sample_moe": ("sa_fused", "flash_attention"),
                 "hybrid": ("sa_fused", "flash_attention"),
-                "parallel": ("flash_attention",)}
+                "parallel": ("flash_attention",),
+                "dryrun": ("flash_attention",)}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -254,21 +255,19 @@ def _leaves(tree):
 
 
 def wkv_bytes_ops(B, T, H, hd, C, in_bytes=4) -> tuple[int, int]:
-    """Bytes one WKV call must move (r/k/v/logw read, y written, u and S0
-    read, S_T written, once each) and the operations it does (an expf
-    counts as one): the scan, the strictly-lower pairwise scores, the
-    bonus term, the decays, y and the state update, per (b, h, chunk)."""
-    n = B * T * H * hd
-    n_bytes = 4 * n * in_bytes + 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
-    pairs = C * (C - 1) // 2
-    per_chunk = (2 * C * hd                       # L, Lprev
-                 + 5 * pairs * hd                 # A: sub, exp, 2 mul, add
-                 + 3 * C * hd                     # bonus
-                 + 5 * C * hd                     # r exp(Lprev), k exp(Ltot-L)
-                 + 2 * pairs * hd + 3 * C * hd    # A v, bonus v, sum
-                 + 2 * C * hd * hd                # (r exp(Lprev)) S
-                 + 2 * C * hd * hd + 3 * hd * hd)  # S update
-    return n_bytes, B * H * (T // C) * per_chunk
+    """Bytes one WKV call must move and the operations it does: the
+    kernel module's own count (``kernels/rwkv6_scan.py::cost``, the one
+    the dry run charges)."""
+    from repro_torch.kernels import rwkv6_scan
+    ops_, n_bytes = rwkv6_scan.cost(B, T, H, hd, C, in_bytes)
+    return n_bytes, ops_
+
+
+def flash_cost(B, H, K, S, T, hd, causal, itemsize):
+    """``(flops, bytes)`` of one flash call: the kernel module's own
+    count, the one the dry run charges."""
+    from repro_torch.kernels import flash_attention
+    return flash_attention.cost(B, H, K, S, T, hd, causal, itemsize)
 
 
 def rel_gap(a, b) -> float:
@@ -411,11 +410,13 @@ def _combine_fns(name, x, buf, xi, c):
 
 
 def combine_bound(rows: int, n: int, P: int, itemsize: int):
-    """((least ms, what sets it), bytes) of one combine: x, xi and P
+    """((least ms, what sets it), bytes) of one combine: the kernel
+    module's own count (``kernels/sa_update.py::cost``: x, xi and P
     history rows read once, ``rows`` outputs written once, the
-    coefficients read once; per output row 3 + 2P flops an element."""
-    n_bytes = (P + 2 + rows) * n * itemsize + rows * (P + 2) * 4
-    return bound(n_bytes, rows * (2 * P + 3) * n), n_bytes
+    coefficients read once; per output row 3 + 2P flops an element)."""
+    from repro_torch.kernels import sa_update
+    flops, n_bytes = sa_update.cost(n, P, itemsize, rows=rows)
+    return bound(n_bytes, flops), n_bytes
 
 
 def combine_times(timings: dict) -> dict:
@@ -500,10 +501,11 @@ def lane_times(floor_ms: float, L: int = SERVE_LANES,
                2, lambda: ops.sa_fused_update_lanes(x, buf, xi, c),
                lambda: ops.sa_fused_update_lanes(x, buf, xi, c, mode="plain"),
                lambda: torch.bmm(c, stacked))}
+    from repro_torch.kernels import sa_update
     out = {}
     for name, (rows, fn, plain, lib) in fns.items():
-        n_bytes = (P + 2 + rows) * L * n * 4 + L * rows * (P + 2) * 4
-        b_ms, by = bound(n_bytes, rows * (2 * P + 3) * L * n)
+        flops, n_bytes = sa_update.cost(n, P, 4, rows=rows, lanes=L)
+        b_ms, by = bound(n_bytes, flops)
         out[name] = {"ms": time_ms(fn), "plain_ms": time_ms(plain),
                      "library_ms": time_ms(lib),
                      "library_call": f"torch.bmm(coeffs [L, {rows}, P+2], "
@@ -693,7 +695,8 @@ def phase_kernels(timings: dict) -> dict:
     B, H, S, hd = 8, 16, 256, 72
     q, k, v = _attn_inputs(B, H, H, S, S, hd, torch.float32, seed=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    attn_bytes, attn_ops = 4 * B * H * S * hd * 4, 4 * B * H * S * S * hd
+    # the kernel module's own count (kernels/flash_attention.py::cost)
+    attn_ops, attn_bytes = flash_cost(B, H, H, S, S, hd, False, 4)
     # the bound of the function at f32 accuracy: both products as three
     # TF32 tensor-core products per multiply-add (as SDPA computes f32).
     # Information: the kernel's own split (Q K^T as f32 FMAs on the CUDA
@@ -832,6 +835,7 @@ def phase_main_path(state: dict) -> dict:
     for combine in ("fused", "kernel", "einsum"):
         for precision in ("f32", "bf16"):
             name = f"{combine}_{precision}"
+            before = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             out, cold, launches, s = solve(combine, precision)
             out2, steady, launches2, _ = solve(combine, precision)
@@ -849,7 +853,8 @@ def phase_main_path(state: dict) -> dict:
                           "nfe": s.nfe, "steps": s.spec.n_steps,
                           "launches": launches,
                           "max_memory_allocated":
-                              torch.cuda.max_memory_allocated()}
+                              torch.cuda.max_memory_allocated(),
+                          "memory_allocated_before": before}
     ref = outs["einsum_f32"]
     out_plain_attn, _, la, _ = solve("einsum", "f32", den=den_plain)
     require(la["flash_attention"] == 0, "plain-attention run launched flash")
@@ -871,6 +876,19 @@ def phase_main_path(state: dict) -> dict:
         solve("kernel", "f32")
     state["launches"]["dit"] = ops.launch_counts()  # window ends
     state["held"]["dit"] = held
+    # the first solve's peak, for dryrun_path's prediction: the step's own
+    # memory is the rise over what was allocated before it, plus its
+    # parameters, x_T and noise, allocated before it and live throughout
+    own = sum(t.numel() * t.element_size() for t in _leaves(params)) \
+        + sum(t.numel() * t.element_size() for t in [xT, *xis])
+    run = runs["fused_f32"]
+    state.setdefault("peaks", {})["dit_solve"] = {
+        "measured_bytes": run["max_memory_allocated"]
+        - run["memory_allocated_before"] + own,
+        "what": "main_path's fused f32 DiT-XL/2 solve (cold: eager warm-up "
+                "and capture; then a replay): max_memory_allocated less the "
+                "allocation before it, plus the parameters, x_T and noise "
+                "it was given"}
 
     # information only: the same gaps on random weights (adaLN and
     # out_proj drawn like the other projections), beside their own
@@ -4480,9 +4498,8 @@ def _causal_flash_times(shape, seed: int) -> dict:
     kk = k.repeat_interleave(H // K, dim=1)
     vv = v.repeat_interleave(H // K, dim=1)
     # causal: the scores on and below the diagonal, each a q.k and a p.v
-    pairs = B * H * S * (S + 1) // 2
-    flash_bytes = 4 * (2 * B * H * S * hd + 2 * B * K * T * hd)
-    flash_ops = 4 * pairs * hd
+    # (kernels/flash_attention.py::cost)
+    flash_ops, flash_bytes = flash_cost(B, H, K, S, T, hd, True, 4)
     return {
         "shape": list(shape),
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
@@ -4792,6 +4809,7 @@ def phase_lm_train_path(state: dict) -> dict:
         batches = lt.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         t = time.perf_counter()
         st = lt.make_init_state(model, opt, dev)()
         torch.cuda.synchronize()
@@ -4815,6 +4833,13 @@ def phase_lm_train_path(state: dict) -> dict:
             losses.append(float(m["loss"]))
             gnorms.append(float(m["gnorm"]))
         peak = torch.cuda.max_memory_allocated()
+        state.setdefault("peaks", {})[f"lm_train_{arch}"] = {
+            "measured_bytes": peak - before,
+            "what": f"lm_train_path's {arch} (init, the driver-init gradient "
+                    f"and its norm, {LM_TRAIN_STEPS} steps at "
+                    f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}): "
+                    "max_memory_allocated less the allocation before the "
+                    "init"}
         n_params = sum(t_.numel() for t_ in tree_leaves(st["params"]))
         with torch.no_grad():  # the first batch again, after the steps
             first_again = float(model.loss_fn(st["params"], first))
@@ -5825,33 +5850,299 @@ def phase_hybrid_path(state: dict) -> dict:
     return result
 
 
-def main() -> int:
-    if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
-        return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
-    if sys.argv[1:2] == ["--parallel-rank"]:  # one of parallel_path's two
-        return parallel_rank(int(sys.argv[2]), sys.argv[3])
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
-    src = os.path.join(ROOT, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: the port's package is missing ({src}/repro_torch)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, src)
+# ------------------------------------------------------------- the dry run
+#: the cells the dry run's CLI counts on the (16, 16) fake mesh
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k"),
+                ("deepseek-v3-671b", "decode_32k"),
+                ("dit-xl-2", "sample_256"))
+#: the DiT-XL/2 evaluation counted on the card and as fakes: [B, S]
+DRYRUN_EVAL = (8, 256)
+#: a predicted peak against the measured one: |predicted / measured - 1|
+#: at most this. The prediction leaves out the allocator's rounding, the
+#: cuBLAS workspaces and the CUDA-graph pool's blocks held over a capture
+#: (PERF.md section 6 has the gaps measured: 1.2% at most)
+PEAK_TOL = 0.05
 
-    dev = phase_device()
-    emit(dev)
-    timings: dict = {}
-    state: dict = {"launches": {}, "held": {}}
-    # each phase's wall seconds (the script has 1,200 in all)
-    seconds: dict = {}
+
+def _predict_lm_train(dev) -> None:
+    """``lm_train_path``'s starcoder2-3b sequence, on fake tensors on
+    ``dev``: the init, the driver-init gradient and its norm, the
+    tempering, and two steps (the later steps allocate as the second
+    does)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as lt
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    cfg = get_config("starcoder2-3b")
+    model = build_model(lt.train_config(cfg))
+    opt = lt.make_optimizer(LM_TRAIN_LR, LM_TRAIN_STEPS)
+    step = lt.make_train_step(model, opt)
+    batches = lt.make_batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+    st = lt.make_init_state(model, opt, dev)()
+    _, g0 = lt.loss_and_grads(model, st["params"], next(batches))
+    global_norm(g0)
+    del g0
+    _temper_lm(st["params"])
+    batches.step = 0
+    first = next(batches)
+    st, _ = step(st, first)
+    st, _ = step(st, next(batches))
+
+
+def _predict_dit_solve(dev) -> None:
+    """``main_path``'s first DiT-XL/2 solve (fused, f32, NFE 20), run
+    twice as the phase runs it, eager, on fake tensors on ``dev``: its
+    parameters, anchor, x_T and noise made first (they were allocated
+    before the phase's solve)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Denoiser, get_schedule, make_sampler
+    from repro_torch.core.samplers import eager
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.common import abstract_params
+    model = TransformerLM(dataclasses.replace(
+        get_config("dit-xl-2"), dtype=torch.float32, use_flash=True))
+    params = abstract_params(model.param_defs(), torch.float32, dev)
+    mu = torch.empty(SHAPE[1:], device=dev)
+    schedule = get_schedule("vp_linear")
+    den = Denoiser(lambda x, t, c: model.denoise(params, x, t) + mu,
+                   schedule, prediction="x0")
+    s = make_sampler("sa", nfe=NFE, tau=1.0, predictor_order=3,
+                     corrector_order=3, mode="PEC", combine="fused",
+                     precision="f32", schedule=schedule, prediction="x0")
+    xT = torch.empty(SHAPE, device=dev)
+    xis = [torch.empty(SHAPE, device=dev) for _ in range(s.spec.n_steps)]
+    with eager():
+        for _ in range(2):
+            s.sample(den, xT, noise=lambda i: xis[i])
+
+
+#: what each prediction replays, by the name of the peak it predicts
+PEAK_PREDICTIONS = {"dit_solve": _predict_dit_solve,
+                    "lm_train_starcoder2-3b": _predict_lm_train}
+
+
+def predict_peak(what: str, path: str) -> int:
+    """``chip_smoke.py --predict-peak WHAT PATH``: the dry run's machinery
+    on a one-rank fake group (``launch.dryrun.init_fake_world(1)``,
+    ``op_cost.CountingFakeMode``) over ``PEAK_PREDICTIONS[what]``, on fake
+    CUDA tensors: the high-water mark of live storages, written to PATH
+    as JSON. No byte is allocated on the card."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch.dryrun import init_fake_world
+    from repro_torch.launch.op_cost import CountingFakeMode
+    init_fake_world(1)
+    t = time.perf_counter()
+    mode = CountingFakeMode()
+    with mode, mode.counting() as cost:
+        PEAK_PREDICTIONS[what](torch.device("cuda"))
+    with open(path, "w") as f:
+        json.dump({"what": what, "peak_bytes": cost.peak_bytes,
+                   "flops": cost.flops, "ops": cost.ops,
+                   "seconds": time.perf_counter() - t}, f)
+    return 0
+
+
+def start_dryrun_jobs() -> dict:
+    """Started before the phases, on the host's cores while the card works
+    (``dryrun_path`` collects them): the dry run's CLI for each of
+    ``DRYRUN_CELLS`` on the (16, 16) fake mesh, and each of
+    ``PEAK_PREDICTIONS``. Each runs in a process of its own: a fake
+    process group is process-wide."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    jobs = {}
+
+    def start(name, argv, out):
+        # at the lowest priority: the phases' host work comes first
+        with open(os.path.join(work, f"{name}.log"), "w") as log:
+            proc = subprocess.Popen(["nice", "-n", "19", *argv], env=env,
+                                    cwd=ROOT, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        jobs[name] = {"proc": proc, "out": out, "log": log.name}
+
+    for arch, shape in DRYRUN_CELLS:
+        out = os.path.join(work, f"{arch}_{shape}.jsonl")
+        start(f"{arch} x {shape}", [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--out", out], out)
+    for what in PEAK_PREDICTIONS:
+        out = os.path.join(work, f"peak_{what}.json")
+        start(f"peak {what}", [sys.executable, os.path.abspath(__file__),
+                               "--predict-peak", what, out], out)
+    return {"dir": work, "jobs": jobs, "t0": time.perf_counter()}
+
+
+def stop_dryrun_jobs(jobs: dict) -> None:
+    """Kill what is left of ``start_dryrun_jobs``' processes."""
+    import signal
+    for job in jobs["jobs"].values():
+        if job["proc"].poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(job["proc"].pid, signal.SIGKILL)
+            job["proc"].wait()
+
+
+def _log_tail(path: str) -> str:
+    with open(path) as f:
+        return f.read()[-2000:]
+
+
+def phase_dryrun_path(state: dict, jobs: dict) -> dict:
+    """The dry run and its cost count (``launch.dryrun``, ``launch.cells``,
+    ``launch.op_cost``), checked on the card.
+
+    (a) The CLI's records of ``DRYRUN_CELLS`` on the fake (16, 16) mesh
+    (started with the script): per-device GB, ``fits_80GB``, FLOPs, bytes,
+    collective bytes, the dominant term. (b) One eager DiT-XL/2 evaluation
+    at ``DRYRUN_EVAL`` through flash on the card under the op counter: its
+    FLOPs equal the count of the same call on fake CUDA tensors; the
+    counted FLOPs over the evaluation's CUDA-event time, as a share of the
+    float32 peak (TF32 is off); its flash calls held against plain. (c)
+    The peaks predicted on a one-rank fake group (started with the
+    script) against the ones ``main_path`` and ``lm_train_path``
+    measured, within ``PEAK_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.op_cost import CountingFakeMode, count_ops
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.models.common import abstract_params
+    dev = torch.device("cuda")
+    checks: dict = {}
+    result: dict = {"phase": "dryrun_path"}
+
+    # (a) and (c)'s predictions: the jobs started with the script
+    t_wait = time.perf_counter()
+    done = {}
+    for name, job in jobs["jobs"].items():
+        left = 600 - (time.perf_counter() - jobs["t0"])
+        try:
+            done[name] = job["proc"].wait(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            done[name] = None
+    result["jobs_waited_s"] = time.perf_counter() - t_wait
+    result["jobs_wall_s"] = time.perf_counter() - jobs["t0"]
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        name = f"{arch} x {shape}"
+        job = jobs["jobs"][name]
+        ran = done[name] == 0 and os.path.exists(job["out"])
+        checks[f"cell {name} ran"] = ran
+        if not ran:
+            cells[name] = {"rc": done[name], "log_tail": _log_tail(job["log"])}
+            continue
+        with open(job["out"]) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        cells[name] = {
+            "fake_tensors": rec["fake_tensors"], "chips": rec["chips"],
+            "run_s": rec["run_s"],
+            "peak_gb_per_device": rec["memory"]["peak_bytes"] / 1e9,
+            "fits_80GB": rec["memory"]["fits_80GB"],
+            "flops_per_device": rec["cost"]["flops_per_device"],
+            "bytes_per_device": rec["cost"]["bytes_per_device"],
+            "collectives": rec["collectives"],
+            "collective_bytes_per_device": rec["collective_bytes_per_device"],
+            "dominant": rec["roofline"]["dominant"],
+            "roofline_s": {k: rec["roofline"][k] for k in
+                           ("compute_s", "memory_s", "collective_s")},
+            "kernels": {k: v["calls"] for k, v in
+                        rec["cost"]["kernels"].items()}}
+    result["cells"] = cells
+    emit({"progress": "dryrun_path", "cells": cells})
+
+    # (b) one DiT-XL/2 evaluation on the card, counted, against the fakes
+    ops.reset_launch_counts()  # the dryrun window starts here
+    cfg = dataclasses.replace(get_config("dit-xl-2"), dtype=torch.float32,
+                              use_flash=True)
+    model = TransformerLM(cfg)
+    params = init_params(torch.Generator(dev).manual_seed(0),
+                         model.param_defs(), torch.float32, dev)
+    B, S = DRYRUN_EVAL
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn((B, S, cfg.denoiser_latent), generator=g, device=dev)
+    t = torch.tensor(0.5, device=dev)
+    with torch.no_grad():
+        with count_ops() as counted:
+            model.denoise(params, x, t)
+        real = counted.cost
+        mode = CountingFakeMode()
+        with mode:
+            fp = abstract_params(model.param_defs(), torch.float32, dev)
+            fx = torch.empty((B, S, cfg.denoiser_latent), device=dev)
+            ft = torch.empty((), device=dev)
+            with mode.counting() as fake:
+                model.denoise(fp, fx, ft)
+        times = []
+        for _ in range(6):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            model.denoise(params, x, t)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        held: dict = {}
+        with held_against_plain(held):
+            model.denoise(params, x, t)
+    ms = statistics.median(times[1:])
+    state["launches"]["dryrun"] = ops.launch_counts()  # window ends
+    state["held"]["dryrun"] = held
+    ev = {"batch": [B, S], "flops_real": real.flops,
+          "flops_fake": fake.flops,
+          "kernels_real": {k: v["calls"] for k, v in real.kernels.items()},
+          "kernels_fake": {k: v["calls"] for k, v in fake.kernels.items()},
+          "bytes_real": real.bytes, "bytes_fake": fake.bytes,
+          "ms": ms, "ms_all": times, "tflop_per_s": real.flops / ms / 1e9,
+          "share_of_f32_peak": real.flops / (ms / 1e3) / PEAK_F32_FLOP_PER_S,
+          "f32_peak_flop_per_s": PEAK_F32_FLOP_PER_S,
+          "held_against_plain": held}
+    result["evaluation"] = ev
+    checks["evaluation_flops_equal"] = real.flops == fake.flops > 0
+    checks["evaluation_flash_charged"] = \
+        ev["kernels_real"].get("flash_attention") == \
+        ev["kernels_fake"].get("flash_attention") == cfg.n_layers
+    checks["held"] = bool(held) and all(v["ok"] for v in held.values())
+    del params, model
+
+    # (c) the predicted peaks against the measured ones
+    peaks = {}
+    for what in PEAK_PREDICTIONS:
+        job = jobs["jobs"][f"peak {what}"]
+        meas = state.get("peaks", {}).get(what)
+        rec = {"measured": meas}
+        ok = False
+        if done[f"peak {what}"] == 0 and os.path.exists(job["out"]):
+            with open(job["out"]) as f:
+                pred = json.load(f)
+            rec["predicted_bytes"] = pred["peak_bytes"]
+            rec["prediction_s"] = pred["seconds"]
+            if meas is not None:
+                rec["ratio"] = pred["peak_bytes"] / meas["measured_bytes"]
+                ok = abs(rec["ratio"] - 1) <= PEAK_TOL
+        else:
+            rec["log_tail"] = _log_tail(job["log"])
+        checks[f"peak {what} within {PEAK_TOL}"] = ok
+        peaks[what] = rec
+    result["peaks"] = peaks
+    result["peak_tolerance"] = PEAK_TOL
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    require(result["ok"], "dryrun_path checks failed: "
+            f"{[k for k, v in checks.items() if not v]}")
+    return result
+
+
+
+def run_phases(state: dict, timings: dict, seconds: dict, jobs: dict) -> None:
+    """Every phase in order, each one's wall seconds into ``seconds``; the
+    dry run's jobs (``start_dryrun_jobs``, into ``jobs``) start once the
+    kernels are built (nvcc has the host's cores until then)."""
     for name, run, emits in (
             ("build", phase_build, True),
             ("kernels", lambda: phase_kernels(timings), True),
@@ -5876,12 +6167,51 @@ def main() -> int:
             ("lm_train_path", lambda: phase_lm_train_path(state), False),
             ("lm_zoo_path", lambda: phase_lm_zoo_path(state), False),
             ("moe_path", lambda: phase_moe_path(state), False),
-            ("hybrid_path", lambda: phase_hybrid_path(state), False)):
+            ("hybrid_path", lambda: phase_hybrid_path(state), False),
+            ("dryrun_path", lambda: phase_dryrun_path(state, jobs), False)):
         t = time.perf_counter()
         out = run()
         seconds[name] = time.perf_counter() - t
         if emits:
             emit(out)
+        if name == "build":
+            jobs.update(start_dryrun_jobs())
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--cfg-rank"]:  # one of sharded_path's two ranks
+        return sharded_cfg_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of parallel_path's two
+        return parallel_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--predict-peak"]:  # one of dryrun_path's jobs
+        return predict_peak(sys.argv[2], sys.argv[3])
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: the port's package is missing ({src}/repro_torch)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+
+    dev = phase_device()
+    emit(dev)
+    timings: dict = {}
+    state: dict = {"launches": {}, "held": {}}
+    # each phase's wall seconds (the script has 1,200 in all)
+    seconds: dict = {}
+    jobs: dict = {"jobs": {}}
+    try:
+        run_phases(state, timings, seconds, jobs)
+    finally:
+        stop_dryrun_jobs(jobs)
     emit({"phase_seconds": seconds, "total": sum(seconds.values())})
 
     for path, names in PATH_KERNELS.items():

@@ -6,7 +6,16 @@ All layers MoE (no dense prefix).
 """
 
 from ..models.moe import MoEConfig
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="dbrx-132b",
+    family="moe",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="hf:databricks/dbrx-base; unverified",
+)
 
 
 def full() -> LMConfig:

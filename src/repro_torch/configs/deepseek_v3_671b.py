@@ -11,7 +11,19 @@ space (weight-absorbed); the MTP module joins the training loss.
 
 from ..models.attention import MLAConfig
 from ..models.moe import MoEConfig
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="deepseek-v3-671b",
+    family="moe",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2412.19437; hf",
+    notes="MLA compressed-KV cache (c_kv 512 + rope 64 per token, not "
+          "128 heads x 128); weight-absorbed decode path; EP over model "
+          "axis; MTP head on the training loss.",
+)
 
 
 def full() -> LMConfig:

@@ -1,6 +1,15 @@
 """DiT-S — small (~33M) denoiser (the DiT-S variant of arXiv:2212.09748)."""
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="dit-s",
+    family="denoiser",
+    shapes=("sample_64",),
+    source="arXiv:2212.09748 (DiT-S variant)",
+)
 
 
 def full() -> LMConfig:

@@ -5,10 +5,20 @@
 attention + adaLN time conditioning): ``TransformerLM.denoise``.
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
 
 LATENT_TOKENS = 256      # (32/2)^2
 LATENT_DIM = 16          # 2*2*4
+
+
+META = ArchMeta(
+    name="dit-xl-2",
+    family="denoiser",
+    shapes=("sample_256",),
+    source="arXiv:2212.09748 (paper's DiT experiments)",
+    notes="SA-Solver drives sampling; NFE = solver steps + 1.",
+)
 
 
 def full() -> LMConfig:

@@ -5,7 +5,17 @@ Tied embeddings + sqrt(d) embedding scale (Gemma convention). The huge
 vocab makes the embedding/logits layer the TP-sharding stress test.
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="gemma-7b",
+    family="dense",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2403.08295; hf",
+    notes="256k vocab-parallel embedding; GeGLU; head_dim 256 > d/H.",
+)
 
 
 def full() -> LMConfig:

@@ -4,7 +4,17 @@
 Pure full attention (no sub-quadratic layer).
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="granite-34b",
+    family="dense",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2405.04324; hf",
+    notes="MQA (kv=1): KV cache replicated over model axis, batch-sharded.",
+)
 
 
 def full() -> LMConfig:

@@ -9,7 +9,17 @@ embeddings ([B, S, d_model]), so the config runs in input_mode="embeds"
 The 2048-entry codebook head stays (it is the backbone's output layer).
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="musicgen-large",
+    family="audio",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2306.05284; hf",
+    notes="EnCodec frontend stubbed: inputs are precomputed frame embeddings.",
+)
 
 
 def full() -> LMConfig:

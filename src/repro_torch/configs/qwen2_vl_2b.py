@@ -8,7 +8,17 @@ is a stub, so the model takes precomputed patch and text embeddings
 streams (``batch["positions"]`` [3, B, S]).
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="qwen2-vl-2b",
+    family="vlm",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2409.12191; hf",
+    notes="ViT frontend stubbed: precomputed patch embeddings + M-RoPE ids.",
+)
 
 
 def full() -> LMConfig:

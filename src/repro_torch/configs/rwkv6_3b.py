@@ -6,7 +6,17 @@ head_dim=64 (RWKV convention) => 40 heads. SA-Solver samples it as a
 denoiser backbone (``RWKV6.denoise``, latent width set by the caller).
 """
 
+from . import ArchMeta
 from ..models.rwkv6 import RWKV6Config
+
+
+META = ArchMeta(
+    name="rwkv6-3b",
+    family="ssm",
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    source="arXiv:2404.05892; hf",
+    notes="long_500k runs: O(1) recurrent state, no KV cache.",
+)
 
 
 def full() -> RWKV6Config:

@@ -3,7 +3,16 @@
 40L  d_model=6144  48H (GQA kv=4)  d_ff=24576  vocab=49152.
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="starcoder2-15b",
+    family="dense",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2402.19173; hf",
+)
 
 
 def full() -> LMConfig:

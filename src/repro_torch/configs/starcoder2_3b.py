@@ -3,7 +3,16 @@
 30L  d_model=3072  24H (GQA kv=2)  d_ff=12288  vocab=49152.
 """
 
+from . import ArchMeta
 from ..models.transformer import LMConfig
+
+
+META = ArchMeta(
+    name="starcoder2-3b",
+    family="dense",
+    shapes=("train_4k", "prefill_32k", "decode_32k"),
+    source="arXiv:2402.19173; hf",
+)
 
 
 def full() -> LMConfig:

@@ -9,7 +9,18 @@ every 6 blocks with shared parameters: 13 applications, then 3 Mamba
 blocks. KV exists only at the 13 shared applications.
 """
 
+from . import ArchMeta
 from ..models.mamba2 import Mamba2Config, Zamba2Config
+
+
+META = ArchMeta(
+    name="zamba2-7b",
+    family="hybrid",
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    source="arXiv:2411.15242; unverified",
+    notes="long_500k runs: KV exists only at the 13 shared-attention "
+          "applications; Mamba state is O(1).",
+)
 
 
 def full() -> Zamba2Config:

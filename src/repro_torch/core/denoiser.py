@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed import all_gather
+from ..scope import named_scope
 from .schedules import NoiseSchedule
 
 __all__ = ["PREDICTION_TYPES", "CachedNetwork", "Denoiser",
@@ -256,12 +257,18 @@ class Denoiser:
         """One guided (or plain) network evaluation, in ``self.prediction``
         convention. Under guidance both branches run as ONE network call
         over the doubled batch, or with ``cfg_group`` one branch on each
-        of its two ranks (sharded guidance)."""
+        of its two ranks (sharded guidance).
+
+        The network runs under ``named_scope("backbone")`` (a profiler
+        range, and the scope ``launch.op_cost`` reads), as the reference
+        runs it under ``jax.named_scope("backbone")``."""
         if not self.guidance:
-            return self.network(x, t, cond)
+            with named_scope("backbone"):
+                return self.network(x, t, cond)
         xx, cc = self._cfg_pair(x, cond, cfg_group)
-        out = self.network(xx, t if cfg_group is not None else _doubled(t),
-                           cc)
+        with named_scope("backbone"):
+            out = self.network(
+                xx, t if cfg_group is not None else _doubled(t), cc)
         return self._combine(*self._halves(out, x.shape[0], cfg_group),
                              scale)
 
@@ -287,11 +294,13 @@ class Denoiser:
         if self.cached is None:
             raise ValueError("Denoiser built without cached=")
         if not self.guidance:
-            return self.cached.call(x, t, cond, feats, refresh)
+            with named_scope("backbone"):
+                return self.cached.call(x, t, cond, feats, refresh)
         xx, cc = self._cfg_pair(x, cond, cfg_group)
         if cfg_group is None:
             t, refresh = _doubled(t), _doubled(refresh)
-        out, new_feats = self.cached.call(xx, t, cc, feats, refresh)
+        with named_scope("backbone"):
+            out, new_feats = self.cached.call(xx, t, cc, feats, refresh)
         return (self._combine(*self._halves(out, x.shape[0], cfg_group),
                               scale), new_feats)
 

@@ -19,7 +19,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "cost"]
 
 #: head dims with a compiled kernel instance (dispatch in the .cu source)
 HEAD_DIMS = (16, 32, 64, 72, 80, 96, 128, 224, 256)
@@ -27,6 +27,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches made by :func:`flash_attention` in this process
 launches = 0
+
+
+def cost(B: int, H: int, K: int, S: int, T: int, hd: int, causal: bool,
+         itemsize: int) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: q and the output [B, H, S, hd]
+    and k, v [B, K, T, hd] moved once; 2 hd flops for each score's q.k
+    and 2 hd for its p.v, over the scores the call needs (causal: query
+    s sees keys 0..s, the plain version's mask)."""
+    if causal:
+        per_head = sum(min(s + 1, T) for s in range(min(S, T))) \
+            + max(S - T, 0) * T
+    else:
+        per_head = S * T
+    flops = 4 * B * H * per_head * hd
+    nbytes = itemsize * (2 * B * H * S * hd + 2 * B * K * T * hd)
+    return flops, nbytes
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True):

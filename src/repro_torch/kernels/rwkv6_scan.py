@@ -25,7 +25,7 @@ import torch
 
 from . import _build
 
-__all__ = ["rwkv6_wkv", "rwkv6_wkv_plain", "HEAD_DIMS", "CHUNKS"]
+__all__ = ["rwkv6_wkv", "rwkv6_wkv_plain", "HEAD_DIMS", "CHUNKS", "cost"]
 
 #: head dims and chunk lengths the kernel is built for
 HEAD_DIMS = (16, 32, 64)
@@ -34,6 +34,27 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches made by :func:`rwkv6_wkv` in this process
 launches = 0
+
+
+def cost(B: int, T: int, H: int, hd: int, chunk: int,
+         in_bytes: int = 4) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: r/k/v/logw read (``in_bytes``
+    each element), y written (float32), u and S0 read and S_T written,
+    once each; the operations (an exp counts as one) of the scan, the
+    strictly-lower pairwise scores, the bonus term, the decays, y and the
+    state update, per (b, h, chunk)."""
+    C = chunk
+    n = B * T * H * hd
+    nbytes = 4 * n * in_bytes + 4 * n + 4 * H * hd + 2 * 4 * B * H * hd * hd
+    pairs = C * (C - 1) // 2
+    per_chunk = (2 * C * hd                       # L, Lprev
+                 + 5 * pairs * hd                 # A: sub, exp, 2 mul, add
+                 + 3 * C * hd                     # bonus
+                 + 5 * C * hd                     # r exp(Lprev), k exp(Ltot-L)
+                 + 2 * pairs * hd + 3 * C * hd    # A v, bonus v, sum
+                 + 2 * C * hd * hd                # (r exp(Lprev)) S
+                 + 2 * C * hd * hd + 3 * hd * hd)  # S update
+    return B * H * (T // C) * per_chunk, nbytes
 
 
 def rwkv6_wkv_plain(r, k, v, logw, u, S0, *, chunk: int = 64):

@@ -22,14 +22,21 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from . import sa_update as _update
 from .sa_update import check_lane_operands, check_operands, launch_combine
 
 __all__ = ["sa_fused_update", "sa_fused_update_plain",
-           "sa_fused_update_lanes", "sa_fused_update_lanes_plain"]
+           "sa_fused_update_lanes", "sa_fused_update_lanes_plain", "cost"]
 
 #: kernel launches made by :func:`sa_fused_update` and
 #: :func:`sa_fused_update_lanes` in this process
 launches = 0
+
+
+def cost(n: int, P: int, itemsize: int, lanes: int = 1) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: ``sa_update``'s count
+    (:func:`repro_torch.kernels.sa_update.cost`) with two output rows."""
+    return _update.cost(n, P, itemsize, rows=2, lanes=lanes)
 
 
 def sa_fused_update_plain(x, buf, xi, coeffs):

@@ -25,7 +25,8 @@ from . import _build
 
 __all__ = ["sa_update", "sa_update_plain", "sa_update_lanes",
            "sa_update_lanes_plain", "combine_geometry", "launch_args",
-           "launch_combine", "MAX_ROWS", "MAX_LANES", "DTYPE_CODES"]
+           "launch_combine", "cost", "MAX_ROWS", "MAX_LANES",
+           "DTYPE_CODES"]
 
 #: most history rows the kernel is instantiated for
 MAX_ROWS = 5
@@ -45,6 +46,18 @@ MAX_LANES = 65535
 #: kernel launches made by :func:`sa_update` and :func:`sa_update_lanes`
 #: in this process
 launches = 0
+
+
+def cost(n: int, P: int, itemsize: int, rows: int = 1,
+         lanes: int = 1) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call over ``lanes`` lanes of ``n``
+    elements: x, xi and the P history rows read once, ``rows`` outputs
+    written once, each lane's ``rows`` x (P+2) float32 coefficients read
+    once; per output row 3 + 2P flops an element (``c0 x + c1 xi``, then
+    a multiply and an add per row)."""
+    flops = lanes * rows * (2 * P + 3) * n
+    nbytes = lanes * ((P + 2 + rows) * n * itemsize + rows * (P + 2) * 4)
+    return flops, nbytes
 
 
 def sa_update_plain(x, buf, xi, coeffs):

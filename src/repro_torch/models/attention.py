@@ -38,8 +38,9 @@ import torch
 import torch.utils.checkpoint
 
 from ..kernels import ops as kops
-from .common import (ParamDef, apply_mrope, apply_rope, promote_einsum,
-                     promote_matmul, rms_norm, shard_heads_dim)
+from .common import (ParamDef, apply_mrope, apply_rope, is_dtensor,
+                     promote_einsum, promote_matmul, replicated, rms_norm,
+                     shard_heads_dim, whole_along)
 
 __all__ = ["AttentionConfig", "MLAConfig", "attn_defs", "cache_shape",
            "gqa_forward", "mla_forward"]
@@ -147,7 +148,7 @@ def _sdpa_block(q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None,
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
-    qg = q.reshape(B, S, K, G, hd)
+    qg = _grouped_heads(q, K).reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     scores = scores / math.sqrt(hd)
     if softcap is not None:
@@ -155,7 +156,23 @@ def _sdpa_block(q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None,
     w = _masked_softmax(scores, causal=causal, q_offset=q_offset,
                         kv_len=kv_len)
     out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
-    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+    # the groups merge back into H heads: a gradient sharded over heads
+    # could not split into (K, G) again, so it comes back whole
+    return whole_along(out.reshape(B, S, H, v.shape[-1]), 2).to(q.dtype)
+
+
+def _grouped_heads(q, K: int):
+    """q [B,S,H,hd], its heads about to split as (K, H/K): a DTensor whose
+    heads are sharded over more parts than K divides is gathered along
+    them first (the split cannot keep such a sharding; GSPMD reshards
+    there too)."""
+    if not is_dtensor(q):
+        return q
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    parts = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                      if isinstance(p, Shard) and p.dim == 2)
+    return q if K % parts == 0 else replicated(q, 2)
 
 
 def _masked_softmax(scores, *, causal: bool, q_offset: int = 0,

@@ -24,12 +24,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ParamDef", "init_params", "tree_defs_map", "block_stacks",
+__all__ = ["ParamDef", "init_params", "abstract_params", "tree_defs_map",
+           "block_stacks",
            "layer_of", "unstack", "PartitionSpec", "STRATEGIES",
            "resolve_spec", "mesh_shape_dict", "specs_for", "batch_spec",
            "NamedSharding", "placements_for", "is_dtensor", "distribute",
-           "distribute_tree", "constrain",
-           "replicated", "activation_sharding", "shard_batch_dim",
+           "distribute_tree", "constrain", "replicated", "whole_along",
+           "activation_sharding", "shard_batch_dim",
            "shard_logits_path", "shard_moe_dispatch", "shard_heads_dim",
            "LAYER_STACKS", "param_gathering", "gathered",
            "rms_norm", "layer_norm", "ACTIVATIONS", "mlp_defs", "mlp_apply",
@@ -80,6 +81,19 @@ def init_params(generator: torch.Generator, defs, dtype=torch.float32,
     device = generator.device if device is None else device
     return tree_defs_map(lambda d: d.materialize(generator, dtype, device),
                          defs)
+
+
+def abstract_params(defs, dtype=torch.float32, device="meta"):
+    """The ParamDef tree as fake tensors of each leaf's shape and
+    ``dtype`` on ``device``, which hold no data and never allocate (the
+    dry run's parameters; the reference's ``ShapeDtypeStruct`` s), made
+    under the active ``FakeTensorMode`` or a new one."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = detect_fake_mode() or FakeTensorMode()
+    with mode:
+        return tree_defs_map(
+            lambda d: torch.empty(d.shape, dtype=dtype, device=device), defs)
 
 
 def block_stacks(params: dict) -> list:
@@ -300,20 +314,44 @@ def constrain(x, spec):
 
 def replicated(x, dim: int | None = None):
     """``x`` gathered where DTensor cannot shard an op: with ``dim``, the
-    mesh dims that shard tensor dim ``dim`` turned to ``Replicate`` (the
-    rest kept); without, every mesh dim. A plain tensor is returned as it
-    is. The sites that call it are the gathers GSPMD makes there too
-    (a gather along a sharded vocabulary dim)."""
+    mesh dims that shard tensor dim ``dim`` or hold pending sums
+    (``Partial``) turned to ``Replicate`` (the rest kept); without, every
+    mesh dim. A plain tensor is returned as it is. The sites that call it
+    are the gathers GSPMD makes there too (a gather along a sharded
+    vocabulary dim)."""
     if not is_dtensor(x):
         return x
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
     d = None if dim is None else dim % x.ndim
-    want = tuple(Replicate() if d is None or (isinstance(p, Shard)
-                                              and p.dim == d) else p
-                 for p in x.placements)
+    want = tuple(Replicate() if d is None or isinstance(p, Partial) or (
+        isinstance(p, Shard) and p.dim == d) else p for p in x.placements)
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+class _Whole(torch.autograd.Function):
+    """``replicated`` forward and backward: the gradient that comes back
+    is gathered along ``dim`` too."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return replicated(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return replicated(g, ctx.dim), None
+
+
+def whole_along(x, dim: int):
+    """``x`` with tensor dim ``dim`` gathered (:func:`replicated`), and its
+    gradient gathered along ``dim`` before it flows back: where a later
+    view splits or merges ``dim`` in a way DTensor cannot keep sharded,
+    in the forward or in the backward. A plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    return _Whole.apply(x, dim)
 
 
 # --- activation sharding ----------------------------------------------------

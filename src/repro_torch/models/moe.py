@@ -27,12 +27,13 @@ dropped ones included; p_e: the mean router probability).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .common import (ACTIVATIONS, ParamDef, mlp_apply, mlp_defs,
-                     shard_moe_dispatch)
+from .common import (ACTIVATIONS, ParamDef, is_dtensor, mlp_apply, mlp_defs,
+                     replicated, shard_moe_dispatch)
 
 __all__ = ["MoEConfig", "moe_defs", "moe_apply", "top_k_lower_first"]
 
@@ -75,7 +76,77 @@ def top_k_lower_first(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
+def _experts(p: dict, cfg: MoEConfig, held: list):
+    """The experts over their slots: ``held`` = [x_e [E, B*C, d]] ->
+    [E, B*C, d], in the stream's dtype. x_e is taken out of ``held``, so
+    each slot tensor is let go as soon as the next exists (at a large
+    capacity they are GBs each): an argument itself would stay referenced
+    by the caller until the call returns."""
+    x_e = held.pop()
+    dt = x_e.dtype
+    # groups -> experts (the MoE all-to-all): the groups keep the batch
+    # axes, the experts take the SP axes
+    x_e = shard_moe_dispatch(x_e, group_dim=1, expert_dim=0)
+    h = x_e @ p["wi"].to(dt)
+    act = ACTIVATIONS[cfg.act]
+    h = act(x_e @ p["wg"].to(dt)) * h if cfg.gated else act(h)
+    del x_e
+    h = shard_moe_dispatch(h, group_dim=1, expert_dim=0)
+    return shard_moe_dispatch(h @ p["wo"].to(dt), group_dim=1, expert_dim=0)
+
+
+def _moe_on_shards(p: dict, cfg: MoEConfig, x):
+    """:func:`moe_apply` of a DTensor stream. Each batch row is a routing
+    group of its own, so every rank routes, dispatches and combines its own
+    rows on plain tensors (DTensor has no sharding for much of that
+    bookkeeping); the expert products run on the [E, B*C, d] slots as a
+    DTensor whose groups keep the stream's batch placement, against the
+    expert weights' placements; the shared expert runs on the stream. The
+    router is gathered (it is [d, E]). The aux loss takes its per-expert
+    means over every rank's groups (an all-reduce each)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    pl = tuple(q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+               for q in x.placements)
+    if tuple(x.placements) != pl:
+        x = x.redistribute(mesh, pl)
+    slots = tuple(Shard(1) if isinstance(q, Shard) else Replicate()
+                  for q in pl)
+
+    def experts(held):
+        y = _experts(p, cfg, [DTensor.from_local(held.pop(), mesh, slots,
+                                                 run_check=False)])
+        if tuple(y.placements) != slots:
+            y = y.redistribute(mesh, slots)
+        return y.to_local()
+
+    parts = math.prod(mesh.size(i) for i, q in enumerate(pl)
+                      if isinstance(q, Shard))
+    summed = tuple(Partial() if isinstance(q, Shard) else Replicate()
+                   for q in pl)
+    whole = (Replicate(),) * len(pl)
+
+    def mean_over_ranks(m):
+        """The mean over every rank's groups of a per-rank mean."""
+        return DTensor.from_local(m / parts, mesh, summed, run_check=False
+                                  ).redistribute(mesh, whole).to_local()
+
+    # each rank's router gradient sums its own groups' part: a pending sum
+    # over the batch axes
+    local = dict(p, router=replicated(p["router"]).to_local(
+        grad_placements=summed))
+    out, aux = moe_apply(local, dataclasses.replace(cfg, n_shared=0),
+                         x.to_local(), experts=experts,
+                         means=mean_over_ranks)
+    out = DTensor.from_local(out, mesh, pl, run_check=False)
+    if cfg.n_shared > 0:
+        out = out + mlp_apply(p["shared"], x, cfg.act,
+                              cfg.gated).to(out.dtype)
+    return out, DTensor.from_local(aux, mesh, whole, run_check=False)
+
+
+def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor, *, experts=None,
+              means=None):
     """x [B, S, d] -> ``(out [B, S, d] in x's dtype, aux float32 scalar)``.
 
     Each batch row is a routing group with its own capacity C. The slots
@@ -83,7 +154,13 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
     the experts are one batched product over [E, B*C, d] with no
     transposed copy; within a group that is the reference's slot order
     ``e*C + c``. Row ``E*B*C`` is a sentinel that takes the dropped
-    choices and is cut away."""
+    choices and is cut away. ``experts`` replaces the expert products
+    ([x_e [E, B*C, d]] -> [E, B*C, d], as :func:`_experts`); ``means``
+    maps the aux loss's per-expert means over these groups to the means
+    over every group (a DTensor stream is routed shard by shard,
+    :func:`_moe_on_shards`)."""
+    if is_dtensor(x):
+        return _moe_on_shards(p, cfg, x)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = max(1, int(S * k / E * cfg.capacity_factor))
@@ -110,23 +187,15 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
     # ---- dispatch: each kept (token, choice) copied into its slot; an
     # unfilled slot holds its group's token 0 -----------------------------
     xs = x[:, :, None, :].expand(B, S, k, d).reshape(B * S * k, d)
-    x_e = torch.where(
+    run = experts if experts is not None else (
+        lambda held: _experts(p, cfg, held))
+    # the slots go in a list the experts empty: theirs is the only
+    # reference
+    y = run([torch.where(
         filled, x.new_zeros(N + 1, d).index_copy(0, rows, xs)[:N].reshape(
-            E, B, C, d), x[None, :, :1, :]).reshape(E, B * C, d)
-    # groups -> experts (the MoE all-to-all): the groups keep the batch
-    # axes, the experts take the SP axes
-    x_e = shard_moe_dispatch(x_e, group_dim=1, expert_dim=0)
-
-    # ---- experts, in the stream's dtype (each slot tensor let go as soon
-    # as the next exists: at a large capacity they are GBs each) ---------
-    h = x_e @ p["wi"].to(dt)
-    act = ACTIVATIONS[cfg.act]
-    h = act(x_e @ p["wg"].to(dt)) * h if cfg.gated else act(h)
-    del x_e
-    h = shard_moe_dispatch(h, group_dim=1, expert_dim=0)
-    y = shard_moe_dispatch(h @ p["wo"].to(dt), group_dim=1,
-                           expert_dim=0).reshape(N, d)
-    del h
+            E, B, C, d), x[None, :, :1, :]).reshape(E, B * C, d)]
+    ).reshape(N, d)
+    del xs
     contrib = (y * gates[:, None].to(dt)).to(dt)
     del y
 
@@ -147,5 +216,7 @@ def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor):
     # ---- Switch aux loss: share of routed slots x mean probability ------
     f_e = torch.mean(F.one_hot(idx_k, E).float(), dim=(0, 1, 2)) * k
     p_e = torch.mean(probs, dim=(0, 1))
+    if means is not None:
+        f_e, p_e = means(f_e), means(p_e)
     aux = cfg.aux_weight * E * torch.sum(f_e * p_e)
     return out, aux

@@ -41,6 +41,7 @@ require grad), the layers unbound once per call and, under
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -49,9 +50,11 @@ import torch.utils.checkpoint
 from ..kernels import ops as kops
 from ..kernels.rwkv6_scan import rwkv6_wkv_plain
 from ..tree import tree_leaves
-from .common import (ParamDef, gathered, layer_norm, layer_of,
-                     promote_matmul, replicated, shard_batch_dim,
-                     softmax_cross_entropy, tree_defs_map, unstack)
+from .common import (ParamDef, gathered, is_dtensor, layer_norm, layer_of,
+                     promote_einsum, promote_matmul, replicated,
+                     shard_batch_dim,
+                     softmax_cross_entropy, tree_defs_map, unstack,
+                     whole_along)
 from .transformer import timestep_embedding
 
 __all__ = ["RWKV6Config", "RWKV6", "wkv_sequential", "wkv_chunked",
@@ -165,6 +168,22 @@ def group_norm(x, gamma, beta, n_groups, eps=64e-5):
     return xg.reshape(B, T, d) * gamma.float() + beta.float()
 
 
+def _heads(x, H: int):
+    """[B, T, H*hd] -> [B, T, H, hd]. A DTensor whose last dim is split
+    over more parts than H divides (or holds pending sums) is gathered
+    first: the split into heads cannot keep such a sharding (GSPMD
+    reshards there too)."""
+    B, T, _ = x.shape
+    if is_dtensor(x):
+        from torch.distributed.tensor import Partial, Shard
+        parts = math.prod(
+            x.device_mesh.size(i) for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == 2)
+        if H % parts or any(isinstance(p, Partial) for p in x.placements):
+            x = replicated(x, -1)
+    return x.reshape(B, T, H, -1)
+
+
 class RWKV6:
     def __init__(self, cfg: RWKV6Config):
         self.cfg = cfg
@@ -240,17 +259,21 @@ class RWKV6:
         sx = _token_shift(xf, shift_state) - xf              # (sx - x)
 
         z = xf + sx * p["mu_x"]
-        dd = torch.tanh(z @ p["ts_w1"]).reshape(B, T, 5, -1)  # [B,T,5,ts]
-        deltas = torch.einsum("btfk,fkd->btfd", dd, p["ts_w2"])  # [B,T,5,d]
+        # the five low-rank mixes split the product's last dim: gathered
+        # first where it is sharded (DTensor cannot split such a dim)
+        dd = torch.tanh(replicated(promote_matmul(z, p["ts_w1"]), -1)
+                        ).reshape(B, T, 5, -1)                 # [B,T,5,ts]
+        deltas = promote_einsum("btfk,fkd->btfd", dd, p["ts_w2"])  # [B,T,5,d]
         mix = p["mu"][None, None] + deltas                   # [B,T,5,d]
         xw, xk, xv, xr, xg = [xf + sx * mix[:, :, i] for i in range(5)]
 
-        logw = -torch.exp(p["w0"] + torch.tanh(xw @ p["wa"]) @ p["wb"])
-        logw = torch.clamp(logw, -8.0, -1e-5).reshape(B, T, H, hd)
-        r = (xr @ p["wr"]).reshape(B, T, H, hd)
-        k = (xk @ p["wk"]).reshape(B, T, H, hd)
-        v = (xv @ p["wv"]).reshape(B, T, H, hd)
-        g = F.silu(xg @ p["wg"])
+        logw = -torch.exp(p["w0"] + promote_matmul(
+            torch.tanh(promote_matmul(xw, p["wa"])), p["wb"]))
+        logw = _heads(torch.clamp(logw, -8.0, -1e-5), H)
+        r = _heads(promote_matmul(xr, p["wr"]), H)
+        k = _heads(promote_matmul(xk, p["wk"]), H)
+        v = _heads(promote_matmul(xv, p["wv"]), H)
+        g = F.silu(promote_matmul(xg, p["wg"]))
 
         if chunked and cfg.use_kernel:
             y, S = kops.wkv(r, k, v, logw, p["u"], S0, chunk=cfg.chunk_size)
@@ -261,8 +284,11 @@ class RWKV6:
             y, S = wkv_chunked(r, k, v, logw, p["u"], S0, cfg.chunk_size)
         else:
             y, S = wkv_sequential(r, k, v, logw, p["u"], S0)
-        y = group_norm(y.reshape(B, T, d), p["gn_g"], p["gn_b"], H)
-        out = ((y * g) @ p["wo"]).to(x.dtype)
+        # heads merged and split again by the norm: kept whole along d
+        # both ways where a mesh would split d other than by heads
+        y = whole_along(group_norm(whole_along(y.reshape(B, T, d), -1),
+                                   p["gn_g"], p["gn_b"], H), -1)
+        out = promote_matmul(y * g, p["wo"]).to(x.dtype)
         return out, xf[:, -1, :], S
 
     def _channel_mix(self, p, x, shift_state):
@@ -270,8 +296,9 @@ class RWKV6:
         sx = _token_shift(xf, shift_state) - xf
         xk = xf + sx * p["mu_k"]
         xr = xf + sx * p["mu_r"]
-        kk = torch.square(F.relu(xk @ p["wk"]))
-        out = (torch.sigmoid(xr @ p["wr"]) * (kk @ p["wv"])).to(x.dtype)
+        kk = torch.square(F.relu(promote_matmul(xk, p["wk"])))
+        out = (torch.sigmoid(promote_matmul(xr, p["wr"]))
+               * promote_matmul(kk, p["wv"])).to(x.dtype)
         return out, xf[:, -1, :]
 
     def _block(self, p, x, cache, *, chunked: bool):
@@ -353,7 +380,8 @@ class RWKV6:
     def prefill(self, params, batch, cache):
         """The prompt ``batch["tokens"]`` [B, S] from ``cache``'s state ->
         ``(last logits [B, 1, V], new cache)``."""
-        x = F.embedding(batch["tokens"], params["embed"]).to(self.cfg.dtype)
+        x = F.embedding(batch["tokens"],
+                        replicated(params["embed"], 0)).to(self.cfg.dtype)
         x, cache = self._run(params, x, cache, chunked=True)
         return promote_matmul(x[:, -1:], params["lm_head"]).float(), cache
 
@@ -361,7 +389,8 @@ class RWKV6:
         """tokens [B, 1] -> ``(logits [B, 1, V], new cache)``; ``index``
         is unused (the state carries the whole context)."""
         del index
-        x = F.embedding(tokens, params["embed"]).to(self.cfg.dtype)
+        x = F.embedding(tokens,
+                        replicated(params["embed"], 0)).to(self.cfg.dtype)
         return self._lm(params, x, cache, chunked=False)
 
     def denoise(self, params, z, t):

@@ -134,7 +134,8 @@ PATH_KERNELS = {"dit": ("sa_update", "sa_fused", "flash_attention"),
                 "sample_moe": ("sa_fused", "flash_attention"),
                 "hybrid": ("sa_fused", "flash_attention"),
                 "parallel": ("flash_attention",),
-                "dryrun": ("flash_attention",)}
+                "dryrun": ("flash_attention",),
+                "wide_history": ("sa_update", "sa_fused", "flash_attention")}
 TOL = {
     "combine_f32": "|kernel - plain| <= 1e-6 + 1e-6 |plain|",
     "attention_f32": "|kernel - plain| <= 2e-5 max(1, max|plain|)",
@@ -168,6 +169,18 @@ REQ_SHAPE = SHAPE[1:]
 #: lanes of the step scheduler's running batch (and the lane entries'
 #: timing)
 SERVE_LANES = 8
+#: history widths past the combine kernels' template instances (P 1..5):
+#: the runtime-P kernel, held bit for bit against the plain versions
+WIDE_P = (6, 8, 16)
+#: the runtime-P kernel's timed widths, at the main path's n in f32
+WIDE_TIMED_P = (6, 16)
+#: head dims without a kernel instance of their own, each run through the
+#: smallest instance that holds it (kernels/flash_attention.py,
+#: instance_for: 16, 32, 64, 128, 224, 224, 256), and an odd one (33,
+#: through 64: the output's element-wise stores)
+FREE_HEAD_DIMS = (8, 20, 33, 40, 100, 136, 200, 250)
+#: the wide-history solve's predictor and corrector orders (P6C6 PEC)
+WIDE_ORDER = 6
 
 
 def emit(obj) -> None:
@@ -296,15 +309,17 @@ def _ptxas_summary(lines) -> list[str]:
     """One line per kernel instance: name, template types and ints,
     registers, spills."""
     out, name, spill = [], None, ""
-    pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|flash_kernel|"
-                     r"wkv_kernel)I((?:f|13__nv_bfloat16)*)Li(\d+)E"
-                     r"(?:Li(\d+)E)?")
+    pat = re.compile(r"(sa_update_kernel|sa_fused_kernel|sa_rows_kernel|"
+                     r"flash_kernel|wkv_kernel)I((?:f|13__nv_bfloat16)*)Li(\d+)E"
+                     r"(?:Li(\d+)E)?(?:Lb([01])E)?")
     for ln in lines:
         m = pat.search(ln)
         if "Compiling entry function" in ln and m:
             dts = re.findall(r"f|13__nv_bfloat16", m.group(2))
             params = ["f32" if d == "f" else "bf16" for d in dts]
             params += [g for g in m.group(3, 4) if g]
+            # flash's padded variant (a head dim below the instance's)
+            params += ["padded"] if m.group(5) == "1" else []
             name = f"{m.group(1)}<{','.join(params)}>"
         elif "spill" in ln:
             spill = ln.strip()
@@ -340,11 +355,12 @@ def phase_build() -> dict:
                  if ln.startswith(instance + ":")]
         require(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
                 "loads" in lines[0], f"{instance} spills: {lines}")
-    # every combine instance: 2 dtypes x P 1..5 x 2 kernels
+    # every combine instance: 2 dtypes x (P 1..5 x 2 kernels, and the
+    # runtime-P kernel's R = 1 and 2)
     combine = res["sources"]["sa_combine"]["ptxas"]
     spills = [ln for ln in combine if "0 bytes spill stores, 0 bytes spill "
               "loads" not in ln]
-    require(len(combine) == 20 and not spills,
+    require(len(combine) == 24 and not spills,
             f"sa_combine: {len(combine)} instances, spilling: {spills}")
     return res
 
@@ -372,6 +388,79 @@ def _lane_inputs(L, shape, P, dtype, seed):
     _, _, _, c = _combine_inputs((1,), P, torch.float32, seed)
     lanes = 1.0 + 0.1 * torch.arange(L, device="cuda", dtype=torch.float32)
     return x, buf, xi, (c[None] * lanes[:, None, None]).contiguous()
+
+
+def wide_combine_cases() -> list:
+    """The combine entries at ``WIDE_P`` history rows (the runtime-P
+    kernel), each output ``torch.equal`` to its plain version: sa_update
+    and sa_fused, solo and over SERVE_LANES lanes, on the vector path and
+    on the scalar one (the main path's n as a view one element into its
+    storage; a ragged n), float32 and bfloat16."""
+    import torch
+    from repro_torch.kernels import ops
+    cases = []
+    for P in WIDE_P:
+        for dtype in (torch.float32, torch.bfloat16):
+            for shape, offset in ((SHAPE, 0), ((math.prod(SHAPE),), 1),
+                                  ((4, 100, 7), 0)):
+                x, buf, xi, c = (_offset_view(t, offset) for t in
+                                 _combine_inputs(shape, P, dtype, seed=P))
+                outs = [(ops.sa_update(x, buf, xi, c[0]),
+                         ops.sa_update(x, buf, xi, c[0], mode="plain"))]
+                outs += zip(ops.sa_fused_update(x, buf, xi, c),
+                            ops.sa_fused_update(x, buf, xi, c, mode="plain"))
+                torch.cuda.synchronize()
+                ok = all(torch.equal(a, b) for a, b in outs)
+                cases.append({"kernel": "sa_update+sa_fused", "P": P,
+                              "shape": list(shape), "offset": offset,
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "bitwise_plain": ok, "ok": ok})
+            for shape in (REQ_SHAPE, (4, 100, 7)):
+                x, buf, xi, c = _lane_inputs(SERVE_LANES, shape, P, dtype,
+                                             seed=P + 1)
+                c0 = c[:, 0].contiguous()
+                outs = [(ops.sa_update_lanes(x, buf, xi, c0),
+                         ops.sa_update_lanes(x, buf, xi, c0, mode="plain"))]
+                outs += zip(ops.sa_fused_update_lanes(x, buf, xi, c),
+                            ops.sa_fused_update_lanes(x, buf, xi, c,
+                                                      mode="plain"))
+                torch.cuda.synchronize()
+                ok = all(torch.equal(a, b) for a, b in outs)
+                cases.append({"kernel": "sa_update_lanes+sa_fused_lanes",
+                              "P": P, "lanes": SERVE_LANES,
+                              "shape": list(shape),
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "bitwise_plain": ok, "ok": ok})
+    return cases
+
+
+def flash_instance_pairs() -> list:
+    """Head dim 64 through the hd-72 instance and 224 through the hd-256
+    one, each ``torch.equal`` to its own instance's output: the two share
+    their key tile and m-tiles, and the wider one's zero columns add
+    exact zeros to each score's FMA chain and to P V (float32 and
+    bfloat16, both masks, DiT-XL/2's shape and a ragged GQA 4:1 one)."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    cases = []
+    for hd, wide in ((64, 72), (224, 256)):
+        for (B, H, K, n) in ((8, 16, 16, 256), (2, 8, 2, 129)):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _attn_inputs(B, H, K, n, n, hd, dtype, seed=hd + n)
+                for causal in (False, True):
+                    own = flash_attention.flash_attention(q, k, v,
+                                                          causal=causal)
+                    through = flash_attention.flash_attention(
+                        q, k, v, causal=causal, instance=wide)
+                    torch.cuda.synchronize()
+                    eq = bool(torch.equal(own, through))
+                    cases.append({"kernel": "flash_attention", "head_dim": hd,
+                                  "instance": wide,
+                                  "shape": [B, H, K, n, n, hd],
+                                  "causal": causal,
+                                  "dtype": str(dtype).replace("torch.", ""),
+                                  "bitwise_own_instance": eq, "ok": eq})
+    return cases
 
 
 def _offset_view(t, offset: int):
@@ -469,9 +558,22 @@ def combine_times(timings: dict) -> dict:
                               "share_of_bound": b_ms / ms,
                               "operands_fit_l2": n_bytes < L2_BYTES})
             del x, buf, xi, c
+    # the runtime-P kernel at the main path's n (f32): P 6 and 16
+    wide, n = [], math.prod(SHAPE)
+    for P in WIDE_TIMED_P:
+        x, buf, xi, c = _combine_inputs(SHAPE, P, torch.float32, seed=14)
+        for name in ("sa_update", "sa_fused"):
+            fn, plain, lib, _, rows = _combine_fns(name, x, buf, xi, c)
+            (b_ms, by), n_bytes = combine_bound(rows, n, P, 4)
+            wide.append({"kernel": name, "n": n, "P": P, "dtype": "float32",
+                         "ms": time_ms(fn), "plain_ms": time_ms(plain),
+                         "library_ms": time_ms(lib), "bound_ms": b_ms,
+                         "bound_by": by, "bytes": n_bytes})
+        del x, buf, xi, c
     return {"launch_floor_ms": floor_ms,
             "launch_floor_call": "zero_() of a one-element CUDA tensor",
             "copy_yardsticks": copies, "combine_sweep": sweep,
+            "combine_runtime_p": wide,
             "lane_entries": lane_times(floor_ms),
             "lane_entries_tune": lane_times(floor_ms, TUNE_LANES,
                                             TUNE_GMM_SHAPE)}
@@ -578,6 +680,7 @@ def phase_kernels(timings: dict) -> dict:
                               "sa_update_err": e1,
                               "sa_fused_err": max(e2, e3),
                               "ok": ok1 and ok2 and ok3})
+    cases += wide_combine_cases()
     attn = [  # (B, H, K, S, T, hd, causal)
         (8, 16, 16, 256, 256, 72, False),   # DiT-XL/2
         (8, 16, 16, 256, 256, 72, True),
@@ -606,6 +709,12 @@ def phase_kernels(timings: dict) -> dict:
         (2, 8, 2, 129, 129, 224, False),
         (8, 32, 32, 512, 512, 224, True),
         (8, 32, 32, 256, 256, 224, True),
+        # head dims without an instance of their own (through the smallest
+        # instance that holds them): GQA 4:1, lengths at the edges of that
+        # instance's key tiles (64 keys to hd 128, 32 above)
+        *[(2, 8, 2, n, n, hd, causal) for hd in FREE_HEAD_DIMS
+          for n in ((63, 64, 65, 129) if hd <= 128 else (31, 32, 33, 65))
+          for causal in (False, True)],
     ]
     for (B, H, K, S, T, hd, causal) in attn:
         for dtype in (torch.float32, torch.bfloat16):
@@ -683,6 +792,7 @@ def phase_kernels(timings: dict) -> dict:
                               "sa_fused_lanes_err": max(e2, e3),
                               "lanes_equal_solo_launches": solo,
                               "ok": ok1 and ok2 and ok3 and solo})
+    cases += flash_instance_pairs()
     bad = [c for c in cases if not c["ok"]]
     emit({"phase": "kernels", "ok": not bad, "tolerance": TOL,
           "cases": cases})
@@ -719,10 +829,12 @@ def phase_kernels(timings: dict) -> dict:
         "shape": [B, H, S, hd]}
     f = timings["flash_attention"]
     f["no_slower_than_library"] = f["ms"] <= f["library_ms"]
-    # the head-dim-224 instance at zamba2-7b's two shapes
+    # the head-dim-224 instance at zamba2-7b's two shapes; the denoiser's
+    # also through the hd-256 instance (the same inputs; information)
     for name, seed in (("lm", 41), ("denoiser", 43)):
         timings[f"flash_attention_hd224_{name}"] = _causal_flash_times(
-            HYBRID_FLASH_SHAPES[name], seed=seed)
+            HYBRID_FLASH_SHAPES[name], seed=seed,
+            through=256 if name == "denoiser" else None)
     # the WKV call of the RWKV6-3B denoiser (f32 inputs, as the model's)
     args = _wkv_inputs(*WKV_SHAPE, torch.float32, torch.float32, seed=5)
     timings["rwkv6_wkv"] = {
@@ -932,6 +1044,100 @@ def phase_main_path(state: dict) -> dict:
     require(set(held) == set(PATH_KERNELS["dit"]),
             f"held calls missing: {held}")
     state["tame"] = (model, params, mu, schedule)
+    return result
+
+
+def phase_wide_history_path(state: dict) -> dict:
+    """DiT-XL/2 (tame weights, f32) solved by SA at NFE 20 with predictor
+    and corrector order ``WIDE_ORDER`` (PEC, tau 1), wider than the
+    combine kernels' template instances: under combine="kernel" (6 rows
+    in a predictor call, 7 in a corrector call) and "fused" (6), through
+    the runtime-P kernel. Each held against the einsum solve at
+    GAP_LIMIT, every launch count exact; then one eager solve of each with
+    every kernel call held against its plain version, recording the rows
+    each combine call stacked."""
+    import torch
+    from repro_torch.core import Denoiser, make_sampler
+    from repro_torch.kernels import ops
+    from repro_torch.models.tame import tame_networks
+    dev = torch.device("cuda")
+    model, params, mu, schedule = _tame_dit_xl2(state)
+    den = Denoiser(tame_networks(model, params, mu)[0], schedule,
+                   prediction="x0")
+
+    def sampler(combine):
+        return make_sampler("sa", nfe=NFE, tau=1.0,
+                            predictor_order=WIDE_ORDER,
+                            corrector_order=WIDE_ORDER, mode="PEC",
+                            combine=combine, precision="f32",
+                            schedule=schedule, prediction="x0")
+
+    g = torch.Generator(dev).manual_seed(1)
+    xT = sampler("einsum").init_noise(g, SHAPE)
+    xis = [torch.randn(SHAPE, generator=g, device=dev)
+           for _ in range(sampler("einsum").spec.n_steps)]
+    ops.reset_launch_counts()  # the wide-history window starts here
+    runs, outs = {}, {}
+    for combine in ("kernel", "fused", "einsum"):
+        s = sampler(combine)
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = s.sample(den, xT, noise=lambda i: xis[i])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        want = expected_launches(s, model.cfg.n_layers)
+        outs[combine] = out.float()
+        runs[combine] = {"cold_s": secs, "steps": s.spec.n_steps,
+                         "nfe": s.nfe, "launches": launches,
+                         "launches_exact": launches == want,
+                         "finite": bool(torch.isfinite(out).all()),
+                         "shape_ok": tuple(out.shape) == SHAPE}
+    rows: dict = {}
+    originals = {n: getattr(ops, n) for n in ("sa_update", "sa_fused_update")}
+
+    def rows_of(name, fn):
+        def call(x, buf, xi, coeffs, **kw):
+            rows.setdefault(name, set()).add(int(buf.shape[0]))
+            return fn(x, buf, xi, coeffs, **kw)
+        return call
+
+    held: dict = {}
+    for n, f in originals.items():
+        setattr(ops, n, rows_of(n, f))
+    try:
+        with held_against_plain(held):
+            for combine in ("kernel", "fused"):
+                sampler(combine).sample(den, xT, noise=lambda i: xis[i])
+    finally:
+        for n, f in originals.items():
+            setattr(ops, n, f)
+    state["launches"]["wide_history"] = ops.launch_counts()  # window ends
+    state["held"]["wide_history"] = held
+    gaps = {f"{c}_vs_einsum_f32": rel_gap(outs[c], outs["einsum"])
+            for c in ("kernel", "fused")}
+    rows = {k: sorted(v) for k, v in rows.items()}
+    checks = {
+        "launches_exact": all(r["launches_exact"] for r in runs.values()),
+        "outputs_finite": all(r["finite"] and r["shape_ok"]
+                              for r in runs.values()),
+        "gaps_within_limit": all(v <= GAP_LIMIT for v in gaps.values()),
+        "held": set(held) == set(PATH_KERNELS["wide_history"])
+        and all(v["ok"] for v in held.values()),
+        # predictor 6 rows, the kernel combine's corrector 7
+        "rows": rows == {"sa_update": [WIDE_ORDER, WIDE_ORDER + 1],
+                         "sa_fused_update": [WIDE_ORDER]}}
+    result = {"phase": "wide_history_path", "ok": all(checks.values()),
+              "sampler": {"name": "sa", "nfe": NFE, "tau": 1.0,
+                          "predictor_order": WIDE_ORDER,
+                          "corrector_order": WIDE_ORDER, "mode": "PEC"},
+              "runs": runs, "rel_gap_final": gaps, "gap_limit_f32": GAP_LIMIT,
+              "rows_per_call": rows, "held_against_plain": held,
+              "checks": checks}
+    emit(result)
+    require(result["ok"], "wide_history_path checks failed: "
+            f"{[k for k, v in checks.items() if not v]}")
     return result
 
 
@@ -4487,11 +4693,12 @@ def _lm_consistency(arch: str, layers: int = LM_CHECK_LAYERS) -> dict:
     return res
 
 
-def _causal_flash_times(shape, seed: int) -> dict:
+def _causal_flash_times(shape, seed: int, through: int | None = None) -> dict:
     """Causal flash at ``shape`` (B, H, K, S, T, hd, causal), f32: kernel,
-    plain and SDPA (on K/V repeated to H heads) ms, and the bound."""
+    plain and SDPA (on K/V repeated to H heads) ms, and the bound; with
+    ``through``, also the kernel's ms through that wider instance."""
     import torch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
     B, H, K, S, T, hd, causal = shape
     q, k, v = _attn_inputs(B, H, K, S, T, hd, torch.float32, seed=seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -4500,8 +4707,11 @@ def _causal_flash_times(shape, seed: int) -> dict:
     # causal: the scores on and below the diagonal, each a q.k and a p.v
     # (kernels/flash_attention.py::cost)
     flash_ops, flash_bytes = flash_cost(B, H, K, S, T, hd, True, 4)
+    wider = {} if through is None else {
+        f"through_hd{through}_ms": time_ms(lambda: flash_attention.flash_attention(
+            q, k, v, causal=True, instance=through))}
     return {
-        "shape": list(shape),
+        "shape": list(shape), **wider,
         "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: ops.flash_attention(
             q, k, v, causal=True, mode="plain"), inner=5, samples=20),
@@ -6147,6 +6357,8 @@ def run_phases(state: dict, timings: dict, seconds: dict, jobs: dict) -> None:
             ("build", phase_build, True),
             ("kernels", lambda: phase_kernels(timings), True),
             ("main_path", lambda: phase_main_path(state), False),
+            ("wide_history_path", lambda: phase_wide_history_path(state),
+             False),
             ("profile", lambda: phase_profile(state), True),
             ("programs_path", lambda: phase_programs_path(state), False),
             ("guided_path", lambda: phase_guided_path(state), False),

@@ -80,7 +80,6 @@ import numpy as np
 import torch
 
 from ...kernels import ops
-from ...kernels.sa_update import MAX_ROWS
 from ..coefficients import SolverTables, TableBuilder, build_tables
 from ..denoiser import lane_view
 from ..programs import StepProgram
@@ -123,30 +122,6 @@ def check_program(spec: SamplerSpec) -> StepProgram | None:
             f"program covers {L} intervals but the spec solves "
             f"{spec.n_steps} steps")
     return spec.program
-
-
-def _check_kernel_rows(spec: SamplerSpec, tables: SolverTables) -> None:
-    """Refuse a kernel combine whose calls would stack more history rows
-    than the kernels are instantiated for, before any evaluation: the
-    plain versions take any P, so the CPU would solve what the card
-    cannot."""
-    if spec.combine not in ("kernel", "fused"):
-        return
-    R = tables.pred.shape[1]
-    # a program's c_orders are 0 exactly on its predictor-only steps (the
-    # cond fallback runs the corrector combine only if some step has one)
-    corrector = (spec.corrector_order > 0 if tables.c_orders is None
-                 else bool((tables.c_orders > 0).any()))
-    # the kernel combine's corrector call stacks the predicted-point
-    # eval on top of the R history rows
-    rows = R + 1 if spec.combine == "kernel" and corrector else R
-    if rows > MAX_ROWS:
-        raise ValueError(
-            f"combine={spec.combine!r} needs {rows} history rows in one "
-            f"kernel call (table width {R}"
-            + (", plus the predicted-point evaluation" if rows > R else "")
-            + f"); the sa_update/sa_fused kernels take 1..{MAX_ROWS} rows. "
-            "Use combine='einsum', or lower the orders or program width")
 
 
 def fc_policy(spec: SamplerSpec):
@@ -257,7 +232,6 @@ def plan_from_tables(spec: SamplerSpec, tables: SolverTables):
     ride the plan as a host tuple. The host ``tables`` keep the true
     rows."""
     program = check_program(spec)
-    _check_kernel_rows(spec, tables)
     if not _use_cond_fallback(program, spec.n_steps):
         return (tables_to_arrays(tables) | _fc_plan(spec),
                 {"ts": tables.ts, "tables": tables})

@@ -45,8 +45,10 @@ SIGNATURES = {
                             _I, _P),
     },
     "flash_attention": {
+        # q, k, v, out, B, H, K, S, T, hd, instance, causal, scale, dtype,
+        # stream
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _F, _I, _P),
+                                   _I, _I, _F, _I, _P),
     },
     "rwkv6_wkv": {
         "rwkv6_wkv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -5,6 +5,16 @@
 //
 //   q [B,H,S,hd], k/v [B,K,T,hd] (contiguous, K divides H), f32 or bf16;
 //   out [B,H,S,hd] in q's dtype. q-head h reads kv-head h / (H/K) (GQA).
+//   Any head dim 1 <= hd <= 256 (the reference's documented range): an
+//   instance HD >= hd (the wrapper's instance_for) runs it. hd == HD takes
+//   the instance's exact variant (kPad false: HD-long global rows at
+//   compile time, the code it had before other head dims were taken);
+//   hd < HD its padded variant (kPad true: hd-long global rows at run
+//   time, shared tiles HD wide with columns hd..HD-1 zero, only hd columns
+//   stored). A zero column adds an exact zero to each score's FMA chain
+//   and to P V's accumulators, so hd through HD gives the bits of an
+//   instance of hd itself wherever the two share block_keys and m_tiles
+//   (64 through 72; 224 through 256).
 //   Causal (key position <= query position) or bidirectional; key positions
 //   >= T are masked in the kernel, so ragged S and T need no host padding.
 //   Softmax and accumulation in f32.
@@ -139,20 +149,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
-// Rows row0 .. row0+ROWS-1 of a [len, HD] matrix into shared rows of
-// `stride` floats, as f32; rows >= len become zeros. f32 goes by cp.async,
-// bf16 through registers. `vec`: every base pointer is 16-byte aligned, so
-// rows move in 16-byte pieces (else element by element).
-template <typename T, int HD, int ROWS>
+// Rows row0 .. row0+ROWS-1 of a [len, HD] matrix (kPad: [len, hd]) into
+// shared rows of `stride` floats, as f32; rows >= len (and columns >= hd)
+// become zeros. f32 goes by cp.async, bf16 through registers. `vec`:
+// every base pointer is 16-byte aligned (kPad: and so is every row, hd *
+// sizeof(T) a multiple of 16), so rows move in 16-byte pieces (else
+// element by element).
+template <typename T, int HD, int ROWS, bool kPad>
 __device__ __forceinline__ void load_rows(float* dst, int stride, const T* src,
-                                          int row0, int len, bool vec) {
+                                          int row0, int len, int hd,
+                                          bool vec) {
   if (vec) {
     constexpr int kVec = 16 / sizeof(T);
     constexpr int kChunks = HD / kVec;
     for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
       const int r = i / kChunks, c = (i - r * kChunks) * kVec;
-      const bool in = row0 + r < len;
-      const T* g = src + (int64_t)(in ? row0 + r : 0) * HD + c;
+      bool in = row0 + r < len;
+      const T* g;
+      if constexpr (kPad) {
+        in = in && c < hd;
+        g = src + (in ? (int64_t)(row0 + r) * hd + c : 0);
+      } else {
+        g = src + (int64_t)(in ? row0 + r : 0) * HD + c;
+      }
       float* s = dst + r * stride + c;
       if constexpr (std::is_same<T, float>::value) {
         cp_async<16>(s, g, in);
@@ -169,8 +188,14 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, const T* src,
   } else {
     for (int i = threadIdx.x; i < ROWS * HD; i += kThreads) {
       const int r = i / HD, c = i - r * HD;
-      const bool in = row0 + r < len;
-      const T* g = src + (int64_t)(in ? row0 + r : 0) * HD + c;
+      bool in = row0 + r < len;
+      const T* g;
+      if constexpr (kPad) {
+        in = in && c < hd;
+        g = src + (in ? (int64_t)(row0 + r) * hd + c : 0);
+      } else {
+        g = src + (int64_t)(in ? row0 + r : 0) * HD + c;
+      }
       float* s = dst + r * stride + c;
       if constexpr (std::is_same<T, float>::value) {
         cp_async<4>(s, g, in);
@@ -181,11 +206,11 @@ __device__ __forceinline__ void load_rows(float* dst, int stride, const T* src,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int H, int K,
-             int S, int T_len, int causal, float scale, int vec) {
+             int S, int T_len, int causal, float scale, int vec, int hd) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int KS = HD / 8;  // 8-column tiles of P*V
@@ -207,9 +232,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / K);
   const int row0 = q0 + 16 * MT * warp;  // the warp's first query row
 
-  const T* qb = q + (((int64_t)b * H + h) * S) * HD;
-  const T* kb = k + (((int64_t)b * K + kvh) * T_len) * HD;
-  const T* vb = v + (((int64_t)b * K + kvh) * T_len) * HD;
+  // global rows are HD long (kPad: hd)
+  const int row_len = kPad ? hd : HD;
+  const T* qb = q + (((int64_t)b * H + h) * S) * row_len;
+  const T* kb = k + (((int64_t)b * K + kvh) * T_len) * row_len;
+  const T* vb = v + (((int64_t)b * K + kvh) * T_len) * row_len;
 
   int k_end = T_len;
   if (causal) k_end = min(T_len, q0 + BQ);  // later keys are masked for every row
@@ -218,10 +245,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Commit groups, in order: {Q, K0}, {V0}, then per tile j: {K(j+1)} at
   // its start and {V(j+1)} at its end, so that K(j+1) loads during tile j
   // and V(j+1) during tile j+1's Q K^T.
-  load_rows<T, HD, BQ>(Qs, SR, qb, q0, S, vec);
-  load_rows<T, HD, BK>(Ks, SR, kb, 0, T_len, vec);
+  load_rows<T, HD, BQ, kPad>(Qs, SR, qb, q0, S, hd, vec);
+  load_rows<T, HD, BK, kPad>(Ks, SR, kb, 0, T_len, hd, vec);
   cp_async_commit();
-  load_rows<T, HD, BK>(Vs, SR, vb, 0, T_len, vec);
+  load_rows<T, HD, BK, kPad>(Vs, SR, vb, 0, T_len, hd, vec);
   cp_async_commit();
 
   // this thread's query rows: g + 8i (i < 2 MT) of the warp's 16 MT, the
@@ -239,7 +266,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     if (j + 1 < n_tiles)
-      load_rows<T, HD, BK>(Ks + ((j + 1) & 1) * kTile, SR, kb, k0 + BK, T_len, vec);
+      load_rows<T, HD, BK, kPad>(Ks + ((j + 1) & 1) * kTile, SR, kb, k0 + BK, T_len,
+                           hd, vec);
     cp_async_commit();
     cp_async_wait<2>();  // K(j) has landed (V(j) and K(j+1) may be in flight)
     __syncthreads();
@@ -381,11 +409,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // V(j) and K(j) consumed
-    if (j + 1 < n_tiles) load_rows<T, HD, BK>(Vs, SR, vb, k0 + BK, T_len, vec);
+    if (j + 1 < n_tiles)
+      load_rows<T, HD, BK, kPad>(Vs, SR, vb, k0 + BK, T_len, hd, vec);
     cp_async_commit();
   }
 
-  // o[mt][n][e]: row 16 mt + g + 8 (e >> 1), head dim 8n + 2t + (e & 1)
+  // o[mt][n][e]: row 16 mt + g + 8 (e >> 1), head dim 8n + 2t + (e & 1).
+  // kPad writes only the hd columns: pairs where hd is even (each pair
+  // then starts on its own 2-element boundary), else one by one.
 #pragma unroll
   for (int r = 0; r < 2 * MT; ++r) {
     float l = l_run[r];
@@ -394,69 +425,97 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int qpos = row0 + g + 8 * r;
     if (qpos >= S) continue;
-    T* orow = out + (((int64_t)b * H + h) * S + qpos) * HD + 2 * t;
+    T* orow = out + (((int64_t)b * H + h) * S + qpos) * row_len + 2 * t;
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (kPad && col >= hd) continue;
       const float x = o[r >> 1][n][(r & 1) * 2] * inv;
       const float y = o[r >> 1][n][(r & 1) * 2 + 1] * inv;
-      if constexpr (kF32) {
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x, y);
+      if (!kPad || hd % 2 == 0) {
+        if constexpr (kF32) {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x, y);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(x, y);
+        }
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(x, y);
+        if constexpr (kF32) {
+          orow[8 * n] = x;
+          if (col + 1 < hd) orow[8 * n + 1] = y;
+        } else {
+          orow[8 * n] = __float2bfloat16_rn(x);
+          if (col + 1 < hd) orow[8 * n + 1] = __float2bfloat16_rn(y);
+        }
       }
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int K, int S, int T_len, int causal, float scale,
-           cudaStream_t stream) {
+template <typename T, int HD, bool kPad>
+int launch_variant(const void* q, const void* k, const void* v, void* out,
+                   int B, int H, int K, int S, int T_len, int hd, int causal,
+                   float scale, cudaStream_t stream) {
   constexpr size_t bytes = sizeof(float) * smem_floats<HD>();
   // The limit belongs to the current device, so it is set on every launch.
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, HD, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  const int vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) == 0;
+  const int vec = (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) == 0 &&
+                  (hd * sizeof(T)) % 16 == 0;
   constexpr int BQ = block_rows<HD>();
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  flash_kernel<T, HD, kPad><<<grid, kThreads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, H, K, S, T_len,
-      causal, scale, vec);
+      causal, scale, vec, hd);
   return (int)cudaGetLastError();
 }
 
+// hd == HD: the exact variant; hd < HD: the padded one
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int K, int S, int T_len, int hd, int causal, float scale,
+           cudaStream_t stream) {
+  if (hd == HD)
+    return launch_variant<T, HD, false>(q, k, v, out, B, H, K, S, T_len, hd,
+                                        causal, scale, stream);
+  return launch_variant<T, HD, true>(q, k, v, out, B, H, K, S, T_len, hd,
+                                     causal, scale, stream);
+}
+
 template <typename T>
-int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int B, int H, int K, int S, int T_len, int causal, float scale,
-             cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 72: return launch<T, 72>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 80: return launch<T, 80>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 96: return launch<T, 96>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 224: return launch<T, 224>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, K, S, T_len, causal, scale, s);
+int dispatch(int inst, int hd, const void* q, const void* k, const void* v,
+             void* out, int B, int H, int K, int S, int T_len, int causal,
+             float scale, cudaStream_t s) {
+  if (hd < 1 || hd > inst) return (int)cudaErrorInvalidValue;
+  switch (inst) {
+    case 16: return launch<T, 16>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 32: return launch<T, 32>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 64: return launch<T, 64>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 72: return launch<T, 72>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 80: return launch<T, 80>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 96: return launch<T, 96>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 128: return launch<T, 128>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 224: return launch<T, 224>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
+    case 256: return launch<T, 256>(q, k, v, out, B, H, K, S, T_len, hd, causal, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// hd must be one of the instances in dispatch() (HEAD_DIMS in
-// flash_attention.py). dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
+// inst must be one of the instances in dispatch() (HEAD_DIMS in
+// flash_attention.py) and 1 <= hd <= inst (instance_for picks the
+// smallest). dtype: 0 = float32, 1 = bfloat16. Returns cudaErrorInvalidValue
+// for what no instance runs (no launch), else cudaGetLastError() after the
 // launch (0 = cudaSuccess); the Python wrapper raises on anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int H,
                                       int K, int S, int T_len, int hd,
-                                      int causal, float scale, int dtype,
-                                      void* stream) {
+                                      int inst, int causal, float scale,
+                                      int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(hd, q, k, v, out, B, H, K, S, T_len, causal, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(hd, q, k, v, out, B, H, K, S, T_len, causal, scale, s);
+  if (dtype == 0) return dispatch<float>(inst, hd, q, k, v, out, B, H, K, S, T_len, causal, scale, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(inst, hd, q, k, v, out, B, H, K, S, T_len, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

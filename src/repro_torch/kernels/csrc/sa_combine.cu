@@ -47,6 +47,12 @@
 // - P <= 5 is a template parameter, so the loops unroll and the
 //   accumulators stay in registers. The TPU's (8, 128) tile grain
 //   (choose_tile / lane_align) has no counterpart here.
+// - P >= 6 (the reference's kernels take any P) runs one kernel with P a
+//   runtime argument, for both entries: each block stages its lane's
+//   R x (P+2) coefficients in shared memory, and a thread loads one
+//   history row's 16-byte vector (or element) at a time and adds it
+//   before the next load, in the same order and rounding as the
+//   instances. It is right, not tuned: no P+2 loads in flight.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -202,7 +208,70 @@ sa_fused_kernel(const T* __restrict__ x, const T* __restrict__ buf,
                    coeffs + l * 2 * (P + 2), outs, n, vectorized);
 }
 
+// P >= 6: P at run time, R = 1 (sa_update) or 2 (sa_fused), lane l =
+// blockIdx.y as above. The lane's R x (P+2) coefficients are staged in
+// shared memory (dynamic, R * (P+2) floats); the arithmetic is
+// combine()'s, one history row at a time.
+template <typename T, int R>
+__global__ void __launch_bounds__(kMaxThreads)
+sa_rows_kernel(const T* __restrict__ x, const T* __restrict__ buf,
+               const T* __restrict__ xi, const float* __restrict__ coeffs,
+               T* __restrict__ out0, T* __restrict__ out1, int64_t n, int P,
+               int vectorized) {
+  extern __shared__ float c[];  // [R][P+2]
+  const int W = P + 2;
+  const int64_t l = blockIdx.y;
+  for (int i = threadIdx.x; i < R * W; i += blockDim.x)
+    c[i] = __ldg(coeffs + l * R * W + i);
+  __syncthreads();
+  x += l * n;
+  xi += l * n;
+  buf += l * P * n;
+  T* const out[2] = {out0 + l * n, R == 2 ? out1 + l * n : nullptr};
+  constexpr int V = Elem<T>::N;
+  const int64_t n_vec = vectorized ? n / V : 0;
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < n_vec;
+       v += threads) {
+    float xv[V], xiv[V], bv[V], acc[R][V];
+    Elem<T>::unpack(load16(x + v * V), xv);
+    Elem<T>::unpack(load16(xi + v * V), xiv);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[r][k] = head(c + r * W, xv[k], xiv[k]);
+    for (int j = 0; j < P; ++j) {
+      Elem<T>::unpack(load16(buf + j * n + v * V), bv);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          acc[r][k] = __fadd_rn(acc[r][k], __fmul_rn(c[r * W + 2 + j], bv[k]));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      *reinterpret_cast<uint4*>(out[r] + v * V) = Elem<T>::pack(acc[r]);
+  }
+  for (int64_t e = n_vec * V + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < n; e += threads) {
+    const float xe = Elem<T>::load(x + e), xie = Elem<T>::load(xi + e);
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = head(c + r * W, xe, xie);
+    for (int j = 0; j < P; ++j) {
+      const float b = Elem<T>::load(buf + j * n + e);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(c[r * W + 2 + j], b));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) Elem<T>::store(out[r] + e, acc[r]);
+  }
+}
+
 constexpr int kMaxLanes = 65535;  // gridDim.y
+// the runtime-P kernel's coefficients fit the static shared-memory default
+constexpr int kMaxCoeffBytes = 48 * 1024;
 
 struct Launch {
   const void *x, *buf, *xi, *coeffs;
@@ -243,6 +312,23 @@ int launch(const Launch& a) {
 }
 
 template <typename T>
+int launch_rows(const Launch& a, int P) {
+  const int R = a.out1 ? 2 : 1;
+  const size_t bytes = sizeof(float) * R * ((size_t)P + 2);
+  if (bytes > (size_t)kMaxCoeffBytes) return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.blocks, a.lanes);
+  if (a.out1)
+    sa_rows_kernel<T, 2><<<grid, a.threads, bytes, a.stream>>>(
+        (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
+        (T*)a.out0, (T*)a.out1, a.n, P, a.vectorized);
+  else
+    sa_rows_kernel<T, 1><<<grid, a.threads, bytes, a.stream>>>(
+        (const T*)a.x, (const T*)a.buf, (const T*)a.xi, (const float*)a.coeffs,
+        (T*)a.out0, nullptr, a.n, P, a.vectorized);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int dispatch(const Launch& a, int P) {
   if (!runnable<T>(a)) return (int)cudaErrorInvalidValue;
   switch (P) {
@@ -251,7 +337,7 @@ int dispatch(const Launch& a, int P) {
     case 3: return launch<T, 3>(a);
     case 4: return launch<T, 4>(a);
     case 5: return launch<T, 5>(a);
-    default: return (int)cudaErrorInvalidValue;
+    default: return P >= 6 ? launch_rows<T>(a, P) : (int)cudaErrorInvalidValue;
   }
 }
 
@@ -263,9 +349,10 @@ int dispatch(const Launch& a, int P, int dtype) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. blocks and threads come from
-// combine_geometry; vectorized says that every pointer and n are 16-byte
-// aligned. lanes (1..65535) combines of n elements each: x, xi and the
+// dtype: 0 = float32, 1 = bfloat16. P >= 1 (1..5 template instances;
+// from 6 the runtime-P kernel, while its R x (P+2) coefficients fit 48 KB
+// of shared memory). blocks and threads come from combine_geometry;
+// vectorized says that every pointer and n are 16-byte aligned. lanes (1..65535) combines of n elements each: x, xi and the
 // outputs [lanes, n], buf [lanes, P, n], coeffs [lanes, P+2] (sa_update)
 // or [lanes, 2, P+2] (sa_fused); a solo combine is lanes = 1. Returns
 // cudaErrorInvalidValue for what the kernels cannot run (no launch), else

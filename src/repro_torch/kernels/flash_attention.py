@@ -9,6 +9,12 @@ on the CUDA cores (the plain version's own rounding), P V on the tensor
 cores as three TF32 products per multiply-add, running max/sum and the
 accumulator in registers, ragged T masked in the kernel).
 ``flash_attention_plain`` is the same function in plain PyTorch.
+
+Any head dim 1..256 runs, the range the reference's kernel documents
+(``src/repro/kernels/flash_attention.py``: tiles sized for hd <= 256):
+the kernel takes the head dim at run time beside its instance's
+compile-time width, and :func:`instance_for` routes a head dim to the
+smallest instance in ``HEAD_DIMS`` that holds it.
 """
 
 from __future__ import annotations
@@ -19,9 +25,10 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS", "cost"]
+__all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
+           "instance_for", "cost"]
 
-#: head dims with a compiled kernel instance (dispatch in the .cu source)
+#: the compiled kernel instances' widths (dispatch in the .cu source)
 HEAD_DIMS = (16, 32, 64, 72, 80, 96, 128, 224, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +52,17 @@ def cost(B: int, H: int, K: int, S: int, T: int, hd: int, causal: bool,
     return flops, nbytes
 
 
+def instance_for(hd: int) -> int:
+    """The kernel instance that runs head dim ``hd``: the smallest of
+    ``HEAD_DIMS`` at least ``hd`` (a head dim with an instance of its own
+    keeps it). Raises outside 1..256."""
+    if not 1 <= hd <= HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {hd}: the kernel takes 1..{HEAD_DIMS[-1]}, the range "
+            "the reference's flash kernel sizes its tiles for (hd <= 256)")
+    return next(d for d in HEAD_DIMS if d >= hd)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True):
     """q [B,H,S,hd]; k,v [B,K,T,hd] with K dividing H. f32 softmax."""
     B, H, S, hd = q.shape
@@ -62,9 +80,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return out.reshape(B, H, S, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True,
+                    instance: int | None = None):
     """The Hopper kernel: same contract as :func:`flash_attention_plain`,
-    contiguous CUDA tensors of one dtype (float32 or bfloat16) only."""
+    contiguous CUDA tensors of one dtype (float32 or bfloat16) only.
+    ``instance``: the kernel instance to run (one of ``HEAD_DIMS``, at
+    least the head dim); None takes :func:`instance_for`'s."""
     global launches
     _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type != "cuda":
@@ -81,8 +102,10 @@ def flash_attention(q, k, v, *, causal: bool = True):
     K, T = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != hd or K < 1 or H % K:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} has no kernel instance; have {HEAD_DIMS}")
+    inst = instance_for(hd) if instance is None else instance
+    if inst not in HEAD_DIMS or inst < hd:
+        raise ValueError(f"instance {inst} cannot run head dim {hd}; have "
+                         f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     out = torch.empty_like(q)
@@ -90,7 +113,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, K, S,
-        T, hd, int(causal), 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
+        T, hd, inst, int(causal), 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
+        stream)
     _build.check(rc, "flash_attention")
     launches += 1
     return out

@@ -8,6 +8,10 @@ Coefficients arrive as one f32 vector [P+2] = (decay, noise, b_0..b_{P-1}).
 rows, f32 accumulation, one write. ``sa_update_plain`` is the same
 function in plain PyTorch; the CPU path and the card-side checks use it.
 
+P 1..5 run template instances of the kernel; P >= 6 one kernel with P
+at run time (the reference's kernels take any P), with the same
+arithmetic and rounding, so every P is bitwise the plain version.
+
 ``sa_update_lanes`` launches the same kernel over L lanes, each with its
 own operands and coefficient vector (the reference's per-lane step calls
 the Pallas kernel under ``jax.vmap``); a solo call is one lane. Lane l's
@@ -25,11 +29,11 @@ from . import _build
 
 __all__ = ["sa_update", "sa_update_plain", "sa_update_lanes",
            "sa_update_lanes_plain", "combine_geometry", "launch_args",
-           "launch_combine", "cost", "MAX_ROWS", "MAX_LANES",
-           "DTYPE_CODES"]
+           "launch_combine", "cost", "MAX_LANES", "DTYPE_CODES"]
 
-#: most history rows the kernel is instantiated for
-MAX_ROWS = 5
+#: shared memory the runtime-P kernel stages a lane's rows x (P+2)
+#: float32 coefficients in (the static default of a block)
+COEFF_BYTES = 48 * 1024
 #: operand dtypes the combine kernels take, with their C codes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads per block at large n; the blocks of that size an SM keeps
@@ -181,8 +185,12 @@ def check_operands(x, buf, xi, coeffs, rows: int) -> None:
         raise TypeError(f"x, buf and xi must share a dtype: {x.dtype}, "
                         f"{buf.dtype}, {xi.dtype}")
     P = buf.shape[0]
-    if not 1 <= P <= MAX_ROWS:
-        raise ValueError(f"history rows P={P}; the kernel takes 1..{MAX_ROWS}")
+    if P < 1:
+        raise ValueError(f"history rows P={P}; the kernel takes P >= 1")
+    if rows * (P + 2) * 4 > COEFF_BYTES:
+        raise ValueError(f"history rows P={P}: {rows} x (P+2) float32 "
+                         f"coefficients exceed the kernel's {COEFF_BYTES} "
+                         "bytes of shared memory")
     if tuple(buf.shape[1:]) != tuple(x.shape) or xi.shape != x.shape:
         raise ValueError(f"shapes: x {tuple(x.shape)}, buf {tuple(buf.shape)}, "
                          f"xi {tuple(xi.shape)}")

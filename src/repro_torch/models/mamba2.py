@@ -53,9 +53,11 @@ import torch.utils.checkpoint
 
 from ..tree import tree_leaves
 from .attention import AttentionConfig, attn_defs, cache_shape, gqa_forward
-from .common import (ParamDef, gathered, layer_of, mlp_apply, mlp_defs,
-                     promote_matmul, replicated, rms_norm, shard_batch_dim,
-                     softmax_cross_entropy, tree_defs_map, unstack)
+from .common import (ParamDef, gathered, is_dtensor, layer_of, mlp_apply,
+                     mlp_defs, promote_matmul, replicated, rms_norm,
+                     shard_batch_dim,
+                     softmax_cross_entropy, tree_defs_map, unstack,
+                     whole_along)
 from .transformer import timestep_embedding
 
 __all__ = ["Mamba2Config", "Zamba2Config", "Zamba2", "ssd_sequential",
@@ -110,6 +112,23 @@ def _segsum(logd):
     return S.masked_fill(~mask, float("-inf"))
 
 
+class _DenseGrad(torch.autograd.Function):
+    """Identity whose gradient goes back in contiguous layout. DTensor
+    (torch 2.13) hands back the gradient of a transposed bfloat16-to-
+    float32 copy with a shard laid out heads-major while its global
+    strides say row-major, and the view that merges (heads, head dim)
+    back into the model dim then fails on the shard (zamba2-7b x
+    train_4k on the (2, 16, 16) mesh)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.clone(memory_format=torch.contiguous_format)
+
+
 def ssd_chunked(x, dt, A, B, C, D, h0, chunk: int = 32):
     """Chunked SSD, the same function as :func:`ssd_sequential` (rounded
     in another order): the reference's per-chunk einsums as batched
@@ -121,6 +140,8 @@ def ssd_chunked(x, dt, A, B, C, D, h0, chunk: int = 32):
     if T % chunk != 0:
         raise ValueError(f"T={T} not divisible by chunk={chunk}")
     n, N, rep = T // chunk, B.shape[3], H // B.shape[2]
+    if is_dtensor(x):
+        x = _DenseGrad.apply(x)
 
     def heads(a, w):  # [B,T,H(,w)] -> [B,H,n,C(,w)], float32
         a = a.float().transpose(1, 2)
@@ -128,8 +149,13 @@ def ssd_chunked(x, dt, A, B, C, D, h0, chunk: int = 32):
 
     xc = heads(x, P)
     dtc = heads(dt, 0)
-    Bc = heads(B.repeat_interleave(rep, dim=2), N)
-    Cc = heads(C.repeat_interleave(rep, dim=2), N)
+    # B and C repeated over their group's heads; under DTensor the heads
+    # dim gathered, and its gradient with it: a gradient split over the
+    # heads cannot be viewed back as (groups, heads per group) where the
+    # split does not divide the groups (zamba2-7b x train_4k on the
+    # (2, 16, 16) mesh: 2 groups of 56 heads, 16 ways)
+    Bc = heads(whole_along(B.repeat_interleave(rep, dim=2), 2), N)
+    Cc = heads(whole_along(C.repeat_interleave(rep, dim=2), 2), N)
     logd = dtc * A[:, None, None]                             # <= 0
     Lcum = torch.cumsum(logd, dim=-1)                         # [B,H,n,C]
     Ltot = Lcum[..., -1]                                      # [B,H,n]

@@ -205,6 +205,32 @@ def test_full_size_cells_run_on_fake_meshes(arch, shape, mesh):
     _check_record(arch, shape, rec, smoke=False)
 
 
+_C6_CHILD = r'''
+import dataclasses, json
+from repro_torch.launch import cells
+from repro_torch.launch.dryrun import run_cell
+full = cells.get_config
+# zamba2-7b at full width, cut to one Mamba block
+cells.get_config = lambda arch: dataclasses.replace(full(arch), n_layers=1)
+rec = run_cell("zamba2-7b", "train_4k", multi_pod=True, strategy=None,
+               verbose=False)
+print("JSON" + json.dumps(rec))
+'''
+
+
+def test_zamba2_train_cell_runs_on_the_multi_pod_mesh():
+    """zamba2-7b x train_4k on the (2, 16, 16) mesh at full width, cut to
+    one Mamba block (ROADMAP C6). Its backward used to raise: the gradient
+    of B/C repeated over the heads came back split 16 ways over the 112
+    heads, which DTensor cannot view as 2 groups of 56, and the SSD
+    input's gradient came back with a heads-major shard under row-major
+    global strides. No smaller multi-pod mesh tried (2 x {2, 4, 8, 16} x
+    {2, 4, 8, 16}, 6 of them) reproduced it."""
+    rec = _run(_C6_CHILD, {}, timeout=600)
+    assert rec["chips"] == 512 and rec["multi_pod"]
+    _check_record("zamba2-7b", "train_4k", rec, smoke=False)
+
+
 def test_cli_prints_a_cell_and_fails_loudly():
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     r = subprocess.run(

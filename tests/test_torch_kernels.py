@@ -128,6 +128,32 @@ def test_sa_fused_plain_matches_pallas(reference, shape, P, dtype):
         assert_close(_to_np(got), _to_np(ref), dtype, tol)
 
 
+@pytest.mark.parametrize("P", [6, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_combine_plains_match_pallas_past_five_rows(reference, P, dtype):
+    """History widths past the kernels' template instances (the card runs
+    them through the runtime-P kernel): both plain versions against the
+    Pallas kernels and the reference oracles, as at P 1..5."""
+    rng = np.random.default_rng(50 + P)
+    shape = (4, 100, 7)
+    (xj, xt), (bj, bt), (ij, it) = (_pair(rng.standard_normal(s), dtype)
+                                    for s in (shape, (P,) + shape, shape))
+    c = np.asarray([[0.9, 0.1] + [0.3 / (j + 1) for j in range(P)],
+                    [0.9, 0.1] + [-0.2 * (j + 1) for j in range(P)]],
+                   np.float32)
+    got = t_update_mod.sa_update_plain(xt, bt, it, torch.from_numpy(c[0]))
+    for want in (j_sa_update(xj, bj, ij, jnp.asarray(c[0]), tile=128),
+                 sa_update_ref(xj, bj, ij, jnp.asarray(c[0]))):
+        assert_close(_to_np(got), _to_np(want), dtype)
+    got_p, got_c = t_fused_mod.sa_fused_update_plain(xt, bt, it,
+                                                     torch.from_numpy(c))
+    ref_p, ref_c = j_sa_fused(xj, bj, ij, jnp.asarray(c), tile=128)
+    orc_p, orc_c = sa_fused_update_ref(xj, bj, ij, jnp.asarray(c))
+    for got, ref in ((got_p, ref_p), (got_c, ref_c), (got_p, orc_p),
+                     (got_c, orc_c)):
+        assert_close(_to_np(got), _to_np(ref), dtype, 2e-6)
+
+
 def test_sa_fused_rows_match_single_combines(reference):
     """Each fused output equals the single combine with the same packed
     row: the dual kernel is two sa_updates in one pass."""
@@ -244,6 +270,45 @@ def test_flash_attention_plain_matches_pallas_at_head_dim_224(reference, S,
             assert_scale_close(got, _to_np(want), 1e-5)
         else:
             assert_close(_to_np(got), _to_np(want), dtype)
+
+
+@pytest.mark.parametrize("hd", [8, 20, 40, 100, 200, 250])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_pallas_at_any_head_dim(reference, hd,
+                                                              causal):
+    """Head dims without a kernel instance of their own (the card runs
+    them through the smallest instance that holds them): GQA 2:1, a
+    ragged length, against the Pallas kernel in interpret mode and the
+    reference oracle, float32 held as at head dim 256."""
+    rng = np.random.default_rng(hd)
+    (qj, qt), (kj, kt), (vj, vt) = _attn(rng, 1, 4, 2, 33, 33, hd,
+                                         "float32")
+    got = t_flash_mod.flash_attention_plain(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    pallas = j_flash(qj, kj, vj, causal=causal, bq=8, bk=8)
+    ref = flash_attention_ref(qj, kj, vj, causal=causal)
+    for want in (pallas, ref):
+        assert_scale_close(got, _to_np(want), 1e-5)
+
+
+def test_flash_instance_for_takes_the_smallest_instance_that_holds_hd():
+    """Every head dim 1..256 routes to the smallest instance at least as
+    wide (an instanced one to itself); 0 and 257 are refused with the
+    reference's documented range."""
+    route = t_flash_mod.instance_for
+    for hd in range(1, 257):
+        inst = route(hd)
+        assert inst in t_flash_mod.HEAD_DIMS and inst >= hd
+        assert all(d < hd for d in t_flash_mod.HEAD_DIMS if d < inst)
+    assert {hd: route(hd) for hd in (1, 8, 16, 17, 20, 33, 40, 64, 65, 72,
+                                     73, 100, 129, 136, 200, 224, 225, 250,
+                                     256)} == {
+        1: 16, 8: 16, 16: 16, 17: 32, 20: 32, 33: 64, 40: 64, 64: 64,
+        65: 72, 72: 72, 73: 80, 100: 128, 129: 224, 136: 224, 200: 224,
+        224: 224, 225: 256, 250: 256, 256: 256}
+    for hd in (0, 257):
+        with pytest.raises(ValueError, match=r"1\.\.256.*hd <= 256"):
+            route(hd)
 
 
 def test_flash_dispatch_has_an_instance_for_every_head_dim():
@@ -766,7 +831,7 @@ def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
     """The C entry points return an error and launch nothing for a block
     size or grid they have no instance for, a lane count outside
     1..65535, the vector path on unaligned operands or a vector flag other
-    than 0 and 1, or P outside 1..5."""
+    than 0 and 1, or no history row (P < 1)."""
     x, buf, xi, c = _combine_card_inputs(card, (4096,), 3, torch.float32)
     xo, bo, xio, co = _combine_card_inputs(card, (4096,), 3, torch.float32,
                                            offset=1)
@@ -779,8 +844,39 @@ def test_combine_kernels_refuse_a_geometry_they_cannot_run(card):
             assert _launch_combine(x, buf, xi, coeffs, lanes=lanes)[0] != 0
     assert _launch_combine(xo, bo, xio, co[0], vectorized=1)[0] != 0
     with pytest.raises(ValueError, match="history rows"):
-        ops.sa_update(x, torch.zeros(6, 4096, device=card), xi,
-                      torch.zeros(8, device=card))
+        ops.sa_update(x, torch.zeros(0, 4096, device=card), xi,
+                      torch.zeros(2, device=card))
+    empty = torch.zeros(0, 4096, device=card)
+    for coeffs in (c[0, :2].contiguous(), c[:, :2].contiguous()):
+        assert _launch_combine(x, empty, xi, coeffs)[0] != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((8, 256, 16), 0), ((32768,), 1),
+                                          ((4, 100, 7), 0)])
+@pytest.mark.parametrize("P", [6, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernels_past_five_rows_equal_plain_on_card(card, shape,
+                                                            offset, P, dtype):
+    """The runtime-P kernel (P >= 6) keeps the plain chain's order and
+    rounding: both entries, solo and over 8 lanes, on the vector and the
+    scalar path, bit for bit."""
+    x, buf, xi, c = _combine_card_inputs(card, shape, P, dtype, offset)
+    outs = [(ops.sa_update(x, buf, xi, c[0]),
+             ops.sa_update(x, buf, xi, c[0], mode="plain")),
+            *zip(ops.sa_fused_update(x, buf, xi, c),
+                 ops.sa_fused_update(x, buf, xi, c, mode="plain"))]
+    L = 8
+    lx, lb, lxi = (torch.stack([t * (1 + 0.1 * l) for l in range(L)])
+                   for t in (x, buf, xi))
+    lc = torch.stack([c * (1 + 0.1 * l) for l in range(L)]).contiguous()
+    lc0 = lc[:, 0].contiguous()
+    outs += [(ops.sa_update_lanes(lx, lb, lxi, lc0),
+              ops.sa_update_lanes(lx, lb, lxi, lc0, mode="plain")),
+             *zip(ops.sa_fused_update_lanes(lx, lb, lxi, lc),
+                  ops.sa_fused_update_lanes(lx, lb, lxi, lc, mode="plain"))]
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, ref) for got, ref in outs)
 
 
 #: (B, H, K, S = T, hd, causal) for the kernel on the card: the main path's
@@ -819,6 +915,44 @@ def test_flash_kernel_matches_plain_on_card(card, B, H, K, S, hd, causal,
     ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
     assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
                  str(dtype).replace("torch.", ""), 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [8, 20, 33, 40, 100, 136, 200, 250])
+@pytest.mark.parametrize("S", [1, 31, 33, 65, 129])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_any_head_dim_on_card(card, hd, S, causal, dtype):
+    """Head dims without an instance of their own, through the smallest
+    instance that holds them (rows hd long, hd..HD-1 zero in the tiles,
+    only hd columns written): GQA 4:1, lengths at the key tiles' edges."""
+    g = torch.Generator(card).manual_seed(hd + S)
+    rnd = lambda s: torch.randn(s, generator=g, device=card).to(dtype)
+    q, k, v = rnd((2, 8, S, hd)), rnd((2, 2, S, hd)), rnd((2, 2, S, hd))
+    got = ops.flash_attention(q, k, v, causal=causal)
+    ref = ops.flash_attention(q, k, v, causal=causal, mode="plain")
+    assert_close(got.cpu().float().numpy(), ref.cpu().float().numpy(),
+                 str(dtype).replace("torch.", ""), 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,wide", [(64, 72), (224, 256)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wider_instance_gives_the_same_bits_on_card(card, hd, wide,
+                                                          causal, dtype):
+    """A head dim through a wider instance with the same key tile and
+    m-tiles gives its own instance's bits: the zero columns add exact
+    zeros."""
+    g = torch.Generator(card).manual_seed(hd)
+    rnd = lambda s: torch.randn(s, generator=g, device=card).to(dtype)
+    q, k, v = rnd((2, 8, 129, hd)), rnd((2, 2, 129, hd)), rnd((2, 2, 129, hd))
+    own = t_flash_mod.flash_attention(q, k, v, causal=causal)
+    through = t_flash_mod.flash_attention(q, k, v, causal=causal,
+                                          instance=wide)
+    assert torch.equal(own, through)
+    with pytest.raises(ValueError, match="cannot run head dim"):
+        t_flash_mod.flash_attention(q, k, v, causal=causal, instance=hd - 8)
 
 
 @pytest.mark.gpu

@@ -61,6 +61,10 @@ ARCH = "zamba2-7b"
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
 QK_SCALE = 0.1
+#: a bf16 decode's logits at any one step no farther than this from the
+#: reference's float32 ones (scale error): over model seeds 0-7 at smoke
+#: width the port's worst step is 0.0528, the reference's own bf16 0.0494
+BF16_STEP_CAP = 0.06
 
 
 def scale_err(got, ref) -> float:
@@ -326,20 +330,24 @@ def test_loss_and_gradients_match_reference(z_pair):
 def test_prefill_and_decode_match_reference(dtype):
     """prefill(16) (the chunked SSD) into a cache of 20, then decode steps
     16..19: logits at each step and every cache leaf (the Mamba conv and
-    SSM states, the shared KV cache), from a cache in the config's dtype;
-    the bf16 stream and cache are held by ``_bf16_close``, against the
-    reference's float32 run."""
+    SSM states, the shared KV cache), from a cache in the config's dtype.
+    The bf16 stream and cache are held against the reference's float32
+    run: the cache leaves by ``_bf16_close``; the logits by its bar on
+    the worst step over prefill and decode together (each step's error is
+    a draw of bf16 rounding: the port and the reference round at the same
+    points, not alike), and every step under ``BF16_STEP_CAP``."""
     jm, jp, tm, tp = _model_pair(dtype)
     j32 = _model_pair("f32")[0] if dtype == "bf16" else None
     toks = _tokens(tm.cfg.vocab_size, 2, 20, seed=4)
     tt = torch.from_numpy(toks.astype(np.int64))
     P, S = 16, 20
+    steps = {}  # bf16: position -> (port's error, reference's own)
 
     def check(got, ref, ref32, what):
         if j32 is None:
             assert scale_err(_np(got), ref) <= 1e-5, what
         else:
-            assert _bf16_close(got, ref, ref32), what
+            steps[what] = (scale_err(_np(got), ref32), scale_err(ref, ref32))
 
     def leaves(tree):
         return dict(paths_and_leaves(jax.tree.map(np.asarray, tree)))
@@ -347,8 +355,12 @@ def test_prefill_and_decode_match_reference(dtype):
     def check_cache(cache, jcache, jcache32):
         ref, ref32 = leaves(jcache), leaves(jcache32 or jcache)
         for k, v in paths_and_leaves(cache):
-            check(v, ref[k].astype(np.float32),
-                  ref32[k].astype(np.float32), k)
+            ref_k, ref32_k = ref[k].astype(np.float32), \
+                ref32[k].astype(np.float32)
+            if j32 is None:
+                assert scale_err(_np(v), ref_k) <= 1e-5, k
+            else:
+                assert _bf16_close(v, ref_k, ref32_k), k
 
     batch = {"tokens": jnp.asarray(toks[:, :P])}
     jlg, jcache = jm.prefill(jp, batch, jm.init_cache(2, S))
@@ -365,6 +377,11 @@ def test_prefill_and_decode_match_reference(dtype):
         lg, cache = tm.decode_step(tp, tt[:, i:i + 1], cache, i)
         check(lg, jlg, jlg32, i)
     check_cache(cache, jcache, jcache32)
+    if j32 is not None:
+        port = max(e for e, _ in steps.values())
+        own = max(e for _, e in steps.values())
+        assert port <= 1.25 * own + 1e-6, steps
+        assert all(e <= BF16_STEP_CAP for e, _ in steps.values()), steps
     assert cache["mamba"]["h"].dtype == torch.float32
     assert cache["shared_kv"]["k"].dtype == tm.cfg.cache_dtype
 
@@ -655,3 +672,40 @@ def test_one_driver_step_matches_the_reference():
         errs = _leaf_errs(state[part], j_state[part])
         assert max(errs.values()) <= 1e-5, (part, sorted(
             errs.items(), key=lambda kv: -kv[1])[:3])
+
+
+def _bf16_step_errors(seed: int) -> dict:
+    """{position: (the port's bf16 error, the reference's own)} of
+    ``test_prefill_and_decode_match_reference``'s logits (prefill(16),
+    then decode steps 16..19) at model seed ``seed``, each the scale
+    error against the reference's float32 run."""
+    jm, jp, tm, tp = _model_pair("bf16", seed=seed)
+    j32 = _model_pair("f32", seed=seed)[0]
+    toks = _tokens(tm.cfg.vocab_size, 2, 20, seed=4)
+    tt = torch.from_numpy(toks.astype(np.int64))
+    P, S = 16, 20
+    batch = {"tokens": jnp.asarray(toks[:, :P])}
+    jlg, jc = jm.prefill(jp, batch, jm.init_cache(2, S))
+    jlg32, jc32 = j32.prefill(jp, batch, j32.init_cache(2, S))
+    lg, cache = tm.prefill(tp, {"tokens": tt[:, :P]}, tm.init_cache(2, S))
+    out = {"prefill": (scale_err(_np(lg), jlg32), scale_err(jlg, jlg32))}
+    for i in range(P, S):
+        step = jnp.asarray(toks[:, i:i + 1])
+        jlg, jc = jm.decode_step(jp, step, jc, i)
+        jlg32, jc32 = j32.decode_step(jp, step, jc32, i)
+        lg, cache = tm.decode_step(tp, tt[:, i:i + 1], cache, i)
+        out[i] = (scale_err(_np(lg), jlg32), scale_err(jlg, jlg32))
+    return out
+
+
+if __name__ == "__main__":
+    # the per-step ratios behind BF16_STEP_CAP and the bar on the worst
+    # step (ROADMAP C7): PYTHONPATH=src python tests/test_torch_mamba2.py
+    for seed in range(8):
+        errs = _bf16_step_errors(seed)
+        port = max(e for e, _ in errs.values())
+        own = max(e for _, e in errs.values())
+        print(f"seed {seed}: " + ", ".join(
+            f"{k} {e:.4f}/{o:.4f} ({e / o:.2f})"
+            for k, (e, o) in errs.items())
+            + f"; worst {port:.4f}/{own:.4f} ({port / own:.3f})")

@@ -109,12 +109,16 @@ def _ref_solve(name, program_json, n_steps, precision="f32", history="ring",
 
 
 def solve_both(prog: StepProgram, n_steps, *, name="sa", combine="einsum",
-               precision="f32", history="ring", denoise_final=True):
+               precision="f32", history="ring", denoise_final=True,
+               ref_combine=None):
     """(reference output, port output) of one program on the same x_T and
-    the reference's noise."""
+    the reference's noise; the reference's combine is ``ref_combine``, by
+    default its fused one against the port's fused one and its einsum
+    otherwise."""
+    if ref_combine is None:
+        ref_combine = "fused" if combine == "fused" else "einsum"
     x_T, xis, ref = _ref_solve(name, prog.to_json(), n_steps, precision,
-                               history, denoise_final,
-                               "fused" if combine == "fused" else "einsum")
+                               history, denoise_final, ref_combine)
     ts = tsamplers.make_sampler(
         name, schedule=SCHED, n_steps=n_steps, program=prog,
         combine=combine, precision=precision, history=history,
@@ -392,22 +396,40 @@ def test_modes_constant():
 
 
 # ----------------------------------------- table width against the kernels
+def _rows_per_call(monkeypatch):
+    """{entry: set of history rows} of the combine calls made while the
+    monkeypatch is active."""
+    rows = {}
+    for name in ("sa_update", "sa_fused_update"):
+        fn = getattr(ops, name)
+
+        def call(x, buf, xi, coeffs, _fn=fn, _name=name, **kw):
+            rows.setdefault(_name, set()).add(int(buf.shape[0]))
+            return _fn(x, buf, xi, coeffs, **kw)
+        monkeypatch.setattr(ops, name, call)
+    return rows
+
+
 @pytest.mark.parametrize("combine", ["kernel", "fused"])
 @pytest.mark.parametrize("kw", [
     dict(predictor_order=6, corrector_order=6),
     dict(program=StepProgram(width=6)),
     dict(program=StepProgram(predictor_order=(1, 2, 3, 6, 3, 3))),
 ], ids=["order6", "width6", "track6"])
-def test_kernel_combines_refuse_tables_wider_than_the_kernels(combine, kw):
-    """Wider than the combine kernels' 1..5 rows: refused before any model
-    evaluation, on the CPU as on the card (the plain versions would take
-    any width)."""
-    calls = []
-    with pytest.raises(ValueError, match=r"1\.\.5 rows.*'einsum'"):
-        s = _sa(n_steps=6, combine=combine, **kw)
-        s.sample(lambda x, t: calls.append(t) or x, XT)
-    assert not calls
-    _solve(_sa(n_steps=6, combine="einsum", **kw))
+def test_kernel_combines_refuse_tables_wider_than_the_kernels(
+        reference, monkeypatch, combine, kw):
+    """Tables wider than the combine kernels' template instances (P 1..5;
+    the card runs them through the runtime-P kernel): the port's solve
+    with the kernel or fused combine matches the reference's solve with
+    the same combine (its Pallas kernels in interpret mode) on the
+    reference's draws, at 1e-5 in f32, with six history rows a call (and
+    seven in the kernel combine's corrector call)."""
+    prog = kw.get("program") or StepProgram(**kw)
+    rows = _rows_per_call(monkeypatch)
+    ref, got = solve_both(prog, 6, combine=combine, ref_combine=combine)
+    assert rel(got, ref) < 1e-5
+    assert max(max(r) for r in rows.values()) == \
+        (7 if combine == "kernel" and prog.corrector_order != 0 else 6)
 
 
 @pytest.mark.parametrize("kw,kernel_ok", [
@@ -417,15 +439,43 @@ def test_kernel_combines_refuse_tables_wider_than_the_kernels(combine, kw):
     (dict(program=StepProgram(mode="P", width=5)), True),
     (dict(program=StepProgram(mode=("P", "PEC") * 3, width=5)), False),
 ])
-def test_kernel_combine_counts_the_corrector_row(kw, kernel_ok):
+def test_kernel_combine_counts_the_corrector_row(reference, monkeypatch, kw,
+                                                 kernel_ok):
     """The kernel combine's corrector call stacks the predicted-point eval
-    on the table's rows, so it takes one row less than the fused one."""
-    _sa(n_steps=6, combine="fused", **kw)
-    if kernel_ok:
-        _sa(n_steps=6, combine="kernel", **kw)
-    else:
-        with pytest.raises(ValueError, match="predicted-point"):
-            _sa(n_steps=6, combine="kernel", **kw)
+    on the table's rows, one row more than the fused combine's calls
+    (``kernel_ok``: the kernel combine's widest call fits the five-row
+    template instances). Both solve, agree with each other and with the
+    reference's solve of the same combine."""
+    prog = kw.get("program") or StepProgram(**kw)
+    widest, outs = {}, {}
+    for combine in ("kernel", "fused"):
+        rows = _rows_per_call(monkeypatch)
+        ref, outs[combine] = solve_both(prog, 6, combine=combine,
+                                        ref_combine=combine)
+        assert rel(outs[combine], ref) < 1e-5, combine
+        widest[combine] = max(max(r) for r in rows.values())
+        monkeypatch.undo()
+    corrector = prog.corrector_order != 0 and prog.mode != "P"
+    assert widest["kernel"] == widest["fused"] + int(corrector)
+    assert (widest["kernel"] <= 5) == kernel_ok
+    assert rel(outs["kernel"], outs["fused"].float().numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("combine", ["kernel", "fused"])
+def test_kernel_combines_take_an_eight_row_program(reference, monkeypatch,
+                                                   combine):
+    """A program eight rows wide (order 8 from its eighth step, PEC and
+    PECE, tau varying) against the reference's solve of the same combine,
+    at 1e-5 in f32."""
+    prog = StepProgram(predictor_order=(1, 2, 3, 4, 5, 6, 7, 8, 8, 8),
+                       corrector_order=(1, 2, 3, 4, 5, 6, 7, 8, 8, 7),
+                       mode=("PEC",) * 6 + ("PECE",) * 4,
+                       tau=(1.0, 0.8) * 5)
+    rows = _rows_per_call(monkeypatch)
+    ref, got = solve_both(prog, 10, combine=combine, ref_combine=combine)
+    assert rel(got, ref) < 1e-5
+    assert max(max(r) for r in rows.values()) == \
+        (9 if combine == "kernel" else 8)
 
 
 # ----------------------------------------------------------- JSON / presets

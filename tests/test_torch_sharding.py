@@ -418,8 +418,6 @@ elif job == "cfg":
     kw = dict(noise=noise, cond=cond)
     s25 = torch.full((K,), 2.5)
     res["mesh"] = (tuple(mesh.mesh.shape), mesh.mesh_dim_names)
-    res["one_call"] = S.sample_batched(S.build_plan(spec_g), den_g, xT,
-                                       guidance_scale=s25, **kw)
     res["sharded"] = S.Sampler(spec_g).sample_sharded(
         den_g, xT, mesh=mesh, cfg_axis="cfg", guidance_scale=s25, **kw)
     s1 = S.Sampler(spec_g).sample_sharded(
@@ -432,22 +430,52 @@ elif job == "cfg":
     res["cfg_rank"] = dist.get_rank(mesh.get_group("cfg"))
     for name, fc in [("interval_2", 2), ("residual", ("residual", 0.05))]:
         plan = S.build_plan(spec_g.replace(feature_cache=fc))
-        res[name] = {"unsharded": S.sample_batched(
-            plan, den_g, xT, guidance_scale=s25, **kw)}
         seen.clear()
         graph_gate.reset_fires()
-        res[name]["sharded"] = S.sample_sharded(
+        res[name] = {"sharded": S.sample_sharded(
             plan, den_g, xT, mesh=mesh, cfg_axis="cfg", guidance_scale=s25,
-            **kw)
+            **kw)}
         res[name]["refresh"] = list(seen)
         res[name]["fires"] = graph_gate.fires("cpu")
     res["stats"] = S.compile_cache_stats()
-    # the reference's tame weights and anchor, converted by the parent
+    # the same solve on one process with each branch its own backbone call
+    # at this rank's lanes: the batch each call of sharded guidance has
+    # (the one-call pair runs the backbone at four times that batch, and
+    # the host's GEMMs may round the adaLN projection's M = 2 unlike M = 8)
+    net = tame_networks(dit, params, lambda seq: 0.0)[0]
+
+    def split(x, t, c):
+        h = x.shape[0] // 2
+        t0, t1 = (t[:h], t[h:]) if t.dim() else (t, t)
+        return torch.cat([net(x[:h], t0, c[:h]), net(x[h:], t1, c[h:])])
+
+    den_split = Denoiser(split, TS, prediction="x0", guidance=True,
+                         cond_rank=1)
+    res["split_bitwise"] = torch.equal(res["sharded"][lo:hi], S.sample_batched(
+        S.build_plan(spec_g), den_split, xT[lo:hi], noise=noise[lo:hi],
+        cond=cond[lo:hi], guidance_scale=s25[lo:hi]))
+    # the solve's first evaluation (x_T at the plan's first time), before
+    # the solve amplifies any difference
+    t0 = torch.full((K,), float(S.build_plan(spec_g).ts[0]))
+    first = den_g.evaluate(xT[lo:hi], t0[lo:hi], cond[lo:hi], s25[lo:hi],
+                           cfg_group=mesh.get_group("cfg"))
+    res["first_eval"] = {
+        "sharded": first,
+        "split": den_split.evaluate(xT[lo:hi], t0[lo:hi], cond[lo:hi],
+                                    s25[lo:hi]),
+        "one_call": den_g.evaluate(xT, t0, cond, s25)[lo:hi]}
+    # the reference's tame weights and anchor, converted by the parent:
+    # sharded against unsharded solves, each policy
     _, tame_g = denoisers(inp["params"], inp["mu"])
-    res["tame"] = {name: S.sample_sharded(
-        S.build_plan(spec_g.replace(feature_cache=fc)), tame_g, xT,
-        mesh=mesh, cfg_axis="cfg", guidance_scale=s25, **kw)
-        for name, fc in [("guided", None), ("interval_2", 2)]}
+    res["tame"], res["tame_unsharded"] = {}, {}
+    for name, fc in [("guided", None), ("interval_2", 2),
+                     ("residual", ("residual", 0.05))]:
+        plan = S.build_plan(spec_g.replace(feature_cache=fc))
+        res["tame"][name] = S.sample_sharded(
+            plan, tame_g, xT, mesh=mesh, cfg_axis="cfg", guidance_scale=s25,
+            **kw)
+        res["tame_unsharded"][name] = S.sample_batched(
+            plan, tame_g, xT, guidance_scale=s25, **kw)
 torch.save(res, os.path.join(d, f"out{rank}.pt"))
 dist.destroy_process_group()
 '''
@@ -555,15 +583,9 @@ def reference_cfg_dit():
             torch.from_numpy(np.array(mu(16))))
 
 
-def test_sharded_cfg_on_4_ranks(reference, tmp_path):
-    """(c) Sharded CFG on (cfg=2, data=2) over a DiT-S smoke. On the
-    reference's tame weights: the guided solve at 2.5 and its interval-2
-    feature-cached twin against the reference's one-device guided
-    ``sample_batched`` fed its own draws. On nudged random weights (whose
-    solve turns a 1e-6 change of ``x_T`` into an O(1) one, so only the
-    port's own solves are a fit oracle): the guided solve against the
-    one-call pair, scale 1 against the unguided shard, the cached solves
-    against the unsharded ones and the refresh alike on both cfg ranks."""
+def _cfg_ranks(tmp_path):
+    """(every rank's result of the cfg job, the reference's guided and
+    interval-2 solves) on the test's inputs."""
     jnet, jcached, tparams, mu = reference_cfg_dit()
     K, M = 4, 7
     rng = np.random.default_rng(5)
@@ -585,16 +607,36 @@ def test_sharded_cfg_on_4_ranks(reference, tmp_path):
         "xT": torch.from_numpy(xT), "cond": torch.from_numpy(cond),
         "noise": torch.from_numpy(ref_noise(keys, M, (16, 8))),
         "params": tparams, "mu": mu})
+    return ranks, refs
+
+
+def test_sharded_cfg_on_4_ranks(reference, tmp_path):
+    """(c) Sharded CFG on (cfg=2, data=2) over a DiT-S smoke. On the
+    reference's tame weights: the guided solve at 2.5 and its interval-2
+    feature-cached twin against the reference's one-device guided
+    ``sample_batched`` fed its own draws, and the guided, interval-2 and
+    residual solves against the port's own one-device solves. On nudged
+    random weights (whose backbone turns a last-bit change of one GEMM
+    into 5e-5 of an evaluation, and whose solve turns that into an O(1)
+    change, so only a solve that runs the same calls is a fit oracle):
+    the solve's first evaluation and the whole solve bit for bit against
+    one process that calls the backbone on each branch at the rank's
+    lanes, scale 1 against the unguided shard, and the refresh alike on
+    both cfg ranks."""
+    ranks, refs = _cfg_ranks(tmp_path)
     for res in ranks:
         assert res["mesh"] == ((2, 2), ("cfg", "data"))
         for name in ("guided", "interval_2"):
             assert rel(res["tame"][name], refs[name]) < 1e-5, name
-        assert rel(res["sharded"], res["one_call"]) < 1e-5
+        for name in ("guided", "interval_2", "residual"):
+            assert rel(res["tame"][name], res["tame_unsharded"][name]) \
+                < 1e-5, name
+        first = res["first_eval"]
+        assert torch.equal(first["sharded"], first["split"])
+        assert rel(first["sharded"], first["one_call"]) < 1e-3
+        assert res["split_bitwise"]
         assert torch.equal(res["sharded"], ranks[0]["sharded"])
         assert res["s1_shard_bitwise"]
-        for name in ("interval_2", "residual"):
-            got = res[name]
-            assert rel(got["sharded"], got["unsharded"]) < 1e-5, name
         # the guided entry (its scale-1 call a hit) and the cached one
         # (interval and residual policies are plan data of one entry)
         assert res["stats"]["eager_entries"] == 2
@@ -611,3 +653,50 @@ def test_sharded_cfg_on_4_ranks(reference, tmp_path):
             assert fa["fires"] == fb["fires"]
     assert ranks[0]["residual"]["fires"] > 0
     assert all(isinstance(f, bool) for f in ranks[0]["interval_2"]["refresh"])
+
+
+def _batch_rounding() -> dict:
+    """On this host, one process: the cfg job's nudged DiT-S backbone on
+    rows of a batch of 2 against the same rows of a batch of 4 (relative
+    norm, per half), and a [M, 64] x [64, 384] GEMM's first two rows at
+    M = 2 against M = 4 (max abs)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.models.tame import tame_networks
+    cfg = dataclasses.replace(get_smoke("dit-s"), n_layers=4,
+                              denoiser_cond=4, dtype=torch.float32)
+    dit = TransformerLM(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = init_params(g, dit.param_defs(), torch.float32, "cpu")
+    params = torch.utils._pytree.tree_map(
+        lambda p: p + 0.02 * torch.randn(p.shape, generator=g), params)
+    net = tame_networks(dit, params, lambda seq: 0.0)[0]
+    xT = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 16, 8)).astype(np.float32))
+    cond, t = torch.eye(4, 4), torch.tensor(0.999)
+    whole = net(xT, t, cond)
+    out = {f"backbone rows {lo}:{lo + 2}, batch 2 vs 4": rel(
+        net(xT[lo:lo + 2], t, cond[lo:lo + 2]), whole[lo:lo + 2])
+        for lo in (0, 2)}
+    a, w = torch.randn(4, 64, generator=g), torch.randn(64, 384, generator=g)
+    out["gemm [M, 64] x [64, 384], M 2 vs 4"] = float(
+        (a[:2] @ w - (a @ w)[:2]).abs().max())
+    return out
+
+
+if __name__ == "__main__":
+    # the numbers behind the cfg test's oracle (ROADMAP C7):
+    #   PYTHONPATH=src python tests/test_torch_sharding.py
+    import tempfile
+    from pathlib import Path
+    for k, v in _batch_rounding().items():
+        print(f"{k}: {v:.3g}")
+    ranks, refs = _cfg_ranks(Path(tempfile.mkdtemp()))
+    for r, res in enumerate(ranks):
+        first = res["first_eval"]
+        print(f"rank {r}: first evaluation, sharded vs the one-call pair "
+              f"{rel(first['sharded'], first['one_call']):.3g}; tame, "
+              "sharded vs unsharded " + ", ".join(
+                  f"{n} {rel(res['tame'][n], res['tame_unsharded'][n]):.3g}"
+                  for n in ("guided", "interval_2", "residual")))

@@ -298,6 +298,19 @@ def test_sa_stepwise_matches_reference(reference, mode, corr, combine):
     assert_port_contract(got, batched, combine)
 
 
+@pytest.mark.parametrize("combine", ["kernel", "fused"])
+def test_sa_stepwise_six_row_history_matches_reference(reference, combine):
+    """P6C6 over 8 steps, wider than the combine kernels' template
+    instances (the card's runtime-P kernel): the lane-batched entries of
+    ``sample_batched`` and of the step protocol against the reference's
+    solve of the same combine (its Pallas kernels in interpret mode under
+    the lane vmap) on its draws, and the port's two bit for bit."""
+    kw = dict(predictor_order=6, corrector_order=6, n_steps=8,
+              combine=combine)
+    got, batched = check_against_reference(kw, stepwise_ref=False)
+    assert_port_contract(got, batched, combine)
+
+
 def test_sa_stepwise_bf16_and_no_denoise(reference):
     got, batched = check_against_reference(
         dict(precision="bf16", combine="fused"), dtype="bf16")
